@@ -1,0 +1,85 @@
+"""Carry ``nf_tpu`` variables across into the port's modules.
+
+``nf_tpu`` keeps a model's variables as a ``{'params', 'state'}`` pytree
+(``nf_tpu/core/bijector.py`` ``Variables``): nested lists for ``Chain`` /
+``Sequential`` children and dicts inside each layer.  ``load_jax_variables``
+takes that pytree with numpy arrays as leaves and copies it into the
+matching parameters and buffers.  Layout differences handled here:
+
+* ``Dense`` weights are ``(in, out)`` in ``nf_tpu`` and ``(out, in)`` here,
+  so ``v`` / ``w`` are transposed; ``g`` stays per input feature.
+* A non-affine flow ``BatchNorm`` keeps ``log_gamma`` / ``beta`` in state,
+  here as buffers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .bijectors.coupling import AffineCoupling
+from .bijectors.norm import BatchNorm
+from .core.bijector import Chain
+from .models.base import FlowModel
+from .nets.conditioners import ResBlockLinear
+from .nets.core import Activation, Sequential
+from .nets.layers import BatchNormNet, Dense
+
+
+def _copy(dst: torch.Tensor, src, name: str, transpose: bool = False) -> None:
+    a = np.asarray(src, dtype=np.float32)
+    if transpose:
+        a = a.T
+    if tuple(a.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {a.shape} does not fit {tuple(dst.shape)}")
+    dst.copy_(torch.tensor(a))
+
+
+def _load(module, params, state, path: str) -> None:
+    if isinstance(module, FlowModel):
+        _load(module.bijector, params, state, path)
+    elif isinstance(module, (Chain, Sequential)):
+        layers = module.layers
+        if len(params) != len(layers) or len(state) != len(layers):
+            raise ValueError(f"{path}: {len(params)} variable entries for "
+                             f"{len(layers)} layers")
+        for i, layer in enumerate(layers):
+            _load(layer, params[i], state[i], f"{path}[{i}]")
+    elif isinstance(module, Dense):
+        if module.weight_norm:
+            _copy(module.g, params["g"], f"{path}.g")
+            _copy(module.v, params["v"], f"{path}.v", transpose=True)
+        else:
+            _copy(module.w, params["w"], f"{path}.w", transpose=True)
+        _copy(module.b, params["b"], f"{path}.b")
+    elif isinstance(module, BatchNormNet):
+        for k in ("gamma", "beta"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+        for k in ("running_mean", "running_var"):
+            _copy(getattr(module, k), state[k], f"{path}.{k}")
+    elif isinstance(module, ResBlockLinear):
+        _load(module.net, params["net"], state["net"], f"{path}.net")
+        if module.bridge is not None:
+            _load(module.bridge, params["bridge"], state["bridge"],
+                  f"{path}.bridge")
+    elif isinstance(module, Activation):
+        pass
+    elif isinstance(module, BatchNorm):
+        src = params if module.affine else state
+        for k in ("log_gamma", "beta"):
+            _copy(getattr(module, k), src[k], f"{path}.{k}")
+        for k in ("running_mean", "running_var", "batch_mean", "batch_var"):
+            _copy(getattr(module, k), state[k], f"{path}.{k}")
+    elif isinstance(module, AffineCoupling):
+        _load(module.net, params["net"], state["net"], f"{path}.net")
+        for k in ("s_log_scale", "s_bias"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+    else:
+        raise TypeError(f"{path}: no conversion for {type(module).__name__}")
+
+
+@torch.no_grad()
+def load_jax_variables(module, var) -> dict:
+    """Copy an ``nf_tpu`` ``{'params', 'state'}`` pytree (numpy leaves) into
+    ``module``; returns its state dict."""
+    _load(module, var["params"], var["state"], type(module).__name__)
+    return module.state_dict()

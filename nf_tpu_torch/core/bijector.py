@@ -1,0 +1,66 @@
+"""Core bijector protocol (counterpart of ``nf_tpu/core/bijector.py``).
+
+In ``nf_tpu`` a bijector holds static configuration and its variables live
+in an explicit ``{'params', 'state'}`` pytree.  Here a bijector is an
+``nn.Module`` that owns its parameters and buffers; ``forward(x)`` maps data
+to latent and returns ``(y, logdet (B,))``, ``inverse(y)`` is the generative
+direction and returns the log-det of the inverse map, so summing the
+returned values along a chain always gives the log-det of the composite map
+that was applied.  ``init(generator)`` re-draws the parameters in place
+from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+def init_children(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialize every child that knows how to, in registration order."""
+    for child in module.children():
+        init = getattr(child, "init", None)
+        if init is not None:
+            init(generator)
+        else:
+            init_children(child, generator)
+
+
+class Bijector(nn.Module):
+    """Base class: subclasses implement ``forward`` and ``inverse``."""
+
+    def init(self, generator: torch.Generator) -> None:
+        """Re-draw this bijector's parameters in place."""
+        init_children(self, generator)
+
+    def forward(self, x: torch.Tensor):
+        """data -> latent. Returns ``(y, logdet)``."""
+        raise NotImplementedError
+
+    def inverse(self, y: torch.Tensor):
+        """latent -> data. Returns ``(x, logdet)``."""
+        raise NotImplementedError
+
+
+class Chain(Bijector):
+    """Sequential composition: forward in order, inverse reversed, per-layer
+    logdets summed starting from zeros."""
+
+    def __init__(self, layers: Sequence[Bijector]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        logdet = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        for layer in self.layers:
+            x, ld = layer(x)
+            logdet = logdet + ld
+        return x, logdet
+
+    def inverse(self, y):
+        logdet = torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
+        for layer in reversed(self.layers):
+            y, ld = layer.inverse(y)
+            logdet = logdet + ld
+        return y, logdet

@@ -1,0 +1,3 @@
+from .conditioners import MLP, ResBlockLinear  # noqa: F401
+from .core import Activation, Net, Sequential, relu  # noqa: F401
+from .layers import BatchNormNet, Dense  # noqa: F401

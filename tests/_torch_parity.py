@@ -1,0 +1,64 @@
+"""Shared set-up of the port's parity tests: the same model built by
+``nf_tpu`` (JAX, CPU) and by ``nf_tpu_torch`` (PyTorch, CPU), with the JAX
+variables carried across, and inputs made with numpy."""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def to_numpy(var):
+    return jax.tree.map(np.asarray, var)
+
+
+def normal(seed: int, shape, scale: float = 1.0) -> np.ndarray:
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+def jax_realnvp(D: int, layers: int, filters: int, seed: int = 0, batch: int = 64):
+    """nf_tpu RealNVP density model with its batch-norm running statistics
+    moved off their init values (as tests/test_pallas.py does), so the
+    folding of those statistics has teeth.  Returns (model, numpy var)."""
+    from nf_tpu.config import NetworkConfig
+    from nf_tpu.core import Ctx
+    from nf_tpu.models import build_model
+
+    cfg = NetworkConfig(name="realnvp", layers=layers, base_filters=filters)
+    model = build_model("realnvp", (D,), datatype="2d", cfg=cfg)
+    rng = jax.random.PRNGKey(seed)
+    var = model.init(rng)
+    x = normal(seed + 100, (batch, D))
+    var = model.data_dependent_init(var, x)
+    ctx_t = Ctx(rng=jax.random.fold_in(rng, 2), train=True)
+    fwd = jax.jit(lambda v, y: model.bijector.forward(v, y, ctx_t)[2])
+    for _ in range(3):
+        var = {"params": var["params"], "state": fwd(var, x * 1.3)}
+    return model, to_numpy(var)
+
+
+def torch_realnvp(D: int, layers: int, filters: int, var=None):
+    """The port's RealNVP density model on the CPU, with ``var`` (an
+    nf_tpu variables pytree of numpy arrays) loaded when given."""
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.convert import load_jax_variables
+    from nf_tpu_torch.models import build_model
+
+    cfg = NetworkConfig(name="realnvp", layers=layers, base_filters=filters)
+    model = build_model("realnvp", (D,), "2d", cfg, device="cpu")
+    if var is not None:
+        load_jax_variables(model, var)
+    return model
+
+
+def as_numpy(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def close(a, b, atol, rtol=0.0):
+    np.testing.assert_allclose(as_numpy(a), as_numpy(b), atol=atol, rtol=rtol)
