@@ -38,14 +38,20 @@
 //    the owner, before the next layer's input is written.  Per k step a
 //    thread does 4*TS FMAs for one float4 weight load and one TS-wide
 //    activation load, both from shared memory.
-//  * Occupancy: at F = 32 a block is 64 samples x 32 features = 128
-//    threads, so B = 8192 is 128 blocks, about one per SM of the 132.
-//    Fewer samples per block would give more blocks but re-read each
-//    coupling's weights more often; more per block leaves SMs idle.
+//  * Occupancy: at F = 32 a block is 64 samples x 32 features with TS = 2,
+//    256 threads, so B = 8192 is 128 blocks, one per SM of the 132, 8 warps
+//    each.  Among the tilings timed on an H100 (32 or 64 samples, TS 2 or
+//    4) this was the fastest in both directions: TS = 4 halves the warps
+//    per SM, 32 samples per block fetches every weight twice as often.
 //  * Weights do not fit in shared memory (4 F x F per coupling, 512 KB
-//    for n = 32, F = 32): each layer's weight is staged from L2 through a
-//    TK x FP shared buffer (the whole layer for FP <= 64) between two
-//    barriers.
+//    for n = 32, F = 32), and a block that waits on L2 at every layer is
+//    latency-bound at this occupancy.  So the weights stream through a
+//    two-slot ring of TK x FP chunks (the whole layer for FP <= 64): while
+//    one chunk is multiplied, cp.async brings the next one, across layer
+//    and coupling boundaries, and a coupling's small tensors (BN affines,
+//    biases, in-projection, head, norm) arrive the same way into a
+//    two-slot header one coupling ahead.  One barrier per chunk both
+//    publishes the chunk and the previous layer's activations.
 //  * K = 1: the in-projection is a runtime loop over the n_in conditioning
 //    rows, an outer product when D = 2.
 //  * Widths: FP is F rounded up to 8, 16, ..., 256 on the host with zero
@@ -55,6 +61,7 @@
 //  * Accurate expf / tanhf (no fast math): the results are held against
 //    the plain PyTorch version.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,11 +74,11 @@ struct Params {
   float* y;           // (B, D)
   float* ld;          // (B,)
   const float* pre;   // (n, D, 2)  forward (shift, scale) / inverse (shift, 1/scale)
-  const float* w0t;   // (n, in_max, FP)   in-projection, k-major
+  const float* w0t;   // (n, half, FP)     in-projection, k-major
   const float* vec;   // (n, 15, FP)
   const float* wrt;   // (n, 4, FP, FP)    resblock layers, k-major
-  const float* wh;    // (n, 2*out_max, FP) head: t rows, then s rows from out_max
-  const float* bh;    // (n, 2*out_max)
+  const float* wh;    // (n, 2*half, FP)   head: t rows, then s rows from half
+  const float* bh;    // (n, 2*half)
   const float* gb;    // (n, 2)            coupling (gain, bias)
   int B, D, n;
   float ld_const;
@@ -81,10 +88,21 @@ __host__ __device__ constexpr int chunk_rows(int fp) {
   return fp * fp <= 4096 ? fp : 4096 / fp;
 }
 
+__host__ __device__ constexpr int align4(int v) { return (v + 3) & ~3; }
+
+// One coupling's header in shared memory, floats from its start:
+//   vec [15][FP] | w0t [half][FP] | wh [2*half][FP] | bh [2*half] gb [2] pre [D][2]
+struct Header {
+  int w0t, wh, bh, gb, pre, size;
+  __host__ __device__ constexpr Header(int fp, int d)
+      : w0t(kNVec * fp), wh(w0t + ((d + 1) / 2) * fp), bh(wh + 2 * ((d + 1) / 2) * fp),
+        gb(bh + 2 * ((d + 1) / 2)), pre(gb + 2), size(align4(pre + 2 * d)) {}
+};
+
 // shared floats of one block; fused_stack.py::smem_bytes mirrors this
 __host__ __device__ constexpr int smem_floats(int fp, int s, int d) {
-  return 2 * fp * (s + 4) + chunk_rows(fp) * fp + d * (s + 4) +
-         2 * ((d + 1) / 2) * (s + 4) + s;
+  return 2 * fp * (s + 4) + 2 * chunk_rows(fp) * fp + 2 * Header(fp, d).size +
+         d * (s + 4) + 2 * ((d + 1) / 2) * (s + 4) + s;
 }
 
 template <int TS>
@@ -115,37 +133,88 @@ __device__ __forceinline__ void store_ts<2>(float* p, const float (&v)[2]) {
   *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
 
-__device__ __forceinline__ void ldg4(float (&v)[kTO], const float* p) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+__device__ __forceinline__ void lds4(float (&v)[kTO], const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-// acc[j][i] = sum_k w[k][o0+j] * act[k][s0+i] over k < FP.  w is one layer,
-// k-major in global memory, staged TK rows at a time through w_s.  The
-// first barrier also publishes the caller's writes to act.
-template <int FP, int S, int TS>
-__device__ __forceinline__ void layer_gemm(const float* act, const float* __restrict__ w,
-                                           float* w_s, int o0, int s0,
-                                           float (&acc)[kTO][TS]) {
-  constexpr int T = (S / TS) * (FP / kTO);
+// asynchronous copy of n floats, global -> shared, by all T threads
+template <int T>
+__device__ __forceinline__ void copy16(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += T)
+    __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+}
+
+template <int T>
+__device__ __forceinline__ void copy4(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += T) __pipeline_memcpy_async(dst + i, src + i, 4);
+}
+
+// The weight stream: chunk q is rows [k0, k0+TK) of layer l of the coupling
+// at walk step s, q = (s * 4 + l) * NCH + k0 / TK.
+template <int FP, int T, bool INV>
+struct Stream {
+  static constexpr int TK = chunk_rows(FP);
+  static constexpr int NCH = FP / TK;
+  const Params prm;
+  float* w_s;    // 2 x TK x FP
+  float* hdr;    // 2 x Header(FP, D).size
+  Header h;
+
+  __device__ int coupling(int step) const { return INV ? prm.n - 1 - step : step; }
+  __device__ const float* header(int step) const { return hdr + (step & 1) * h.size; }
+  __device__ const float* chunk(int q) const { return w_s + (q & 1) * TK * FP; }
+
+  __device__ void issue_header(int step) const {
+    const int c = coupling(step), half = (prm.D + 1) / 2;
+    float* dst = hdr + (step & 1) * h.size;
+    copy16<T>(dst, prm.vec + (size_t)c * kNVec * FP, kNVec * FP);
+    copy16<T>(dst + h.w0t, prm.w0t + (size_t)c * half * FP, half * FP);
+    copy16<T>(dst + h.wh, prm.wh + (size_t)c * 2 * half * FP, 2 * half * FP);
+    copy4<T>(dst + h.bh, prm.bh + (size_t)c * 2 * half, 2 * half);
+    copy4<T>(dst + h.gb, prm.gb + 2 * c, 2);
+    copy4<T>(dst + h.pre, prm.pre + (size_t)c * 2 * prm.D, 2 * prm.D);
+  }
+
+  // start chunk q's copy; the header of step s+1 goes with the first chunk
+  // of layer 1 of step s, so it lands a whole coupling before it is read
+  __device__ void issue(int q) const {
+    const int step = q / (4 * NCH), layer = (q / NCH) % 4, k0 = (q % NCH) * TK;
+    if (step >= prm.n) return;
+    const float* src = prm.wrt + ((size_t)(coupling(step) * 4 + layer) * FP + k0) * FP;
+    copy16<T>(w_s + (q & 1) * TK * FP, src, TK * FP);
+    if (layer == 1 && k0 == 0 && step + 1 < prm.n) issue_header(step + 1);
+  }
+};
+
+// acc[j][i] = sum_k w[k][o0+j] * act[k][s0+i] over k < FP for layer `layer`
+// of walk step `step`.  Per chunk: wait for it, one barrier (which also
+// publishes the caller's writes to act and frees the other slot), start
+// the next chunk's copy, multiply.
+template <int FP, int S, int TS, bool INV>
+__device__ __forceinline__ void layer_gemm(const Stream<FP, (S / TS) * (FP / kTO), INV>& st,
+                                           const float* act, int step, int layer,
+                                           int o0, int s0, float (&acc)[kTO][TS]) {
   constexpr int SP = S + 4;
   constexpr int TK = chunk_rows(FP);
+  constexpr int NCH = FP / TK;
 #pragma unroll
   for (int j = 0; j < kTO; ++j)
 #pragma unroll
     for (int i = 0; i < TS; ++i) acc[j][i] = 0.f;
-  for (int k0 = 0; k0 < FP; k0 += TK) {
+  for (int ch = 0; ch < NCH; ++ch) {
+    const int q = (step * 4 + layer) * NCH + ch;
+    __pipeline_wait_prior(0);
     __syncthreads();
-    const float4* src = reinterpret_cast<const float4*>(w + k0 * FP);
-    float4* dst = reinterpret_cast<float4*>(w_s);
-    for (int i = threadIdx.x; i < TK * FP / 4; i += T) dst[i] = __ldg(src + i);
-    __syncthreads();
+    st.issue(q + 1);
+    __pipeline_commit();
+    const float* w = st.chunk(q);
+    const float* a_k = act + ch * TK * SP + s0;
 #pragma unroll
     for (int kk = 0; kk < TK; ++kk) {
-      const float4 q = *reinterpret_cast<const float4*>(w_s + kk * FP + o0);
-      const float wv[kTO] = {q.x, q.y, q.z, q.w};
-      float a[TS];
-      load_ts<TS>(a, act + (k0 + kk) * SP + s0);
+      float wv[kTO], a[TS];
+      lds4(wv, w + kk * FP + o0);
+      load_ts<TS>(a, a_k + kk * SP);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
 #pragma unroll
@@ -154,15 +223,15 @@ __device__ __forceinline__ void layer_gemm(const float* act, const float* __rest
   }
 }
 
-// out[o0+j][s0+i] = relu(v[j][i] * A[j] + Bv[j]), A / Bv from vec rows
+// out[o0+j][s0+i] = relu(v[j][i] * A[j] + Bv[j]), A / Bv header vectors
 template <int S, int TS>
 __device__ __forceinline__ void store_bn_relu(float* out, const float (&v)[kTO][TS],
                                               const float* vec_a, const float* vec_b,
                                               int o0, int s0) {
   constexpr int SP = S + 4;
   float A[kTO], Bv[kTO];
-  ldg4(A, vec_a + o0);
-  ldg4(Bv, vec_b + o0);
+  lds4(A, vec_a + o0);
+  lds4(Bv, vec_b + o0);
 #pragma unroll
   for (int j = 0; j < kTO; ++j) {
     float r[TS];
@@ -181,34 +250,40 @@ fused_stack_kernel(const Params prm) {
   extern __shared__ __align__(16) float smem[];
   const int D = prm.D;
   const int half = (D + 1) / 2;  // in_max == out_max
-  float* buf_a = smem;                  // FP x SP
-  float* buf_b = buf_a + FP * SP;       // FP x SP
-  float* w_s = buf_b + FP * SP;         // TK x FP
-  float* x_s = w_s + TK * FP;           // D x SP
-  float* raw_s = x_s + D * SP;          // 2*half x SP
-  float* ld_s = raw_s + 2 * half * SP;  // S
+  const Header hd(FP, D);
+  float* buf_a = smem;                    // FP x SP
+  float* buf_b = buf_a + FP * SP;         // FP x SP
+  float* w_s = buf_b + FP * SP;           // 2 x TK x FP
+  float* hdr = w_s + 2 * TK * FP;         // 2 x hd.size
+  float* x_s = hdr + 2 * hd.size;         // D x SP
+  float* raw_s = x_s + D * SP;            // 2*half x SP
+  float* ld_s = raw_s + 2 * half * SP;    // S
+  const Stream<FP, T, INV> st{prm, w_s, hdr, hd};
 
   const int tid = threadIdx.x;
   const int o0 = (tid % (FP / kTO)) * kTO;
   const int s0 = (tid / (FP / kTO)) * TS;
   const int base = blockIdx.x * S;
 
+  st.issue_header(0);
+  st.issue(0);
+  __pipeline_commit();
   for (int i = tid; i < S * D; i += T) {
     const int s = i / D, d = i % D;
     x_s[d * SP + s] = base + s < prm.B ? prm.x[(size_t)(base + s) * D + d] : 0.f;
   }
   for (int s = tid; s < S; s += T) ld_s[s] = 0.f;
+  __pipeline_wait_prior(0);
   __syncthreads();
 
   float h[kTO][TS];    // residual stream of this thread's tile
   float acc[kTO][TS];
   for (int step = 0; step < prm.n; ++step) {
-    const int c = INV ? prm.n - 1 - step : step;
-    const int p = c & 1;
+    const int p = st.coupling(step) & 1;
     const int n_out = (D + 1 - p) / 2, n_in = (D + p) / 2;
-    const float* pre = prm.pre + (size_t)c * D * 2;
-    const float* vec = prm.vec + (size_t)c * kNVec * FP;
-    const float* wr = prm.wrt + (size_t)c * 4 * FP * FP;
+    const float* head = st.header(step);
+    const float* vec = head;
+    const float* pre = head + hd.pre;
 
     if (!INV) {
       for (int i = tid; i < D * S; i += T) {
@@ -220,14 +295,14 @@ fused_stack_kernel(const Params prm) {
 
     // in-projection h = W0 z1 + b0 (an outer product when n_in == 1)
     {
-      const float* w0 = prm.w0t + (size_t)c * half * FP;
+      const float* w0 = head + hd.w0t;
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
 #pragma unroll
         for (int i = 0; i < TS; ++i) acc[j][i] = 0.f;
       for (int k = 0; k < n_in; ++k) {
         float wv[kTO], z[TS];
-        ldg4(wv, w0 + k * FP + o0);
+        lds4(wv, w0 + k * FP + o0);
         load_ts<TS>(z, x_s + (2 * k + 1 - p) * SP + s0);
 #pragma unroll
         for (int j = 0; j < kTO; ++j)
@@ -235,7 +310,7 @@ fused_stack_kernel(const Params prm) {
           for (int i = 0; i < TS; ++i) acc[j][i] = fmaf(wv[j], z[i], acc[j][i]);
       }
       float b0[kTO];
-      ldg4(b0, vec + o0);
+      lds4(b0, vec + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
 #pragma unroll
@@ -248,16 +323,16 @@ fused_stack_kernel(const Params prm) {
     for (int r = 0; r < 2; ++r) {
       const int o = 1 + 6 * r;
       float bias[kTO];
-      layer_gemm<FP, S, TS>(buf_a, wr + (2 * r) * FP * FP, w_s, o0, s0, acc);
-      ldg4(bias, vec + (o + 2) * FP + o0);
+      layer_gemm<FP, S, TS, INV>(st, buf_a, step, 2 * r, o0, s0, acc);
+      lds4(bias, vec + (o + 2) * FP + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
 #pragma unroll
         for (int i = 0; i < TS; ++i) acc[j][i] += bias[j];
       store_bn_relu<S, TS>(buf_b, acc, vec + (o + 3) * FP, vec + (o + 4) * FP, o0, s0);
 
-      layer_gemm<FP, S, TS>(buf_b, wr + (2 * r + 1) * FP * FP, w_s, o0, s0, acc);
-      ldg4(bias, vec + (o + 5) * FP + o0);
+      layer_gemm<FP, S, TS, INV>(st, buf_b, step, 2 * r + 1, o0, s0, acc);
+      lds4(bias, vec + (o + 5) * FP + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
 #pragma unroll
@@ -270,22 +345,21 @@ fused_stack_kernel(const Params prm) {
 
     // head: raw[j][s] = sum_k wh[j][k] * buf_a[k][s] + bh[j]
     {
-      const float* wh = prm.wh + (size_t)c * 2 * half * FP;
-      const float* bh = prm.bh + (size_t)c * 2 * half;
+      const float* wh = head + hd.wh;
       for (int i = tid; i < 2 * half * S; i += T) {
         const int j = i / S, s = i % S;
         if ((j < half ? j : j - half) >= n_out) continue;
         float a = 0.f;
 #pragma unroll 8
-        for (int k = 0; k < FP; ++k) a = fmaf(__ldg(wh + j * FP + k), buf_a[k * SP + s], a);
-        raw_s[j * SP + s] = a + __ldg(bh + j);
+        for (int k = 0; k < FP; ++k) a = fmaf(wh[j * FP + k], buf_a[k * SP + s], a);
+        raw_s[j * SP + s] = a + head[hd.bh + j];
       }
     }
     __syncthreads();
 
     // coupling: one thread per sample
     {
-      const float gain = __ldg(prm.gb + 2 * c), cbias = __ldg(prm.gb + 2 * c + 1);
+      const float gain = head[hd.gb], cbias = head[hd.gb + 1];
       for (int s = tid; s < S; s += T) {
         float lsum = 0.f;
         for (int i = 0; i < n_out; ++i) {
@@ -340,7 +414,7 @@ cudaError_t launch_dir(const Params& prm, bool inverse, cudaStream_t stream) {
 
 // Plain C entry point: launches one direction on `stream` and returns the
 // cudaError_t of the launch (0 on success).  fp / samples / ts must be one
-// of the instantiated tilings below.
+// of the tilings below, fused_stack.py's TILES.
 extern "C" int nf_fused_stack(const void* x, void* y, void* ld, const void* pre,
                               const void* w0t, const void* vec, const void* wrt,
                               const void* wh, const void* bh, const void* gb,
@@ -358,10 +432,7 @@ extern "C" int nf_fused_stack(const void* x, void* y, void* ld, const void* pre,
   if (fp == FP_ && samples == S_ && ts == TS_) return (int)launch_dir<FP_, S_, TS_>(prm, inv, st);
   NF_TILING(8, 256, 4)
   NF_TILING(16, 128, 4)
-  NF_TILING(32, 64, 4)
-  NF_TILING(32, 32, 4)
   NF_TILING(32, 64, 2)
-  NF_TILING(32, 32, 2)
   NF_TILING(64, 64, 4)
   NF_TILING(128, 32, 4)
   NF_TILING(256, 32, 4)

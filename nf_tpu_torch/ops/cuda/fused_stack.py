@@ -51,7 +51,7 @@ _N_VEC = 15
 # Kernel tiling per padded width FP: (S samples per block, TS samples per
 # thread).  Each thread owns a TS x 4 (samples x features) tile of every
 # conditioner layer, so a block has (S / TS) * (FP / 4) threads.
-TILES = {8: (256, 4), 16: (128, 4), 32: (32, 2), 64: (64, 4),
+TILES = {8: (256, 4), 16: (128, 4), 32: (64, 2), 64: (64, 4),
          128: (32, 4), 256: (32, 4)}
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
 
@@ -87,8 +87,11 @@ def smem_bytes(fp: int, samples: int, dim: int) -> int:
     """Dynamic shared memory of one block; the kernel computes the same."""
     sp = samples + 4
     chunk = fp if fp * fp <= 4096 else 4096 // fp
-    out_max = (dim + 1) // 2
-    return 4 * (2 * fp * sp + chunk * fp + dim * sp + 2 * out_max * sp + samples)
+    half = (dim + 1) // 2
+    # per coupling: vec, in-projection, head, then bh / gb / pre padded to 4
+    header = (_N_VEC + 3 * half) * fp + (2 * half + 2 + 2 * dim + 3) // 4 * 4
+    return 4 * (2 * fp * sp + 2 * chunk * fp + 2 * header + dim * sp
+                + 2 * half * sp + samples)
 
 
 def _is_relu(layer) -> bool:
