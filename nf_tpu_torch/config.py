@@ -1,12 +1,12 @@
 """Configuration fields the ported model builders read.
 
 Counterpart of ``nf_tpu/config.py``: the port keeps its own copy of the
-``NetworkConfig`` / ``Config`` fields that its builders use, with the same
-names and defaults, and ``NETWORK_DEFAULTS`` for the ported networks.
+``NetworkConfig`` fields that its builders use, with the same names and
+defaults, and ``NETWORK_DEFAULTS`` for the ported networks.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 
 @dataclass
@@ -21,8 +21,3 @@ class NetworkConfig:
 NETWORK_DEFAULTS = {
     "realnvp": dict(layers=32),
 }
-
-
-@dataclass
-class Config:
-    network: NetworkConfig = field(default_factory=NetworkConfig)

@@ -34,9 +34,6 @@ class FlowModel(nn.Module):
         self.bijector = bijector
         self.dims = tuple(dims)
         self.device = torch.device(device)
-        self.dimension = 1
-        for d in self.dims:
-            self.dimension *= d
         self.eval()
 
     # ------------------------------------------------------------ variables

@@ -93,6 +93,23 @@ def test_mlp(in_f, out_f):
     close(tm(_t(x)).detach(), jm.apply(var, x, EVAL)[0], ATOL)
 
 
+@pytest.mark.parametrize("in_f,out_f", [(4, 4), (3, 5)])
+def test_resblock_linear(in_f, out_f):
+    """Equal widths add the input back; unequal widths go through the
+    bridge projection."""
+    from nf_tpu.nets.conditioners import ResBlockLinear as JRB
+    from nf_tpu_torch.nets.conditioners import ResBlockLinear
+
+    jr = JRB(in_f, out_f)
+    var = jr.init(jax.random.PRNGKey(6))
+    x = normal(6, (24, in_f))
+    _, st = jr.apply(var, x - 0.3, TRAIN)
+    var = {"params": var["params"], "state": st}
+    tr = _load(ResBlockLinear(in_f, out_f, device="cpu"), var)
+    assert (tr.bridge is None) == (in_f == out_f)
+    close(tr(_t(x)).detach(), jr.apply(var, x, EVAL)[0], ATOL)
+
+
 @pytest.mark.parametrize("affine", [False, True])
 def test_flow_batchnorm(affine):
     from nf_tpu.bijectors.norm import BatchNorm as JBN
