@@ -1,11 +1,16 @@
-"""Invertible flow-BatchNorm (counterpart of ``nf_tpu/bijectors/norm.py``),
-eval mode.
+"""ActNorm and invertible flow-BatchNorm (counterpart of
+``nf_tpu/bijectors/norm.py``), eval mode.
 
-Eval normalizes by the running statistics with ``rsqrt(running_var)`` and
-NO eps (the eps is folded into ``running_var`` when the batch statistics
-are taken in training).  A non-affine BatchNorm keeps its identity
-``log_gamma`` / ``beta`` as buffers, as ``nf_tpu`` keeps them in state.
-Layout: channel axis last.
+ActNorm is ``y = (x - bias) * exp(-log_scale)``.  Its data-dependent init
+(``nf_tpu``'s ``dd_init``) comes with the training slice; serving loads
+initialized parameters, and ``initialized`` is kept as a bool buffer as
+``nf_tpu`` keeps it in state.
+
+BatchNorm eval normalizes by the running statistics with
+``rsqrt(running_var)`` and NO eps (the eps is folded into ``running_var``
+when the batch statistics are taken in training).  A non-affine BatchNorm
+keeps its identity ``log_gamma`` / ``beta`` as buffers, as ``nf_tpu`` keeps
+them in state.  Layout: channel axis last.
 """
 from __future__ import annotations
 
@@ -22,6 +27,37 @@ def _num_pixels(x):
     for s in x.shape[1:-1]:
         n *= s
     return n
+
+
+class ActNorm(Bijector):
+    """y = (x - bias) * exp(-log_scale); logdet = -sum(log_scale) * n_pixels."""
+
+    def __init__(self, num_channels: int, eps: float = 1.0e-5, device=None):
+        super().__init__()
+        self.num_channels = num_channels
+        self.eps = eps
+        kw = dict(device=device, dtype=torch.float32)
+        self.log_scale = nn.Parameter(torch.zeros(num_channels, **kw))
+        self.bias = nn.Parameter(torch.zeros(num_channels, **kw))
+        self.register_buffer("initialized",
+                             torch.zeros((), dtype=torch.bool, device=device))
+
+    @torch.no_grad()
+    def init(self, generator):
+        self.log_scale.zero_()
+        self.bias.zero_()
+        self.initialized.fill_(False)
+
+    def _logdet(self, x, sign):
+        return (sign * self.log_scale.sum() * _num_pixels(x)).expand(x.shape[0])
+
+    def forward(self, x):
+        y = (x - self.bias) * torch.exp(-self.log_scale)
+        return y, self._logdet(x, -1.0)
+
+    def inverse(self, y):
+        x = y * torch.exp(self.log_scale) + self.bias
+        return x, self._logdet(y, 1.0)
 
 
 class BatchNorm(Bijector):

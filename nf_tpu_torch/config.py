@@ -13,6 +13,8 @@ from dataclasses import dataclass
 class NetworkConfig:
     name: str = "realnvp"
     layers: int = 32
+    # flow++ mixture components (configs/network/flow++.yaml)
+    mixtures: int = 8
     # conditioner width (reference MLP/ConvNet base_filters=32)
     base_filters: int = 32
 
@@ -20,4 +22,6 @@ class NetworkConfig:
 # per-network defaults mirroring configs/network/*.yaml
 NETWORK_DEFAULTS = {
     "realnvp": dict(layers=32),
+    "glow": dict(layers=32),
+    "flow++": dict(layers=32, mixtures=8),
 }

@@ -10,18 +10,26 @@ matching parameters and buffers.  Layout differences handled here:
   so ``v`` / ``w`` are transposed; ``g`` stays per input feature.
 * A non-affine flow ``BatchNorm`` keeps ``log_gamma`` / ``beta`` in state,
   here as buffers.
+* ``ActNorm``'s ``initialized`` flag, and ``InvertibleConv1x1``'s ``P`` and
+  ``sign_s``, are state there and buffers here.  ``L`` arrives whole from
+  the LU factorization; only its strict lower part counts.
+* ``GatedAttn`` keeps ``nf_tpu``'s ``(in, out)`` layout for its raw
+  projections, so they copy as they are.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .bijectors.conv1x1 import InvertibleConv1x1
 from .bijectors.coupling import AffineCoupling
-from .bijectors.norm import BatchNorm
+from .bijectors.flowpp_coupling import MixLogAttnCoupling
+from .bijectors.norm import ActNorm, BatchNorm
 from .core.bijector import Chain
 from .models.base import FlowModel
 from .nets.conditioners import ResBlockLinear
 from .nets.core import Activation, Sequential
+from .nets.gated import GatedAttn, GatedLinear, LayerNormNet
 from .nets.layers import BatchNormNet, Dense
 
 
@@ -72,6 +80,27 @@ def _load(module, params, state, path: str) -> None:
     elif isinstance(module, AffineCoupling):
         _load(module.net, params["net"], state["net"], f"{path}.net")
         for k in ("s_log_scale", "s_bias"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+    elif isinstance(module, ActNorm):
+        for k in ("log_scale", "bias"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+        module.initialized.fill_(bool(np.asarray(state["initialized"])))
+    elif isinstance(module, InvertibleConv1x1):
+        for k in ("L", "U", "log_s"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+        for k in ("P", "sign_s"):
+            _copy(getattr(module, k), state[k], f"{path}.{k}")
+    elif isinstance(module, GatedLinear):
+        _load(module.op, params["op"], {}, f"{path}.op")
+    elif isinstance(module, LayerNormNet):
+        for k in ("gamma", "beta"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+    elif isinstance(module, GatedAttn):
+        for k in ("w_qkv", "b_qkv", "w_out", "b_out", "pos_emb"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+    elif isinstance(module, MixLogAttnCoupling):
+        _load(module.net, params["net"], state["net"], f"{path}.net")
+        for k in ("a_log_scale", "a_bias"):
             _copy(getattr(module, k), params[k], f"{path}.{k}")
     else:
         raise TypeError(f"{path}: no conversion for {type(module).__name__}")

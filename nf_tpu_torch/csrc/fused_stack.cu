@@ -1,29 +1,34 @@
-// Whole-stack eval kernel for RealNVP density flows, Hopper (sm_90a).
+// Whole-stack eval kernel for RealNVP / Glow density flows, Hopper (sm_90a).
 //
 // Replaces nf_tpu/ops/pallas/fused_stack.py::_make_kernels (fwd_kernel /
-// inv_kernel), the RealNVP variant (flow-BatchNorm norms, no PLU mix): the
-// eval-mode forward or inverse of
+// inv_kernel) in both variants: RealNVP (flow-BatchNorm norms, no mix) and
+// Glow (ActNorm norms, PLU 1x1 mix, template MIX).  The eval-mode forward
+// or inverse of
 //
-//     n x [ channel affine -> affine coupling with the 6-layer MLP ]
+//     n x [ channel affine -> (D x D mix)? -> affine coupling with the 6-layer MLP ]
 //
 // in ONE launch.  Per coupling c (parity p = c & 1):
-//   forward:  x = (x - shift) * scale
+//   forward:  x = (x - shift) * scale;  MIX: x = W x per sample
 //   z1 = rows 2k+1-p, z0 = rows 2i+p of x
 //   h  = W0 z1 + b0
 //   2 x [ u = relu(h*A1+B1); u = W u + b1; u = relu(u*A2+B2);
 //         u = W u + b2; h += u ]
 //   raw = Wh relu(h*Ah+Bh) + bh;  t = raw[:out], s = tanh(raw[out:])*g + b
 //   forward:  z0 = z0 * exp(s) + t,   ld += sum(s)
-//   inverse:  z0 = (z0 - t) * exp(-s), ld -= sum(s), then x = x/scale + shift
+//   inverse:  z0 = (z0 - t) * exp(-s), ld -= sum(s), MIX: x = W^-1 x,
+//             then x = x/scale + shift
 // The inverse walks c = n-1 .. 0.  All constants (weight norm, BN eval
-// affines, the norm's log-det) are folded on the host by pack_stack /
-// kernel_weights in nf_tpu_torch/ops/cuda/fused_stack.py; ld starts at 0
-// and the folded constant ld_const is added at the end.
+// affines, ActNorm, the PLU product W = P L U and its inverse, every
+// constant log-det) are folded on the host by pack_stack / kernel_weights
+// in nf_tpu_torch/ops/cuda/fused_stack.py; ld starts at 0 and the folded
+// constant ld_const is added at the end.  ActNorm needs nothing of its
+// own here: it is the same channel affine as the flow-BatchNorm.
 //
 // Bound (H100 SXM, 67 TFLOP/s f32 on CUDA cores): per sample and coupling
 // in*F + 4*F*F + 2*out*F multiply-adds (4,192 at D = 2, F = 32) and about
 // 22*F elementwise operations, ~2.4 GFLOP per direction at B = 8192,
-// n = 32; HBM traffic is under 1 MB.  So f32 arithmetic bounds it.
+// n = 32; HBM traffic is under 1 MB.  So f32 arithmetic bounds it.  The
+// Glow mix adds 2*D*D flop per sample and coupling.
 //
 // Design.
 //  * One block owns S samples for the whole walk over the n couplings; the
@@ -54,6 +59,11 @@
 //    publishes the chunk and the previous layer's activations.
 //  * K = 1: the in-projection is a runtime loop over the n_in conditioning
 //    rows, an outer product when D = 2.
+//  * The Glow mix is D x D per sample: one thread per sample applies it,
+//    with the D normalized (forward) or coupled (inverse) values parked in
+//    the head's scratch rows, and W / W^-1 travel in the coupling's header.
+//    MIX is a template parameter, so the RealNVP instantiation is the
+//    kernel without it.
 //  * Widths: FP is F rounded up to 8, 16, ..., 256 on the host with zero
 //    weights, which keeps the padded features exactly 0.  D is any: the
 //    x tile is D x S in shared memory and the host checks the budget.  A
@@ -74,6 +84,7 @@ struct Params {
   float* y;           // (B, D)
   float* ld;          // (B,)
   const float* pre;   // (n, D, 2)  forward (shift, scale) / inverse (shift, 1/scale)
+  const float* mix;   // (n, D, D)  W forward / W^-1 inverse (MIX only), row-major (out, in)
   const float* w0t;   // (n, half, FP)     in-projection, k-major
   const float* vec;   // (n, 15, FP)
   const float* wrt;   // (n, 4, FP, FP)    resblock layers, k-major
@@ -92,16 +103,18 @@ __host__ __device__ constexpr int align4(int v) { return (v + 3) & ~3; }
 
 // One coupling's header in shared memory, floats from its start:
 //   vec [15][FP] | w0t [half][FP] | wh [2*half][FP] | bh [2*half] gb [2] pre [D][2]
+//   | mix [D][D] (MIX only)
 struct Header {
-  int w0t, wh, bh, gb, pre, size;
-  __host__ __device__ constexpr Header(int fp, int d)
+  int w0t, wh, bh, gb, pre, mix, size;
+  __host__ __device__ constexpr Header(int fp, int d, bool has_mix)
       : w0t(kNVec * fp), wh(w0t + ((d + 1) / 2) * fp), bh(wh + 2 * ((d + 1) / 2) * fp),
-        gb(bh + 2 * ((d + 1) / 2)), pre(gb + 2), size(align4(pre + 2 * d)) {}
+        gb(bh + 2 * ((d + 1) / 2)), pre(gb + 2), mix(pre + 2 * d),
+        size(align4(mix + (has_mix ? d * d : 0))) {}
 };
 
 // shared floats of one block; fused_stack.py::smem_bytes mirrors this
-__host__ __device__ constexpr int smem_floats(int fp, int s, int d) {
-  return 2 * fp * (s + 4) + 2 * chunk_rows(fp) * fp + 2 * Header(fp, d).size +
+__host__ __device__ constexpr int smem_floats(int fp, int s, int d, bool has_mix) {
+  return 2 * fp * (s + 4) + 2 * chunk_rows(fp) * fp + 2 * Header(fp, d, has_mix).size +
          d * (s + 4) + 2 * ((d + 1) / 2) * (s + 4) + s;
 }
 
@@ -152,7 +165,7 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int n) {
 
 // The weight stream: chunk q is rows [k0, k0+TK) of layer l of the coupling
 // at walk step s, q = (s * 4 + l) * NCH + k0 / TK.
-template <int FP, int T, bool INV>
+template <int FP, int T, bool INV, bool MIX>
 struct Stream {
   static constexpr int TK = chunk_rows(FP);
   static constexpr int NCH = FP / TK;
@@ -174,6 +187,7 @@ struct Stream {
     copy4<T>(dst + h.bh, prm.bh + (size_t)c * 2 * half, 2 * half);
     copy4<T>(dst + h.gb, prm.gb + 2 * c, 2);
     copy4<T>(dst + h.pre, prm.pre + (size_t)c * 2 * prm.D, 2 * prm.D);
+    if (MIX) copy4<T>(dst + h.mix, prm.mix + (size_t)c * prm.D * prm.D, prm.D * prm.D);
   }
 
   // start chunk q's copy; the header of step s+1 goes with the first chunk
@@ -191,8 +205,8 @@ struct Stream {
 // of walk step `step`.  Per chunk: wait for it, one barrier (which also
 // publishes the caller's writes to act and frees the other slot), start
 // the next chunk's copy, multiply.
-template <int FP, int S, int TS, bool INV>
-__device__ __forceinline__ void layer_gemm(const Stream<FP, (S / TS) * (FP / kTO), INV>& st,
+template <int FP, int S, int TS, bool INV, bool MIX>
+__device__ __forceinline__ void layer_gemm(const Stream<FP, (S / TS) * (FP / kTO), INV, MIX>& st,
                                            const float* act, int step, int layer,
                                            int o0, int s0, float (&acc)[kTO][TS]) {
   constexpr int SP = S + 4;
@@ -241,7 +255,7 @@ __device__ __forceinline__ void store_bn_relu(float* out, const float (&v)[kTO][
   }
 }
 
-template <int FP, int S, int TS, bool INV>
+template <int FP, int S, int TS, bool INV, bool MIX>
 __global__ void __launch_bounds__((S / TS) * (FP / kTO))
 fused_stack_kernel(const Params prm) {
   constexpr int T = (S / TS) * (FP / kTO);
@@ -250,7 +264,7 @@ fused_stack_kernel(const Params prm) {
   extern __shared__ __align__(16) float smem[];
   const int D = prm.D;
   const int half = (D + 1) / 2;  // in_max == out_max
-  const Header hd(FP, D);
+  const Header hd(FP, D, MIX);
   float* buf_a = smem;                    // FP x SP
   float* buf_b = buf_a + FP * SP;         // FP x SP
   float* w_s = buf_b + FP * SP;           // 2 x TK x FP
@@ -258,7 +272,7 @@ fused_stack_kernel(const Params prm) {
   float* x_s = hdr + 2 * hd.size;         // D x SP
   float* raw_s = x_s + D * SP;            // 2*half x SP
   float* ld_s = raw_s + 2 * half * SP;    // S
-  const Stream<FP, T, INV> st{prm, w_s, hdr, hd};
+  const Stream<FP, T, INV, MIX> st{prm, w_s, hdr, hd};
 
   const int tid = threadIdx.x;
   const int o0 = (tid % (FP / kTO)) * kTO;
@@ -286,9 +300,23 @@ fused_stack_kernel(const Params prm) {
     const float* pre = head + hd.pre;
 
     if (!INV) {
-      for (int i = tid; i < D * S; i += T) {
-        const int d = i / S, s = i % S;
-        x_s[d * SP + s] = (x_s[d * SP + s] - pre[2 * d]) * pre[2 * d + 1];
+      if (MIX) {
+        // one thread per sample: normalize into raw_s's rows, then x = W x
+        const float* mx = head + hd.mix;
+        for (int s = tid; s < S; s += T) {
+          for (int d = 0; d < D; ++d)
+            raw_s[d * SP + s] = (x_s[d * SP + s] - pre[2 * d]) * pre[2 * d + 1];
+          for (int d = 0; d < D; ++d) {
+            float a = 0.f;
+            for (int k = 0; k < D; ++k) a = fmaf(mx[d * D + k], raw_s[k * SP + s], a);
+            x_s[d * SP + s] = a;
+          }
+        }
+      } else {
+        for (int i = tid; i < D * S; i += T) {
+          const int d = i / S, s = i % S;
+          x_s[d * SP + s] = (x_s[d * SP + s] - pre[2 * d]) * pre[2 * d + 1];
+        }
       }
       __syncthreads();
     }
@@ -323,7 +351,7 @@ fused_stack_kernel(const Params prm) {
     for (int r = 0; r < 2; ++r) {
       const int o = 1 + 6 * r;
       float bias[kTO];
-      layer_gemm<FP, S, TS, INV>(st, buf_a, step, 2 * r, o0, s0, acc);
+      layer_gemm<FP, S, TS, INV, MIX>(st, buf_a, step, 2 * r, o0, s0, acc);
       lds4(bias, vec + (o + 2) * FP + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
@@ -331,7 +359,7 @@ fused_stack_kernel(const Params prm) {
         for (int i = 0; i < TS; ++i) acc[j][i] += bias[j];
       store_bn_relu<S, TS>(buf_b, acc, vec + (o + 3) * FP, vec + (o + 4) * FP, o0, s0);
 
-      layer_gemm<FP, S, TS, INV>(st, buf_b, step, 2 * r + 1, o0, s0, acc);
+      layer_gemm<FP, S, TS, INV, MIX>(st, buf_b, step, 2 * r + 1, o0, s0, acc);
       lds4(bias, vec + (o + 5) * FP + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
@@ -370,7 +398,17 @@ fused_stack_kernel(const Params prm) {
           lsum += sv;
         }
         ld_s[s] += INV ? -lsum : lsum;
-        if (INV) {
+        if (INV && MIX) {
+          // this sample's raw_s column is consumed: park x there, then
+          // x = W^-1 x and the un-affine
+          const float* mx = head + hd.mix;
+          for (int d = 0; d < D; ++d) raw_s[d * SP + s] = x_s[d * SP + s];
+          for (int d = 0; d < D; ++d) {
+            float a = 0.f;
+            for (int k = 0; k < D; ++k) a = fmaf(mx[d * D + k], raw_s[k * SP + s], a);
+            x_s[d * SP + s] = a * pre[2 * d + 1] + pre[2 * d];
+          }
+        } else if (INV) {
           for (int d = 0; d < D; ++d)
             x_s[d * SP + s] = x_s[d * SP + s] * pre[2 * d + 1] + pre[2 * d];
         }
@@ -387,10 +425,10 @@ fused_stack_kernel(const Params prm) {
     if (base + s < prm.B) prm.ld[base + s] = ld_s[s] + prm.ld_const;
 }
 
-template <int FP, int S, int TS, bool INV>
+template <int FP, int S, int TS, bool INV, bool MIX>
 cudaError_t launch(const Params& prm, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(FP, S, prm.D);
-  auto kernel = fused_stack_kernel<FP, S, TS, INV>;
+  const size_t smem = sizeof(float) * smem_floats(FP, S, prm.D, MIX);
+  auto kernel = fused_stack_kernel<FP, S, TS, INV, MIX>;
   // above 48 KB a block needs the opt-in; raise it once per size reached
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
@@ -405,31 +443,38 @@ cudaError_t launch(const Params& prm, cudaStream_t stream) {
 }
 
 template <int FP, int S, int TS>
-cudaError_t launch_dir(const Params& prm, bool inverse, cudaStream_t stream) {
-  return inverse ? launch<FP, S, TS, true>(prm, stream)
-                 : launch<FP, S, TS, false>(prm, stream);
+cudaError_t launch_dir(const Params& prm, bool inverse, bool mix, cudaStream_t stream) {
+  if (mix)
+    return inverse ? launch<FP, S, TS, true, true>(prm, stream)
+                   : launch<FP, S, TS, false, true>(prm, stream);
+  return inverse ? launch<FP, S, TS, true, false>(prm, stream)
+                 : launch<FP, S, TS, false, false>(prm, stream);
 }
 
 }  // namespace
 
 // Plain C entry point: launches one direction on `stream` and returns the
 // cudaError_t of the launch (0 on success).  fp / samples / ts must be one
-// of the tilings below, fused_stack.py's TILES.
+// of the tilings below, fused_stack.py's TILES; `mix` is read only when
+// has_mix is set.
 extern "C" int nf_fused_stack(const void* x, void* y, void* ld, const void* pre,
-                              const void* w0t, const void* vec, const void* wrt,
-                              const void* wh, const void* bh, const void* gb,
-                              int B, int D, int n, int fp, int samples, int ts,
-                              int inverse, float ld_const, void* stream) {
+                              const void* mix, const void* w0t, const void* vec,
+                              const void* wrt, const void* wh, const void* bh,
+                              const void* gb, int B, int D, int n, int fp, int samples,
+                              int ts, int inverse, int has_mix, float ld_const,
+                              void* stream) {
+  if (has_mix && mix == nullptr) return (int)cudaErrorInvalidValue;
   const Params prm{static_cast<const float*>(x), static_cast<float*>(y),
                    static_cast<float*>(ld), static_cast<const float*>(pre),
+                   static_cast<const float*>(mix),
                    static_cast<const float*>(w0t), static_cast<const float*>(vec),
                    static_cast<const float*>(wrt), static_cast<const float*>(wh),
                    static_cast<const float*>(bh), static_cast<const float*>(gb),
                    B, D, n, ld_const};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool inv = inverse != 0;
+  const bool inv = inverse != 0, mx = has_mix != 0;
 #define NF_TILING(FP_, S_, TS_) \
-  if (fp == FP_ && samples == S_ && ts == TS_) return (int)launch_dir<FP_, S_, TS_>(prm, inv, st);
+  if (fp == FP_ && samples == S_ && ts == TS_) return (int)launch_dir<FP_, S_, TS_>(prm, inv, mx, st);
   NF_TILING(8, 256, 4)
   NF_TILING(16, 128, 4)
   NF_TILING(32, 64, 2)

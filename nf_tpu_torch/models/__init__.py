@@ -6,10 +6,14 @@ import torch
 
 from ..config import NETWORK_DEFAULTS, NetworkConfig
 from .base import EvalProgram, FlowModel  # noqa: F401
+from .flowpp import build_flowpp
+from .glow import build_glow
 from .realnvp import build_realnvp
 
 _REGISTRY = {
     "realnvp": build_realnvp,
+    "glow": build_glow,
+    "flow++": build_flowpp,
 }
 
 

@@ -14,6 +14,8 @@ import torch
 from torch import nn
 
 from ..core.bijector import Bijector
+from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
+                                     fused_flowpp, pack_flowpp)
 from ..ops.cuda.fused_stack import (PackedStack, extract_stack_spec,
                                     fused_stack, pack_stack)
 from ..ops.math import standard_normal_logprob
@@ -45,8 +47,9 @@ class FlowModel(nn.Module):
 
     def eval_program(self, params: Optional[dict] = None) -> "EvalProgram":
         """Build the serving program over fixed parameters: the weights are
-        packed once and, for a stack that matches the fused pattern on the
-        card, each call is ONE kernel launch (``ops/cuda/fused_stack.py``).
+        packed once and, for a stack that matches a fused pattern on the
+        card, each call is ONE kernel launch (``ops/cuda/fused_stack.py``
+        for RealNVP / Glow, ``ops/cuda/fused_flowpp.py`` for Flow++).
         ``params`` is a state dict to load first, as ``init`` or
         ``convert.load_jax_variables`` return it."""
         if params is not None:
@@ -77,24 +80,33 @@ class FlowModel(nn.Module):
 class EvalProgram:
     """Inference program over FIXED parameters (see FlowModel.eval_program).
 
-    A stack that matches the fused pattern runs through ``fused_stack``:
-    the kernel on the card, its plain version on the CPU.  Any other stack
-    runs the eager chain on the model's device, as ``nf_tpu`` runs its
-    jitted chain where no fused kernel applies."""
+    Dispatch in ``nf_tpu``'s order: a stack that matches the fused
+    RealNVP / Glow pattern runs through ``fused_stack``, else one that
+    matches the Flow++ pattern through ``fused_flowpp`` (each the kernel on
+    the card, its plain version on the CPU); any other stack runs the eager
+    chain on the model's device, as ``nf_tpu`` runs its jitted chain where
+    no fused kernel applies.  ``stack`` holds the packed weights, or None
+    for the chain."""
 
     def __init__(self, model: FlowModel):
         self.model = model.eval()
         self.dims = model.dims
         self.device = model.device
-        spec = extract_stack_spec(model.bijector, model.dims)
+        bij = model.bijector
+        self.stack = None
+        spec = extract_stack_spec(bij, model.dims)
         if spec is not None:
-            self.stack = PackedStack(spec, *pack_stack(model.bijector, spec))
-            self._fwd = lambda x: fused_stack(self.stack, x, "forward")
-            self._inv = lambda z: fused_stack(self.stack, z, "inverse")
+            self.stack, run = PackedStack(spec, *pack_stack(bij, spec)), fused_stack
         else:
-            self.stack = None
-            self._fwd = model.bijector
-            self._inv = model.bijector.inverse
+            spec = extract_flowpp_spec(bij, model.dims)
+            if spec is not None:
+                self.stack, run = PackedFlowpp(spec, *pack_flowpp(bij, spec)), fused_flowpp
+        if self.stack is not None:
+            self._fwd = lambda x: run(self.stack, x, "forward")
+            self._inv = lambda z: run(self.stack, z, "inverse")
+        else:
+            self._fwd = bij
+            self._inv = bij.inverse
 
     def _input(self, x):
         return x.to(device=self.device, dtype=torch.float32).contiguous()

@@ -1,17 +1,19 @@
-"""Whole-stack fused eval kernel for RealNVP density flows, on Hopper.
+"""Whole-stack fused eval kernel for RealNVP / Glow density flows, on Hopper.
 
 Counterpart of ``nf_tpu/ops/pallas/fused_stack.py``; the CUDA kernel in
 ``nf_tpu_torch/csrc/fused_stack.cu`` replaces its Pallas kernels
-``_make_kernels`` -> ``fwd_kernel`` / ``inv_kernel`` (the RealNVP variant:
-no PLU mix, flow-BatchNorm norms).  The eval-mode forward or inverse of
+``_make_kernels`` -> ``fwd_kernel`` / ``inv_kernel`` in both variants:
+RealNVP (flow-BatchNorm norms, no mix) and Glow (ActNorm norms and the
+PLU 1x1 mix).  The eval-mode forward or inverse of
 
-    n x [ channel-affine norm -> affine coupling(MLP conditioner) ]
+    n x [ channel-affine norm -> (PLU 1x1 mix)? -> affine coupling(MLP) ]
 
 runs as ONE launch per direction.  Host side, once per stack:
 
 * ``extract_stack_spec`` matches the chain against that structure;
 * ``pack_stack`` folds weight norm, the conditioner BatchNorms' eval
-  affines, the flow-BatchNorm shift / scale and every constant log-det,
+  affines, the norm's shift / scale (flow-BatchNorm or ActNorm), the PLU
+  recomposition ``W = P L U`` with its inverse, and every constant log-det,
   and lays the weights out per parity exactly as ``nf_tpu`` does, so the
   two can be compared array by array;
 * ``PackedStack`` keeps that and, for a stack on the card, the kernel's
@@ -26,7 +28,8 @@ Bound (H100 SXM): per sample and coupling the conditioner does
 ``in*F + 4*F*F + 2*out*F`` multiply-adds (4,192 at D = 2, F = 32) and
 about 22*F elementwise operations; the weights are read once (about 0.6 MB
 at n = 32) and x / y / logdet are a few bytes per sample, so the kernel is
-bound by f32 operations on the CUDA cores, not by memory.
+bound by f32 operations on the CUDA cores, not by memory.  The Glow mix
+adds 2*D*D flop per sample and coupling.
 """
 from __future__ import annotations
 
@@ -36,8 +39,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...bijectors.conv1x1 import InvertibleConv1x1
 from ...bijectors.coupling import AffineCoupling
-from ...bijectors.norm import BatchNorm
+from ...bijectors.norm import ActNorm, BatchNorm
 from ...core.bijector import Chain
 from ...nets.conditioners import ResBlockLinear
 from ...nets.core import Activation, Sequential
@@ -55,8 +59,10 @@ TILES = {8: (256, 4), 16: (128, 4), 32: (64, 2), 64: (64, 4),
          128: (32, 4), 256: (32, 4)}
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
 
-# launches of each kernel, counted by the wrapper where it launches
-LAUNCHES = {"fused_stack_fwd": 0, "fused_stack_inv": 0}
+# launches of each kernel variant, counted by the wrapper where it launches:
+# fused_stack_* for RealNVP (no mix), fused_stack_glow_* for Glow (mix)
+LAUNCHES = {"fused_stack_fwd": 0, "fused_stack_inv": 0,
+            "fused_stack_glow_fwd": 0, "fused_stack_glow_inv": 0}
 
 
 def reset_launches() -> None:
@@ -73,7 +79,7 @@ class StackSpec:
     dim: int                # data dimensionality D
     filters: int            # MLP width F
     has_mix: bool           # PLU 1x1 between norm and coupling (Glow)
-    norm_kind: str          # 'batchnorm' (RealNVP)
+    norm_kind: str          # 'batchnorm' (RealNVP) | 'actnorm' (Glow)
     # per-parity split sizes: (len(z0), len(z1)) for even / odd couplings
     halves: Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -83,13 +89,15 @@ def padded_width(filters: int) -> int:
     return min(fp for fp in TILES if fp >= filters)
 
 
-def smem_bytes(fp: int, samples: int, dim: int) -> int:
+def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False) -> int:
     """Dynamic shared memory of one block; the kernel computes the same."""
     sp = samples + 4
     chunk = fp if fp * fp <= 4096 else 4096 // fp
     half = (dim + 1) // 2
-    # per coupling: vec, in-projection, head, then bh / gb / pre padded to 4
-    header = (_N_VEC + 3 * half) * fp + (2 * half + 2 + 2 * dim + 3) // 4 * 4
+    # per coupling: vec, in-projection, head, then bh / gb / pre / mix
+    # padded to 4
+    small = 2 * half + 2 + 2 * dim + (dim * dim if has_mix else 0)
+    header = (_N_VEC + 3 * half) * fp + (small + 3) // 4 * 4
     return 4 * (2 * fp * sp + 2 * chunk * fp + 2 * header + dim * sp
                 + 2 * half * sp + samples)
 
@@ -136,17 +144,32 @@ def extract_stack_spec(chain, dims) -> Optional[StackSpec]:
         return None
     D = dims[0]
     layers = list(chain.layers)
-    if not layers or len(layers) % 2 != 0:
+    if not layers:
         return None
-    n = len(layers) // 2
+    has_mix = len(layers) > 1 and isinstance(layers[1], InvertibleConv1x1)
+    per = 3 if has_mix else 2
+    if len(layers) % per != 0:
+        return None
+    n = len(layers) // per
     if n < 2 or n % 2 != 0:
         return None
 
+    norm_kind = None
     F = None
     halves = [None, None]
     for i in range(n):
-        norm, coup = layers[2 * i], layers[2 * i + 1]
-        if not (isinstance(norm, BatchNorm) and not norm.affine):
+        grp = layers[per * i: per * (i + 1)]
+        norm, coup = grp[0], grp[-1]
+        if isinstance(norm, BatchNorm) and not norm.affine:
+            kind = "batchnorm"
+        elif isinstance(norm, ActNorm):
+            kind = "actnorm"
+        else:
+            return None
+        if norm_kind not in (None, kind):
+            return None
+        norm_kind = kind
+        if has_mix and not isinstance(grp[1], InvertibleConv1x1):
             return None
         if not isinstance(coup, AffineCoupling) or coup.odd != (i % 2 != 0):
             return None
@@ -160,10 +183,10 @@ def extract_stack_spec(chain, dims) -> Optional[StackSpec]:
     if F > max(TILES):
         return None
     fp = padded_width(F)
-    if smem_bytes(fp, TILES[fp][0], D) > SMEM_LIMIT:
+    if smem_bytes(fp, TILES[fp][0], D, has_mix) > SMEM_LIMIT:
         return None
-    return StackSpec(n_repeats=n, dim=D, filters=F, has_mix=False,
-                     norm_kind="batchnorm", halves=(halves[0], halves[1]))
+    return StackSpec(n_repeats=n, dim=D, filters=F, has_mix=has_mix,
+                     norm_kind=norm_kind, halves=(halves[0], halves[1]))
 
 
 # --------------------------------------------------------------------------
@@ -201,6 +224,8 @@ def pack_stack(chain, spec: StackSpec):
     Returns (packed, const_ld): packed[parity] holds
       pre  (m, D, 2)      forward (shift, scale) of the norm layer
       prei (m, D, 2)      inverse (shift, 1/scale)
+      mix  (m, D, D)      W = P L U, applied as x @ W.T   [has_mix only]
+      mixi (m, D, D)      W^-1 in f32                     [has_mix only]
       W0   (m, F, in)     in-proj (out, in)
       VEC  (m, F, 15)     BN eval affines + dense biases, order of _N_VEC
       WR   (m, 4, F, F)   resblock weights (out, in)
@@ -209,26 +234,41 @@ def pack_stack(chain, spec: StackSpec):
       gb   (m, 2)         coupling (s_log_scale, s_bias)
     and const_ld (0-d) is the forward-direction constant contribution.
     """
+    per = 3 if spec.has_mix else 2
     n = spec.n_repeats
     layers = chain.layers
     const_ld = torch.zeros((), dtype=torch.float32,
-                           device=layers[0].running_var.device)
+                           device=layers[-1].s_bias.device)
     packed = []
     for parity in range(2):
         idxs = range(parity, n, 2)
         b = {}
 
         # ---- norm layer: channel affine + constant logdet
-        norms = [layers[2 * i] for i in idxs]
-        rv = _stacked([l.running_var for l in norms])       # (m, D)
-        shift = _stacked([l.running_mean for l in norms])
-        scale = torch.rsqrt(rv)
-        const_ld = const_ld - 0.5 * torch.sum(torch.log(rv))
+        norms = [layers[per * i] for i in idxs]
+        if spec.norm_kind == "batchnorm":
+            rv = _stacked([l.running_var for l in norms])   # (m, D)
+            shift = _stacked([l.running_mean for l in norms])
+            scale = torch.rsqrt(rv)
+            const_ld = const_ld - 0.5 * torch.sum(torch.log(rv))
+        else:   # actnorm
+            log_scale = _stacked([l.log_scale for l in norms])
+            shift = _stacked([l.bias for l in norms])
+            scale = torch.exp(-log_scale)
+            const_ld = const_ld - torch.sum(log_scale)
         b["pre"] = torch.stack([shift, scale], dim=2)
         b["prei"] = torch.stack([shift, 1.0 / scale], dim=2)
 
+        # ---- PLU 1x1 mix
+        if spec.has_mix:
+            convs = [layers[per * i + 1] for i in idxs]
+            W = torch.stack([c.weight().detach() for c in convs])   # (m, D, D)
+            b["mix"] = W
+            b["mixi"] = torch.linalg.inv(W)
+            const_ld = const_ld + torch.sum(_stacked([c.log_s for c in convs]))
+
         # ---- coupling conditioner (standard MLP, eval mode)
-        coups = [layers[2 * i + 1] for i in idxs]
+        coups = [layers[per * i + per - 1] for i in idxs]
         nets = [c.net.layers for c in coups]
         vec = [_stacked([l[0].b for l in nets])]
         WR = []
@@ -281,6 +321,8 @@ def _layer(P, j, odd, x, ld, inverse):
     if not inverse:
         pre = P["pre"][j]
         x = (x - pre[:, 0]) * pre[:, 1]
+        if "mix" in P:
+            x = x @ P["mix"][j].T
     raw = _mlp(P, j, x[:, r1])
     oc = len(r0)
     t, raw_s = raw[:, :oc], raw[:, oc:]
@@ -289,6 +331,8 @@ def _layer(P, j, odd, x, ld, inverse):
     if inverse:
         x[:, r0] = (x[:, r0] - t) * torch.exp(-s)
         ld = ld - s.sum(dim=1)
+        if "mixi" in P:
+            x = x @ P["mixi"][j].T
         prei = P["prei"][j]
         x = x * prei[:, 1] + prei[:, 0]
     else:
@@ -328,7 +372,8 @@ class KernelWeights:
     """Weights per coupling c = 2*j + parity, zero-padded to width fp:
     pre / prei (n, D, 2), w0t (n, in_max, fp) k-major, vec (n, 15, fp),
     wrt (n, 4, fp, fp) k-major, wh (n, 2*out_max, fp) with the t rows
-    first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2)."""
+    first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2), and
+    for Glow mix / mixi (n, D, D) row-major (out, in), else None."""
     fp: int
     pre: torch.Tensor
     prei: torch.Tensor
@@ -338,6 +383,8 @@ class KernelWeights:
     wh: torch.Tensor
     bh: torch.Tensor
     gb: torch.Tensor
+    mix: Optional[torch.Tensor] = None
+    mixi: Optional[torch.Tensor] = None
 
 
 @torch.no_grad()
@@ -352,6 +399,9 @@ def kernel_weights(spec: StackSpec, packed) -> KernelWeights:
                wrt=torch.zeros(n, 4, fp, fp, **kw),
                wh=torch.zeros(n, 2 * half, fp, **kw),
                bh=torch.zeros(n, 2 * half, **kw), gb=torch.zeros(n, 2, **kw))
+    if spec.has_mix:
+        out["mix"] = torch.zeros(n, D, D, **kw)
+        out["mixi"] = torch.zeros(n, D, D, **kw)
     for parity in range(2):
         P = packed[parity]
         c = slice(parity, n, 2)
@@ -366,6 +416,9 @@ def kernel_weights(spec: StackSpec, packed) -> KernelWeights:
         out["bh"][c, :oc] = P["bh"][:, :oc, 0]
         out["bh"][c, half:half + oc] = P["bh"][:, oc:, 0]
         out["gb"][c] = P["gb"]
+        if spec.has_mix:
+            out["mix"][c] = P["mix"]
+            out["mixi"][c] = P["mixi"]
     return KernelWeights(fp=fp, **out)
 
 
@@ -387,7 +440,7 @@ def _kernel_fn():
     fn = _build.load("fused_stack").nf_fused_stack
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -409,20 +462,28 @@ def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
     if B == 0:
         return y, ld
     S, TS = TILES[kw.fp]
+    mix = kw.mixi if inverse else kw.mix
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), ld.data_ptr(),
-                 (kw.prei if inverse else kw.pre).data_ptr(), kw.w0t.data_ptr(),
+                 (kw.prei if inverse else kw.pre).data_ptr(),
+                 0 if mix is None else mix.data_ptr(), kw.w0t.data_ptr(),
                  kw.vec.data_ptr(), kw.wrt.data_ptr(), kw.wh.data_ptr(),
                  kw.bh.data_ptr(), kw.gb.data_ptr(),
                  B, spec.dim, spec.n_repeats, kw.fp, S, TS, int(inverse),
-                 -stack.ld_const if inverse else stack.ld_const,
+                 int(spec.has_mix), -stack.ld_const if inverse else stack.ld_const,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stack {'inverse' if inverse else 'forward'} "
                            f"kernel failed to launch: CUDA error {err}")
-    LAUNCHES["fused_stack_inv" if inverse else "fused_stack_fwd"] += 1
+    LAUNCHES[launch_name(spec, inverse)] += 1
     return y, ld
+
+
+def launch_name(spec: StackSpec, inverse: bool) -> str:
+    """The ``LAUNCHES`` key of this stack's kernel variant and direction."""
+    variant = "fused_stack_glow" if spec.has_mix else "fused_stack"
+    return f"{variant}_{'inv' if inverse else 'fwd'}"
 
 
 def fused_stack(stack: PackedStack, x: torch.Tensor, direction: str):

@@ -19,39 +19,53 @@ def normal(seed: int, shape, scale: float = 1.0) -> np.ndarray:
             ).astype(np.float32)
 
 
-def jax_realnvp(D: int, layers: int, filters: int, seed: int = 0, batch: int = 64):
-    """nf_tpu RealNVP density model with its batch-norm running statistics
-    moved off their init values (as tests/test_pallas.py does), so the
-    folding of those statistics has teeth.  Returns (model, numpy var)."""
+def jax_model(name: str, D: int, layers: int, filters: int, seed: int = 0,
+              batch: int = 64, mixtures: int = 4):
+    """An nf_tpu density model after its data-dependent init (ActNorm) and
+    with any batch-norm running statistics moved off their init values (as
+    tests/test_pallas.py does), so the folding of those statistics has
+    teeth.  Returns (model, numpy var)."""
     from nf_tpu.config import NetworkConfig
     from nf_tpu.core import Ctx
     from nf_tpu.models import build_model
 
-    cfg = NetworkConfig(name="realnvp", layers=layers, base_filters=filters)
-    model = build_model("realnvp", (D,), datatype="2d", cfg=cfg)
+    cfg = NetworkConfig(name=name, layers=layers, base_filters=filters,
+                        mixtures=mixtures)
+    model = build_model(name, (D,), datatype="2d", cfg=cfg)
     rng = jax.random.PRNGKey(seed)
     var = model.init(rng)
     x = normal(seed + 100, (batch, D))
-    var = model.data_dependent_init(var, x)
-    ctx_t = Ctx(rng=jax.random.fold_in(rng, 2), train=True)
-    fwd = jax.jit(lambda v, y: model.bijector.forward(v, y, ctx_t)[2])
-    for _ in range(3):
-        var = {"params": var["params"], "state": fwd(var, x * 1.3)}
+    var = model.data_dependent_init(var, x * 1.5 + 0.3)
+    if name in ("realnvp", "glow"):
+        ctx_t = Ctx(rng=jax.random.fold_in(rng, 2), train=True)
+        fwd = jax.jit(lambda v, y: model.bijector.forward(v, y, ctx_t)[2])
+        for _ in range(3):
+            var = {"params": var["params"], "state": fwd(var, x * 1.3)}
     return model, to_numpy(var)
 
 
-def torch_realnvp(D: int, layers: int, filters: int, var=None):
-    """The port's RealNVP density model on the CPU, with ``var`` (an
-    nf_tpu variables pytree of numpy arrays) loaded when given."""
+def torch_model(name: str, D: int, layers: int, filters: int, var=None,
+                mixtures: int = 4):
+    """The port's density model on the CPU, with ``var`` (an nf_tpu
+    variables pytree of numpy arrays) loaded when given."""
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.convert import load_jax_variables
     from nf_tpu_torch.models import build_model
 
-    cfg = NetworkConfig(name="realnvp", layers=layers, base_filters=filters)
-    model = build_model("realnvp", (D,), "2d", cfg, device="cpu")
+    cfg = NetworkConfig(name=name, layers=layers, base_filters=filters,
+                        mixtures=mixtures)
+    model = build_model(name, (D,), "2d", cfg, device="cpu")
     if var is not None:
         load_jax_variables(model, var)
     return model
+
+
+def jax_realnvp(D: int, layers: int, filters: int, seed: int = 0, batch: int = 64):
+    return jax_model("realnvp", D, layers, filters, seed, batch)
+
+
+def torch_realnvp(D: int, layers: int, filters: int, var=None):
+    return torch_model("realnvp", D, layers, filters, var)
 
 
 def as_numpy(a):

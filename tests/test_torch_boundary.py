@@ -49,14 +49,15 @@ def test_port_sources_name_no_jax_or_nf_tpu_import():
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
 
-def test_build_model_defaults_to_the_card():
+@pytest.mark.parametrize("name", ["realnvp", "glow", "flow++"])
+def test_build_model_defaults_to_the_card(name):
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_model("realnvp", (2,), "2d", NetworkConfig(layers=2, base_filters=8))
+        build_model(name, (2,), "2d", NetworkConfig(layers=2, base_filters=8))
 
 
 def test_cuda_wrapper_raises_instead_of_running_the_plain_version():
@@ -78,3 +79,27 @@ def test_cuda_wrapper_raises_instead_of_running_the_plain_version():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             _build.load("fused_stack")
+
+
+@pytest.mark.parametrize("name", ["glow", "flow++"])
+def test_new_wrappers_raise_instead_of_running_the_plain_version(name):
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops.cuda import _build
+    from nf_tpu_torch.ops.cuda import fused_flowpp as ff
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+
+    model = build_model(name, (2,), "2d", NetworkConfig(layers=2, base_filters=8,
+                                                         mixtures=2), device="cpu")
+    stack = model.eval_program().stack
+    mod, run = (ff, ff.fused_flowpp) if name == "flow++" else (fs, fs.fused_stack)
+    assert isinstance(stack, ff.PackedFlowpp if name == "flow++" else fs.PackedStack)
+    before = {**fs.LAUNCHES, **ff.LAUNCHES}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run(stack, torch.zeros(4, 2, device="meta"), "inverse")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mod.launch(stack, torch.zeros(4, 2), inverse=True)
+    assert {**fs.LAUNCHES, **ff.LAUNCHES} == before
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            _build.load("fused_flowpp")

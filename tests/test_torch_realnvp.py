@@ -108,7 +108,7 @@ def test_image_mode_not_in_this_slice():
     with pytest.raises(NotImplementedError):
         build_model("realnvp", (8, 8, 1), "image", NetworkConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown network"):
-        build_model("glow", (2,), "2d", device="cpu")
+        build_model("maf", (2,), "2d", device="cpu")
 
 
 def test_default_config_is_the_headline_width():
