@@ -14,6 +14,12 @@ Phases, each of which exits non-zero when it fails:
          B = 8192, and a ragged D = 3, n = 4, F = 64, B = 1000;
        Flow++: 32 couplings, F = 32, K = 8, B = 8192, and a ragged
          n = 4, F = 64, K = 4, B = 1000;
+       ResFlow (LipSwish betas also drawn from U(0.5, 1.5)): 'unbias'
+         D = 2, 32 blocks, F = 32, B = 8192, the forward (fwd_ld) and
+         the inverse (solve_ld) of its latent; the same with 'exact' for
+         the solve alone; a ragged D = 3, n = 4, F = 64, B = 1000 for all
+         three variants; with each solve's trip count per block and the
+         probes' series lengths printed;
      forward z atol/rtol 1e-4, logdet atol 1e-3 (f32 sums in another
      order, compounded through 32 couplings); the Flow++ inverse runs on
      the forward's latent of the same data, as tests/test_pallas.py
@@ -22,19 +28,25 @@ Phases, each of which exits non-zero when it fails:
      root only within XTOL = 1e-5 per coupling, and 32 couplings of
      random weights expand that (max|dx| 4.8e-3 and max|dlogdet| 3.9e-3
      on an H100, where the plain version's own round trip x -> z -> x
-     misses x by as much; the line "plain round trip" prints it);
-  4. the main path, for "realnvp", "glow" and "flow++" in turn:
+     misses x by as much; the line "plain round trip" prints it); the
+     ResFlow inverse x and logdet atol 1e-3 (the kernel stops each fixed
+     point per 32-sample tile, the plain version on the whole batch);
+  4. the main path, for "realnvp", "glow", "flow++" and "resflow" in turn:
      build_model(name, (2,), "2d") on the card -> init(generator) ->
      (Glow / Flow++: ActNorm moved off identity by the seed) ->
      eval_program -> log_prob(x) and sample(8192), with every launch
      counter set to 0 just before and read just after (one launch of that
      model's kernel per call, none of any other), and the outputs checked
-     (finite, round trip, against the eager chain on 256 samples);
+     (finite, round trip, against the eager chain on 256 samples: both
+     draw ResFlow's probes for 256 samples from a generator seeded 0);
+     then ResFlow with logdet="exact": one solve launch per inverse, none
+     for the forward (the eager chain), against the eager chain;
   5. time each kernel (CUDA events, warm L2 as in a serving loop), its
      plain version and, per model, the serving rate
      fwd_inv_samples_per_s = 8192 / (t_fwd + t_inv), bench.py's
-     definition; print one main_path line per model and the kernels line
-     with each kernel's bound;
+     definition; print one main_path line per model, the ResFlow 'exact'
+     program's wall time per direction and the kernels line with each
+     kernel's bound;
   6. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -55,6 +67,9 @@ LD_ATOL = 1e-3
 # expanded through 32 couplings (see phase 3 above)
 FLOWPP_INV_X_ATOL = 1e-2
 FLOWPP_INV_LD_ATOL = 5e-3
+# ResFlow inverse: the kernel stops each fixed point per tile, the plain
+# version on the whole batch; both only below ftol = 1e-4 (see phase 3)
+RESFLOW_INV_ATOL = 1e-3
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -76,10 +91,23 @@ KERNEL_SOURCES = {
                          "nf_tpu/ops/pallas/fused_flowpp.py:312"),
     "fused_flowpp_inv": ("nf_tpu_torch/csrc/fused_flowpp.cu",
                          "nf_tpu/ops/pallas/fused_flowpp.py:328"),
+    "fused_resflow_fwd_ld": ("nf_tpu_torch/csrc/fused_resflow.cu",
+                             "nf_tpu/ops/pallas/fused_resflow.py:455"),
+    "fused_resflow_solve_ld": ("nf_tpu_torch/csrc/fused_resflow.cu",
+                               "nf_tpu/ops/pallas/fused_resflow.py:306"),
+    "fused_resflow_solve": ("nf_tpu_torch/csrc/fused_resflow.cu",
+                            "nf_tpu/ops/pallas/fused_resflow.py:184"),
 }
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
-          "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv")}
+          "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
+          "resflow": ("fused_resflow_fwd_ld", "fused_resflow_solve_ld")}
+# ResFlow kernel checks: (estimator, D, blocks, F, B, directions)
+RESFLOW_CASES = [("unbias", 2, 32, 32, BATCH, ("forward", "inverse")),
+                 ("exact", 2, 32, 32, BATCH, ("solve",)),
+                 ("unbias", 3, 4, 64, 1000, ("forward", "inverse", "solve"))]
+RESFLOW_NAMES = {"forward": "fused_resflow_fwd_ld", "inverse": "fused_resflow_solve_ld",
+                 "solve": "fused_resflow_solve"}
 
 
 class SmokeFailure(RuntimeError):
@@ -94,7 +122,10 @@ def check(ok, what):
 @torch.no_grad()
 def perturb(model, g, device):
     """Move ActNorm shift / log-scale and the running statistics off
-    identity, so the host folding has teeth."""
+    identity, so the host folding has teeth, and draw LipSwish betas from
+    U(0.5, 1.5)."""
+    from nf_tpu_torch.nets.spectral import LipSwish
+
     D = model.dims[-1]
     for name, p in model.named_parameters():
         if name.endswith((".log_scale", ".bias")) and p.dim() == 1 and p.numel() == D:
@@ -104,16 +135,19 @@ def perturb(model, g, device):
             buf.copy_(0.3 * torch.randn(buf.shape, generator=g, device=device))
         elif name.endswith("running_var"):
             buf.copy_(0.5 + torch.rand(buf.shape, generator=g, device=device))
+    for m in model.modules():
+        if isinstance(m, LipSwish):
+            m.beta.copy_(0.5 + torch.rand(m.beta.shape, generator=g, device=device))
 
 
-def perturbed_program(name, D, layers, F, device, seed, K=8):
+def perturbed_program(name, D, layers, F, device, seed, K=8, logdet="unbias"):
     """Serving program of a density model with random weights moved off
     their init values."""
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
     model = build_model(name, (D,), "2d",
-                        NetworkConfig(layers=layers, base_filters=F, mixtures=K),
+                        NetworkConfig(layers=layers, base_filters=F, mixtures=K, logdet=logdet),
                         device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     params = model.init(g)
@@ -268,6 +302,51 @@ def flowpp_work(stack, x, inverse):
             "mixture_evaluations": evaluations, "warp_mixture_evaluations": warp_evaluations}
 
 
+def resflow_work(spec, packed, B, direction, n_terms=None, iters=None):
+    """Operations and bytes one call of a ResFlow kernel variant needs on
+    these inputs.  Per sample and block:
+      a hidden evaluation of g (D F + F^2 multiply-adds; 2F sigmoids, one
+      exp each; 6 f32 operations per feature: bias, beta a, the sigmoid's
+      add and division, a s, / 1.1), and 6 more per feature for the
+      LipSwish' masks where the series needs them; g's output layer, F D
+      multiply-adds and D bias adds.  The forward evaluates g once; the
+      solve `it` times, `it` the kernel's own trip count for the sample's
+      tile (its iters output), plus the hidden layers once more for the
+      masks (solve_ld); each solve trip also takes 3D operations for the
+      residual test and D for x = z - g;
+      the series: sum_s n_terms[s] J^T products, each 2 D F + F^2 + D
+      multiply-adds (the last D the dot with the probe), 2F mask products,
+      one exp2 and one multiply-add for the coefficient; 4 operations for
+      the mean over the probes;
+      ActNorm: D exps and 2D operations; the forward's residual D.
+    Bytes: x, y, the log-det and the probes once each, every weight once."""
+    D, F, n = spec.dim, spec.filters, spec.n_repeats
+    logdet = direction != "solve"
+    if direction == "forward":
+        evals = B * n
+        step_elem = B * n * D
+    else:
+        tiles = iters.shape[0]
+        per_tile = -(-B // tiles)
+        valid = torch.full((tiles,), per_tile, dtype=torch.int64)
+        valid[-1] = B - per_tile * (tiles - 1)
+        evals = int((iters.to(torch.int64).cpu().sum(1) * valid).sum())
+        step_elem = evals * 4 * D
+    hidden = evals + (B * n if direction == "inverse" else 0)
+    masked = B * n if logdet else 0
+    products = B * n * int(sum(int(t) for t in n_terms)) if logdet else 0
+    mac = hidden * (D * F + F * F) + evals * F * D + products * (2 * D * F + F * F + D)
+    elem = (hidden * 2 * 6 * F + masked * 2 * 6 * F + evals * D + products * (2 * F + 1)
+            + masked * 4 + B * n * 2 * D + step_elem)
+    trans = hidden * 2 * F + B * n * D + products
+    weights = sum(packed[k].numel() for k in ("an_s", "an_b", "w1t", "b1", "w2t", "b2",
+                                              "w3t", "b3", "beta"))
+    reads = 2 * B * D + (B + 4 * B * D if logdet else 0)
+    return {"flop": 2 * mac + elem, "mac_flop": 2 * mac, "elem": elem,
+            "transcendental": trans, "bytes": 4 * (reads + weights),
+            "g_evaluations": evals, "series_products": products}
+
+
 def bound_of(work, sfu_per_s):
     """The least time in ms: the largest of f32 operations, transcendentals
     on the SFUs, and bytes, each at its peak rate."""
@@ -276,6 +355,29 @@ def bound_of(work, sfu_per_s):
              "bytes": work["bytes"] / HBM_BYTES_PER_S}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
+
+
+def kernel_entry(name, launches, errs, work, sfu_per_s, ms, plain_ms, **extra):
+    """One kernel's entry on the kernels line: its measured times, its
+    launches on the main path, its largest error against the plain
+    version, and the bounds its work gives."""
+    source, replaces = KERNEL_SOURCES[name]
+    bound, bound_by = bound_of(work, sfu_per_s)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": errs[name],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the whole stack",
+        "f32_ms": work["flop"] / F32_FLOPS * 1e3,
+        "sfu_ms": work["transcendental"] / sfu_per_s * 1e3,
+        "bytes_ms": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+        "tf32_bound_ms": max(work["mac_flop"] / TF32_FLOPS,
+                             (work["flop"] - work["mac_flop"]) / F32_FLOPS,
+                             work["transcendental"] / sfu_per_s,
+                             work["bytes"] / HBM_BYTES_PER_S) * 1e3,
+        "flop": work["flop"], "transcendental": work["transcendental"],
+        "bytes": work["bytes"], "shape": [BATCH, 2], **extra}
 
 
 def ptxas_summary(log):
@@ -306,14 +408,16 @@ def main():
         return 1
     from nf_tpu_torch.ops.cuda import _build
     from nf_tpu_torch.ops.cuda import fused_flowpp as ff
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
     from nf_tpu_torch.ops.cuda import fused_stack as fs
+    from nf_tpu_torch.ops.estimators import draw_unbias_probes, eval_probes
     from nf_tpu_torch.ops.math import standard_normal_logprob
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = (fs, ff)
-    launches_of = lambda: {**fs.LAUNCHES, **ff.LAUNCHES}  # noqa: E731
+    counters = (fs, ff, rf)
+    launches_of = lambda: {**fs.LAUNCHES, **ff.LAUNCHES, **rf.LAUNCHES}  # noqa: E731
 
     # ---- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -373,6 +477,49 @@ def main():
                 check(eld <= LD_ATOL, f"{name} D={D}: logdet off by {eld}")
             errs[name] = max(errs[name], ey, eld)
 
+    for estimator, D, layers, F, B, directions in RESFLOW_CASES:
+        _, prog, g = perturbed_program("resflow", D, layers, F, dev, SEED + D, logdet=estimator)
+        stack = prog.stack
+        spec = stack.spec
+        x = torch.randn(B, D, generator=g, device=dev)
+        probes = draw_unbias_probes(B, D, g)
+        print(f"resflow {estimator} D={D} n={layers} F={F} B={B}: the probes' series "
+              f"lengths n_terms={probes[1].tolist()}")
+        zr, ldr = rf.fused_resflow_fwd_logdet_reference(spec, stack.packed, x, probes)
+        for direction in directions:
+            name = RESFLOW_NAMES[direction]
+            inp = x if direction == "forward" else zr
+            iters = (None if direction == "forward" else
+                     torch.zeros((-(-B // rf.tile(stack.kernel.fp, direction)), layers),
+                                 dtype=torch.int32, device=dev))
+            got = rf.launch(stack, inp, direction, probes, iters)
+            torch.cuda.synchronize()
+            trips = []
+            if direction == "forward":
+                want = (zr, ldr)
+            elif direction == "inverse":
+                want = rf.fused_resflow_solve_logdet_reference(spec, stack.packed, zr, probes,
+                                                               trips)
+            else:
+                got = (got,)
+                want = (rf.fused_resflow_solve_reference(spec, stack.packed, zr, trips),)
+            ey = float((got[0] - want[0]).abs().max())
+            eld = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
+            print(f"check {name} {estimator} D={D} n={layers} F={F} B={B}: "
+                  f"max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: non-finite output")
+            if direction == "forward":
+                check(torch.allclose(got[0], want[0], **Z_TOL), f"{name} D={D}: z off by {ey}")
+                check(eld <= LD_ATOL, f"{name} D={D}: logdet off by {eld}")
+            else:
+                print(f"  trips per block, walk order: plain (whole batch) {trips}; kernel "
+                      f"tiles max {iters.amax(0).flip(0).tolist()} min "
+                      f"{iters.amin(0).flip(0).tolist()}; plain round trip "
+                      f"max|x - inv(fwd(x))|={float((want[0] - x).abs().max()):.3e}")
+                check(ey <= RESFLOW_INV_ATOL, f"{name} D={D}: x off by {ey}")
+                check(eld <= RESFLOW_INV_ATOL, f"{name} D={D}: logdet off by {eld}")
+            errs[name] = max(errs[name], ey, eld)
+
     # ---- 4. the main path, through the entry points a user calls
     from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
     from nf_tpu_torch.models import build_model
@@ -413,9 +560,13 @@ def main():
               f"max|ld_fwd + ld_inv|={ld_sum:.3e}")
         rt_tol = FLOWPP_INV_X_ATOL if model_name == "flow++" else 1e-3
         ld_tol = FLOWPP_INV_LD_ATOL if model_name == "flow++" else 1e-3
+        if model_name == "resflow":
+            rt_tol = ld_tol = RESFLOW_INV_ATOL
         check(rt < rt_tol and ld_sum < ld_tol, f"{model_name}: round trip")
         with torch.no_grad():
-            zc, ldc = model(x[:256])             # the eager chain, cuBLAS f32
+            # the eager chain, cuBLAS f32; ResFlow's blocks draw their probes
+            # for 256 samples from a generator seeded 0, as the program does
+            zc, ldc = model(x[:256])
         lp_small = float((prog.log_prob(x[:256])
                           - (standard_normal_logprob(zc) + ldc)).abs().max())
         print(f"{model_name} eager chain vs serving program, 256 samples: "
@@ -424,57 +575,108 @@ def main():
               f"{model_name}: serving program disagrees with the eager chain")
         programs[model_name] = (prog, x, gen)
 
+    # ResFlow with logdet="exact": the forward is the eager chain, the
+    # inverse one solve launch and a chain forward at the solved x
+    cfg = NetworkConfig(name="resflow", **{**NETWORK_DEFAULTS["resflow"], "logdet": "exact"})
+    model = build_model("resflow", (2,), "2d", cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(gen)
+    perturb(model, gen, dev)
+    exact = model.eval_program(params)
+    x = torch.randn(BATCH, 2, generator=gen, device=dev)
+    reset_all(counters)
+    z, ld = exact.forward(x)
+    xr, ldi = exact.inverse(z)
+    torch.cuda.synchronize()
+    counts = launches_of()
+    print(f"main path resflow exact launches: { {k: v for k, v in counts.items() if v} }")
+    check(counts == {k: int(k == "fused_resflow_solve") for k in counts},
+          f"resflow exact: expected one solve launch per inverse, got {counts}")
+    launches["fused_resflow_solve"] = counts["fused_resflow_solve"]
+    rt, ld_sum = float((xr - x).abs().max()), float((ld + ldi).abs().max())
+    with torch.no_grad():
+        xc, ldic = model.inverse(z[:256])
+    e_x, e_ld = float((xr[:256] - xc).abs().max()), float((ldi[:256] - ldic).abs().max())
+    print(f"resflow exact round trip: max|x - inv(fwd(x))|={rt:.3e} max|ld_fwd + ld_inv|="
+          f"{ld_sum:.3e}; against the eager chain's inverse, 256 samples: max|dx|={e_x:.3e} "
+          f"max|dlogdet|={e_ld:.3e}")
+    check(bool(torch.isfinite(xr).all() and torch.isfinite(ldi).all()),
+          "resflow exact: non-finite")
+    check(rt < RESFLOW_INV_ATOL and ld_sum < RESFLOW_INV_ATOL, "resflow exact: round trip")
+    check(e_x < RESFLOW_INV_ATOL and e_ld < RESFLOW_INV_ATOL,
+          "resflow exact: serving program disagrees with the eager chain")
+
     # ---- 5. timing and bounds
     kernels = []
     for model_name, (prog, x, gen) in programs.items():
         stack = prog.stack
-        flowpp = model_name == "flow++"
-        mod = ff if flowpp else fs
-        reference = ff.fused_flowpp_reference if flowpp else fs.fused_stack_reference
+        spec = stack.spec
         zin = torch.randn(BATCH, 2, generator=gen, device=dev)
-        for name, inv, inp in ((MODELS[model_name][0], False, x), (MODELS[model_name][1], True, zin)):
-            direction = "inverse" if inv else "forward"
-            work = flowpp_work(stack, inp, inv) if flowpp else stack_work(stack, BATCH)
-            bound, bound_by = bound_of(work, sfu_per_s)
-            ms = device_ms(lambda: mod.launch(stack, inp, inv), 200)
-            plain = device_ms(lambda: reference(stack.packed, stack.const_ld, inp, direction),
-                              PLAIN_ITERS)
-            source, replaces = KERNEL_SOURCES[name]
-            entry = {
-                "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": errs[name],
-                "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": None,
-                "library_note": "no single PyTorch call computes the whole stack",
-                "f32_ms": work["flop"] / F32_FLOPS * 1e3,
-                "sfu_ms": work["transcendental"] / sfu_per_s * 1e3,
-                "bytes_ms": work["bytes"] / HBM_BYTES_PER_S * 1e3,
-                "tf32_bound_ms": max(work["mac_flop"] / TF32_FLOPS,
-                                     (work["flop"] - work["mac_flop"]) / F32_FLOPS,
-                                     work["transcendental"] / sfu_per_s,
-                                     work["bytes"] / HBM_BYTES_PER_S) * 1e3,
-                "flop": work["flop"], "transcendental": work["transcendental"],
-                "bytes": work["bytes"], "shape": [BATCH, 2],
-                "couplings": stack.spec.n_repeats, "filters": stack.spec.filters,
-            }
-            if flowpp:
-                entry.update(mixtures=stack.spec.n_mixtures,
-                             mixture_evaluations=work["mixture_evaluations"],
-                             warp_mixture_evaluations=work["warp_mixture_evaluations"])
-            kernels.append(entry)
+        if model_name == "resflow":
+            probes = eval_probes("unbias", BATCH, 2, dev)
+            print(f"resflow main path: the port's n_terms={probes[1].tolist()}")
+            z_ex = torch.randn(BATCH, 2, generator=gen, device=dev)
+            plain_of = {"forward": rf.fused_resflow_fwd_logdet_reference,
+                        "inverse": rf.fused_resflow_solve_logdet_reference,
+                        "solve": lambda sp, pk, z, _: rf.fused_resflow_solve_reference(sp, pk, z)}
+            for st, direction, inp, pr in ((stack, "forward", x, probes),
+                                           (stack, "inverse", zin, probes),
+                                           (exact.stack, "solve", z_ex, None)):
+                iters = None
+                if direction != "forward":
+                    iters = torch.zeros((BATCH // rf.tile(st.kernel.fp, direction),
+                                         st.spec.n_repeats), dtype=torch.int32, device=dev)
+                    rf.launch(st, inp, direction, pr, iters)
+                work = resflow_work(st.spec, st.packed, BATCH, direction,
+                                    None if pr is None else pr[1], iters)
+                kernels.append(kernel_entry(
+                    RESFLOW_NAMES[direction], launches, errs, work, sfu_per_s,
+                    device_ms(lambda: rf.launch(st, inp, direction, pr), 200),
+                    device_ms(lambda: plain_of[direction](st.spec, st.packed, inp, pr),
+                              PLAIN_ITERS),
+                    blocks=st.spec.n_repeats, filters=st.spec.filters,
+                    estimator=st.spec.estimator, g_evaluations=work["g_evaluations"],
+                    series_products=work["series_products"],
+                    solve_trips_per_block_max=(None if iters is None else
+                                               iters.amax(0).flip(0).tolist())))
+            desc = (f"resflow 2d, {spec.n_repeats} blocks, F={spec.filters}, "
+                    f"logdet={spec.estimator}")
+        else:
+            flowpp = model_name == "flow++"
+            mod = ff if flowpp else fs
+            reference = ff.fused_flowpp_reference if flowpp else fs.fused_stack_reference
+            for name, inv, inp in ((MODELS[model_name][0], False, x),
+                                   (MODELS[model_name][1], True, zin)):
+                direction = "inverse" if inv else "forward"
+                work = flowpp_work(stack, inp, inv) if flowpp else stack_work(stack, BATCH)
+                extra = {}
+                if flowpp:
+                    extra = dict(mixtures=spec.n_mixtures,
+                                 mixture_evaluations=work["mixture_evaluations"],
+                                 warp_mixture_evaluations=work["warp_mixture_evaluations"])
+                kernels.append(kernel_entry(
+                    name, launches, errs, work, sfu_per_s,
+                    device_ms(lambda: mod.launch(stack, inp, inv), 200),
+                    device_ms(lambda: reference(stack.packed, stack.const_ld, inp, direction),
+                              PLAIN_ITERS),
+                    couplings=spec.n_repeats, filters=spec.filters, **extra))
+            desc = (f"{model_name} 2d, {spec.n_repeats} couplings, F={spec.filters}"
+                    + (f", K={spec.n_mixtures}" if flowpp else ""))
         t_fwd = wall_ms(lambda: prog.forward(x), 200)
         t_inv = wall_ms(lambda: prog.inverse(zin), 200)
-        rate = BATCH / ((t_fwd + t_inv) / 1e3)
         busy = device_busy(lambda: (prog.forward(x), prog.inverse(zin)), 50)
-        spec = stack.spec
-        desc = (f"{model_name} 2d, {spec.n_repeats} couplings, F={spec.filters}"
-                + (f", K={spec.n_mixtures}" if flowpp else ""))
         print(json.dumps({"main_path": {
             "model": desc, "batch": BATCH,
             "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
-            "fwd_inv_samples_per_s": rate,
+            "fwd_inv_samples_per_s": BATCH / ((t_fwd + t_inv) / 1e3),
             "device_idle_share": None if busy is None else 1.0 - busy,
             "card": smi}}))
+        if model_name == "resflow":
+            print(json.dumps({"resflow_exact": {
+                "model": f"resflow 2d, {exact.stack.spec.n_repeats} blocks, logdet=exact",
+                "batch": BATCH, "eval_program_forward_ms": wall_ms(lambda: exact.forward(x), 10),
+                "eval_program_inverse_ms": wall_ms(lambda: exact.inverse(z_ex), 10),
+                "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

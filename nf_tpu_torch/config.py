@@ -15,6 +15,9 @@ class NetworkConfig:
     layers: int = 32
     # flow++ mixture components (configs/network/flow++.yaml)
     mixtures: int = 8
+    # resflow (configs/network/resflow.yaml)
+    logdet: str = "unbias"
+    spnorm_coeff: float = 0.9
     # conditioner width (reference MLP/ConvNet base_filters=32)
     base_filters: int = 32
 
@@ -24,4 +27,5 @@ NETWORK_DEFAULTS = {
     "realnvp": dict(layers=32),
     "glow": dict(layers=32),
     "flow++": dict(layers=32, mixtures=8),
+    "resflow": dict(layers=32, logdet="unbias", spnorm_coeff=0.9),
 }

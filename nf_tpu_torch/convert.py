@@ -15,6 +15,9 @@ matching parameters and buffers.  Layout differences handled here:
   the LU factorization; only its strict lower part counts.
 * ``GatedAttn`` keeps ``nf_tpu``'s ``(in, out)`` layout for its raw
   projections, so they copy as they are.
+* ``SpectralNormDense`` keeps ``nf_tpu``'s ``(in, out)`` ``w_bar``; its
+  power-iteration vectors ``u`` / ``v`` are state there and buffers here.
+  ``InvertibleResBlock`` nests its g-net under ``"g"`` in both trees.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from .bijectors.conv1x1 import InvertibleConv1x1
 from .bijectors.coupling import AffineCoupling
 from .bijectors.flowpp_coupling import MixLogAttnCoupling
+from .bijectors.iresblock import InvertibleResBlock
 from .bijectors.norm import ActNorm, BatchNorm
 from .core.bijector import Chain
 from .models.base import FlowModel
@@ -31,6 +35,7 @@ from .nets.conditioners import ResBlockLinear
 from .nets.core import Activation, Sequential
 from .nets.gated import GatedAttn, GatedLinear, LayerNormNet
 from .nets.layers import BatchNormNet, Dense
+from .nets.spectral import LipSwish, SpectralNormDense
 
 
 def _copy(dst: torch.Tensor, src, name: str, transpose: bool = False) -> None:
@@ -102,6 +107,15 @@ def _load(module, params, state, path: str) -> None:
         _load(module.net, params["net"], state["net"], f"{path}.net")
         for k in ("a_log_scale", "a_bias"):
             _copy(getattr(module, k), params[k], f"{path}.{k}")
+    elif isinstance(module, SpectralNormDense):
+        for k in ("w_bar", "b"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+        for k in ("u", "v"):
+            _copy(getattr(module, k), state[k], f"{path}.{k}")
+    elif isinstance(module, LipSwish):
+        _copy(module.beta, params["beta"], f"{path}.beta")
+    elif isinstance(module, InvertibleResBlock):
+        _load(module.g_net, params["g"], state["g"], f"{path}.g")
     else:
         raise TypeError(f"{path}: no conversion for {type(module).__name__}")
 

@@ -9,11 +9,13 @@ from .base import EvalProgram, FlowModel  # noqa: F401
 from .flowpp import build_flowpp
 from .glow import build_glow
 from .realnvp import build_realnvp
+from .resflow import build_resflow
 
 _REGISTRY = {
     "realnvp": build_realnvp,
     "glow": build_glow,
     "flow++": build_flowpp,
+    "resflow": build_resflow,
 }
 
 

@@ -13,11 +13,15 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..bijectors.iresblock import forward_with_probes
 from ..core.bijector import Bijector
 from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
                                      fused_flowpp, pack_flowpp)
+from ..ops.cuda.fused_resflow import (PackedResFlow, extract_resflow_spec,
+                                      fused_resflow, pack_resflow)
 from ..ops.cuda.fused_stack import (PackedStack, extract_stack_spec,
                                     fused_stack, pack_stack)
+from ..ops.estimators import Probes, eval_probes
 from ..ops.math import standard_normal_logprob
 
 
@@ -45,16 +49,20 @@ class FlowModel(nn.Module):
         self.bijector.init(generator)
         return self.state_dict()
 
-    def eval_program(self, params: Optional[dict] = None) -> "EvalProgram":
+    def eval_program(self, params: Optional[dict] = None,
+                     probes: Optional[Probes] = None) -> "EvalProgram":
         """Build the serving program over fixed parameters: the weights are
         packed once and, for a stack that matches a fused pattern on the
         card, each call is ONE kernel launch (``ops/cuda/fused_stack.py``
-        for RealNVP / Glow, ``ops/cuda/fused_flowpp.py`` for Flow++).
-        ``params`` is a state dict to load first, as ``init`` or
-        ``convert.load_jax_variables`` return it."""
+        for RealNVP / Glow, ``ops/cuda/fused_flowpp.py`` for Flow++,
+        ``ops/cuda/fused_resflow.py`` for ResFlow).  ``params`` is a state
+        dict to load first, as ``init`` or ``convert.load_jax_variables``
+        return it.  ``probes`` (ResFlow's stochastic log-det estimators
+        only: ``ops/estimators.py``'s (V, n_terms)) replaces the serving
+        probe set in every call; the batch size must then be V's."""
         if params is not None:
             self.load_state_dict(params)
-        return EvalProgram(self)
+        return EvalProgram(self, probes)
 
     # ------------------------------------------------------------- running
     def forward(self, y):
@@ -82,18 +90,28 @@ class EvalProgram:
 
     Dispatch in ``nf_tpu``'s order: a stack that matches the fused
     RealNVP / Glow pattern runs through ``fused_stack``, else one that
-    matches the Flow++ pattern through ``fused_flowpp`` (each the kernel on
-    the card, its plain version on the CPU); any other stack runs the eager
-    chain on the model's device, as ``nf_tpu`` runs its jitted chain where
-    no fused kernel applies.  ``stack`` holds the packed weights, or None
-    for the chain."""
+    matches the Flow++ pattern through ``fused_flowpp``, else one that
+    matches the ResFlow pattern through ``fused_resflow`` (each the kernel
+    on the card, its plain version on the CPU); any other stack runs the
+    eager chain on the model's device, as ``nf_tpu`` runs its jitted chain
+    where no fused kernel applies.  ``stack`` holds the packed weights, or
+    None for the chain.
 
-    def __init__(self, model: FlowModel):
+    ResFlow: with the 'unbias' estimator both directions are one kernel
+    each, the series over the probe set of the call's batch size (drawn
+    once by ``eval_probes`` and kept, or the ``probes`` given); with any
+    other estimator the forward is the chain, and the inverse is the solve
+    kernel followed by one chain forward at the solved x, negated, as
+    ``nf_tpu`` serves it."""
+
+    def __init__(self, model: FlowModel, probes: Optional[Probes] = None):
         self.model = model.eval()
         self.dims = model.dims
         self.device = model.device
         bij = model.bijector
         self.stack = None
+        self.probes = probes
+        self._probe_sets = {}
         spec = extract_stack_spec(bij, model.dims)
         if spec is not None:
             self.stack, run = PackedStack(spec, *pack_stack(bij, spec)), fused_stack
@@ -104,9 +122,38 @@ class EvalProgram:
         if self.stack is not None:
             self._fwd = lambda x: run(self.stack, x, "forward")
             self._inv = lambda z: run(self.stack, z, "inverse")
-        else:
+            return
+        spec = extract_resflow_spec(bij, model.dims)
+        if spec is None:
             self._fwd = bij
             self._inv = bij.inverse
+            return
+        self.stack = PackedResFlow(spec, pack_resflow(bij, spec))
+        self.estimator = spec.estimator
+        if spec.estimator == "unbias":
+            self._fwd = lambda x: fused_resflow(self.stack, x, "forward", self._probes(x))
+            self._inv = lambda z: fused_resflow(self.stack, z, "inverse", self._probes(z))
+        else:
+            self._fwd = lambda x: forward_with_probes(bij, x, self._probes(x))
+            self._inv = self._solve_and_replay
+
+    def _probes(self, x) -> Optional[Probes]:
+        """The ResFlow estimator's probes for the batch x: the given set,
+        or the serving set of x's batch size, drawn once."""
+        B = x.shape[0]
+        if self.probes is not None:
+            if self.probes[0].shape[1] != B:
+                raise ValueError(f"the program's probes are for a batch of "
+                                 f"{self.probes[0].shape[1]}, got {B}")
+            return self.probes
+        if B not in self._probe_sets:
+            self._probe_sets[B] = eval_probes(self.estimator, B, x[0].numel(), self.device)
+        return self._probe_sets[B]
+
+    def _solve_and_replay(self, z):
+        x = fused_resflow(self.stack, z, "solve")
+        _, ld = forward_with_probes(self.model.bijector, x, self._probes(x))
+        return x, -ld
 
     def _input(self, x):
         return x.to(device=self.device, dtype=torch.float32).contiguous()

@@ -1,0 +1,139 @@
+"""Log-det estimators for residual maps f(x) = x + g(x) (counterpart of
+``nf_tpu/ops/estimators.py``), eval mode.
+
+* ``logdet_exact``: log|det(I + J)| from D vector-Jacobian products per
+  sample and ``slogdet``;
+* ``logdet_fixed``: the power series sum_k (-1)^(k+1) tr(J^k) / k cut at
+  ``n_power_series`` terms, with Hutchinson probes;
+* ``logdet_unbias``: the Russian-roulette series, ``n_terms = n_exact + G``
+  with G geometric, term k weighted by ``1 / (k (1-p)^max(0, k-n_exact-1))``.
+
+The Jacobian products come from autograd (``torch.func.vjp``), so the
+estimators stay generic over ``g_fn``, as ``jax.vjp`` keeps ``nf_tpu``'s.
+
+The probes are ARGUMENTS, never drawn inside an estimator: JAX's threefry
+stream cannot be reproduced, so a comparison with ``nf_tpu`` hands both
+packages the same draws.  ``draw_unbias_probes`` / ``draw_fixed_probes``
+draw them from a caller's ``torch.Generator`` with ``nf_tpu``'s structure
+(4 probes; a series length per probe for 'unbias'), and ``eval_probes``
+is the serving set: ``nf_tpu``'s eval blocks all use ``PRNGKey(0)``, the
+port a generator seeded 0 on the data's device, so every block and every
+call at one batch size sees the same probes.
+
+``trace_*`` (FFJORD) and ``iresblock_forward`` (training) wait for their
+slices.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+# Cap for Russian-roulette series length: n_exact + Geom(p), G <= 32
+SERIES_CAP = 32
+TINY = torch.finfo(torch.float32).tiny
+# serving-mode estimator constants (nf_tpu/bijectors/iresblock.py:62-65)
+N_SAMPLES = 4
+N_POWER_SERIES = 8
+N_EXACT = 8
+P = 0.5
+
+# (V (S, B, D), n_terms (S,) int CPU tensor or None)
+Probes = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+def geometric(u: torch.Tensor, p: float) -> torch.Tensor:
+    """G >= 1 with P(G = k) = p (1-p)^(k-1) from a uniform ``u`` in
+    [tiny, 1): floor(log u / log1p(-p)) + 1, clipped to [1, SERIES_CAP]."""
+    g = torch.floor(torch.log(u) / torch.log1p(torch.tensor(-p, dtype=u.dtype))) + 1.0
+    return torch.clamp(g.to(torch.int32), 1, SERIES_CAP)
+
+
+def _uniform_tiny(generator: torch.Generator) -> torch.Tensor:
+    u = torch.rand((), generator=generator, device=generator.device, dtype=torch.float32)
+    return torch.clamp(u, min=TINY)
+
+
+def draw_unbias_probes(B: int, D: int, generator: torch.Generator) -> Probes:
+    """The 'unbias' estimator's draws for a (B, D) batch, in ``nf_tpu``'s
+    structure: per probe s, a series length ``n_exact + G`` then a normal
+    (B, D) probe.  Returns (V (S, B, D) on the generator's device,
+    n_terms (S,) int32 on the CPU)."""
+    vs, nts = [], []
+    for _ in range(N_SAMPLES):
+        nts.append(N_EXACT + geometric(_uniform_tiny(generator), P))
+        vs.append(torch.randn((B, D), generator=generator, device=generator.device,
+                              dtype=torch.float32))
+    return torch.stack(vs), torch.stack(nts).cpu()
+
+
+def draw_fixed_probes(B: int, D: int, generator: torch.Generator) -> Probes:
+    """The 'fixed' estimator's draws: 4 normal (B, D) probes, no lengths."""
+    return torch.stack([torch.randn((B, D), generator=generator, device=generator.device,
+                                    dtype=torch.float32)
+                        for _ in range(N_SAMPLES)]), None
+
+
+def eval_probes(estimator: str, B: int, D: int, device) -> Optional[Probes]:
+    """The serving probe set for ``estimator`` at batch size B: drawn from a
+    generator seeded 0 on ``device`` (None for 'exact')."""
+    if estimator == "exact":
+        return None
+    g = torch.Generator(device=device).manual_seed(0)
+    if estimator == "unbias":
+        return draw_unbias_probes(B, D, g)
+    if estimator == "fixed":
+        return draw_fixed_probes(B, D, g)
+    raise ValueError(f"unknown log-det estimator {estimator!r}")
+
+
+def _dot_per_sample(a, b):
+    return (a.reshape(a.shape[0], -1) * b.reshape(b.shape[0], -1)).sum(dim=1)
+
+
+def logdet_exact(g_fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Exact log|det(I + dg/dx)| per sample via D VJPs (small D only)."""
+    _, vjp = torch.func.vjp(g_fn, x)
+    B, D = x.shape[0], x[0].numel()
+    eye = torch.eye(D, dtype=x.dtype, device=x.device)
+    rows = [vjp(eye[i].reshape(x.shape[1:]).expand_as(x).contiguous())[0].reshape(B, D)
+            for i in range(D)]
+    jac = torch.stack(rows, dim=1)                                  # (B, D, D)
+    return torch.linalg.slogdet(eye + jac)[1]
+
+
+def logdet_fixed(g_fn: Callable, x: torch.Tensor, v: torch.Tensor,
+                 n_power_series: int = 8) -> torch.Tensor:
+    """Truncated power series with the Hutchinson probes v (S, B, ...)."""
+    _, vjp = torch.func.vjp(g_fn, x)
+    est = []
+    for vs in v:
+        w, acc = vs, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for k in range(1, n_power_series + 1):
+            w = vjp(w)[0]
+            sign = 1.0 if k % 2 == 1 else -1.0
+            acc = acc + sign * (_dot_per_sample(w, vs) / k)
+        est.append(acc)
+    return torch.stack(est).mean(dim=0)
+
+
+def roulette_coefficient(k: int, p: float, n_exact: int) -> float:
+    """sign_k / (k (1-p)^max(0, k - n_exact - 1)): the weight of term k."""
+    sign = 1.0 if k % 2 == 1 else -1.0
+    return sign / (k * (1.0 - p) ** max(0, k - n_exact - 1))
+
+
+def logdet_unbias(g_fn: Callable, x: torch.Tensor, v: torch.Tensor,
+                  n_terms: Sequence[int], p: float = 0.5, n_exact: int = 1) -> torch.Tensor:
+    """Unbiased Russian-roulette series with probes v (S, B, ...) and series
+    lengths n_terms (S,); the terms past a probe's length count 0, as
+    ``nf_tpu``'s fixed-cap loop masks them."""
+    _, vjp = torch.func.vjp(g_fn, x)
+    est = []
+    for vs, nt in zip(v, [int(n) for n in n_terms]):
+        w, acc = vs, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for k in range(1, nt + 1):
+            w = vjp(w)[0]
+            acc = acc + roulette_coefficient(k, p, n_exact) * _dot_per_sample(w, vs)
+        est.append(acc)
+    return torch.stack(est).mean(dim=0)

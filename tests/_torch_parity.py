@@ -20,9 +20,11 @@ def normal(seed: int, shape, scale: float = 1.0) -> np.ndarray:
 
 
 def jax_model(name: str, D: int, layers: int, filters: int, seed: int = 0,
-              batch: int = 64, mixtures: int = 4):
-    """An nf_tpu density model after its data-dependent init (ActNorm) and
-    with any batch-norm running statistics moved off their init values (as
+              batch: int = 64, mixtures: int = 4, logdet: str = "unbias",
+              spnorm_coeff: float = 0.9):
+    """An nf_tpu density model after its data-dependent init (ActNorm; for
+    ResFlow also one spectral-norm power iteration) and with any
+    batch-norm running statistics moved off their init values (as
     tests/test_pallas.py does), so the folding of those statistics has
     teeth.  Returns (model, numpy var)."""
     from nf_tpu.config import NetworkConfig
@@ -30,7 +32,7 @@ def jax_model(name: str, D: int, layers: int, filters: int, seed: int = 0,
     from nf_tpu.models import build_model
 
     cfg = NetworkConfig(name=name, layers=layers, base_filters=filters,
-                        mixtures=mixtures)
+                        mixtures=mixtures, logdet=logdet, spnorm_coeff=spnorm_coeff)
     model = build_model(name, (D,), datatype="2d", cfg=cfg)
     rng = jax.random.PRNGKey(seed)
     var = model.init(rng)
@@ -45,7 +47,7 @@ def jax_model(name: str, D: int, layers: int, filters: int, seed: int = 0,
 
 
 def torch_model(name: str, D: int, layers: int, filters: int, var=None,
-                mixtures: int = 4):
+                mixtures: int = 4, logdet: str = "unbias", spnorm_coeff: float = 0.9):
     """The port's density model on the CPU, with ``var`` (an nf_tpu
     variables pytree of numpy arrays) loaded when given."""
     from nf_tpu_torch.config import NetworkConfig
@@ -53,7 +55,7 @@ def torch_model(name: str, D: int, layers: int, filters: int, var=None,
     from nf_tpu_torch.models import build_model
 
     cfg = NetworkConfig(name=name, layers=layers, base_filters=filters,
-                        mixtures=mixtures)
+                        mixtures=mixtures, logdet=logdet, spnorm_coeff=spnorm_coeff)
     model = build_model(name, (D,), "2d", cfg, device="cpu")
     if var is not None:
         load_jax_variables(model, var)
@@ -66,6 +68,23 @@ def jax_realnvp(D: int, layers: int, filters: int, seed: int = 0, batch: int = 6
 
 def torch_realnvp(D: int, layers: int, filters: int, var=None):
     return torch_model("realnvp", D, layers, filters, var)
+
+
+def nf_unbias_probes(B: int, D: int):
+    """nf_tpu's serving 'unbias' draws (PRNGKey(0), the key every eval block
+    uses) in the port's layout: (V (S, B, D), n_terms (S,) int32)."""
+    from nf_tpu.ops.pallas.fused_resflow import draw_unbias_probes
+
+    V, thr, _ = draw_unbias_probes(B, D)
+    return (torch.from_numpy(np.asarray(V).transpose(1, 2, 0).copy()),
+            torch.from_numpy(np.asarray(thr)[0, :, 0].astype(np.int32)))
+
+
+def nf_fixed_probes(B: int, D: int):
+    """nf_tpu's serving 'fixed' draws from PRNGKey(0), port layout."""
+    keys = jax.random.split(jax.random.PRNGKey(0), 4)
+    return torch.from_numpy(np.stack([np.asarray(jax.random.normal(k, (B, D)))
+                                      for k in keys])), None
 
 
 def as_numpy(a):

@@ -49,7 +49,7 @@ def test_port_sources_name_no_jax_or_nf_tpu_import():
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
 
-@pytest.mark.parametrize("name", ["realnvp", "glow", "flow++"])
+@pytest.mark.parametrize("name", ["realnvp", "glow", "flow++", "resflow"])
 def test_build_model_defaults_to_the_card(name):
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
@@ -103,3 +103,26 @@ def test_new_wrappers_raise_instead_of_running_the_plain_version(name):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             _build.load("fused_flowpp")
+
+
+def test_resflow_wrapper_raises_instead_of_running_the_plain_version():
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops.cuda import _build
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+
+    model = build_model("resflow", (2,), "2d", NetworkConfig(layers=2, base_filters=8),
+                        device="cpu")
+    stack = model.eval_program().stack
+    assert isinstance(stack, rf.PackedResFlow)
+    probes = rf.draw_unbias_probes(4, 2, torch.Generator().manual_seed(0))
+    before = dict(rf.LAUNCHES)
+    for direction in ("forward", "inverse", "solve"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            rf.fused_resflow(stack, torch.zeros(4, 2, device="meta"), direction, probes)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            rf.launch(stack, torch.zeros(4, 2), direction, probes)
+    assert rf.LAUNCHES == before
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            _build.load("fused_resflow")

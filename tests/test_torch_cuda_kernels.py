@@ -5,7 +5,9 @@ kernel to run).  On a machine with one:
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 Tolerances as chip_smoke.py: z atol/rtol 1e-4, logdet atol 1e-3; the
 Flow++ inverse x atol 1e-3, logdet atol 5e-3 (two Newton solves meet the
-same root only within XTOL, compounded through the couplings).
+same root only within XTOL, compounded through the couplings); the ResFlow
+inverse x and logdet atol 1e-3 (the kernel stops each fixed point per tile
+of 32 samples, the plain version on the whole batch).
 """
 import pytest
 import torch
@@ -22,12 +24,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _program(D, layers, F, seed, device, name="realnvp", K=8):
+def _program(D, layers, F, seed, device, name="realnvp", K=8, logdet="unbias"):
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
     model = build_model(name, (D,), "2d",
-                        NetworkConfig(layers=layers, base_filters=F, mixtures=K),
+                        NetworkConfig(layers=layers, base_filters=F, mixtures=K, logdet=logdet),
                         device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     model.init(g)
@@ -80,20 +82,71 @@ def test_fused_flowpp_kernel_matches_plain(cuda, layers, F, K, B):
         torch.testing.assert_close(ld, ldr, atol=ld_tol, rtol=0)
 
 
+@pytest.mark.parametrize("D,layers,F,B", [(2, 4, 8, 300), (2, 6, 32, 1024), (3, 4, 20, 777),
+                                          (3, 4, 64, 1000), (8, 2, 64, 100), (5, 3, 16, 33)])
+def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
+    from nf_tpu_torch.nets.spectral import LipSwish
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+
+    prog, g = _program(D, layers, F, 0, cuda, "resflow")
+    with torch.no_grad():
+        for m in prog.model.modules():
+            if isinstance(m, LipSwish):
+                m.beta.copy_(0.5 + torch.rand(1, generator=g, device=cuda))
+    prog = prog.model.eval_program()
+    st = prog.stack
+    x = torch.randn(B, D, generator=g, device=cuda)
+    probes = rf.draw_unbias_probes(B, D, g)
+    z, ld = rf.fused_resflow(st, x, "forward", probes)
+    torch.cuda.synchronize()
+    zr, ldr = rf.fused_resflow_fwd_logdet_reference(st.spec, st.packed, x, probes)
+    torch.testing.assert_close(z, zr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+    iters = torch.zeros((-(-B // rf.tile(st.kernel.fp, "inverse")), layers),
+                        dtype=torch.int32, device=cuda)
+    xi, ldi = rf.launch(st, zr, "inverse", probes, iters)
+    xs = rf.fused_resflow(st, zr, "solve")
+    torch.cuda.synchronize()
+    trips = []
+    xr, ldir = rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, zr, probes, trips)
+    torch.testing.assert_close(xi, xr, atol=1e-3, rtol=0)
+    torch.testing.assert_close(ldi, ldir, atol=1e-3, rtol=0)
+    torch.testing.assert_close(xs, xr, atol=1e-3, rtol=0)
+    # a tile stops no later than the whole batch
+    assert (iters.amax(0).flip(0).cpu() <= torch.tensor(trips, dtype=torch.int32)).all()
+    assert int(iters.min()) >= 1
+
+
 @pytest.mark.parametrize("name,fwd,inv", [
     ("realnvp", "fused_stack_fwd", "fused_stack_inv"),
     ("glow", "fused_stack_glow_fwd", "fused_stack_glow_inv"),
-    ("flow++", "fused_flowpp_fwd", "fused_flowpp_inv")])
+    ("flow++", "fused_flowpp_fwd", "fused_flowpp_inv"),
+    ("resflow", "fused_resflow_fwd_ld", "fused_resflow_solve_ld")])
 def test_eval_program_is_one_launch_per_call(cuda, name, fwd, inv):
     from nf_tpu_torch.ops.cuda import fused_flowpp as ff
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
     from nf_tpu_torch.ops.cuda import fused_stack as fs
 
     prog, g = _program(2, 4, 32, 1, cuda, name)
     x = torch.randn(512, 2, generator=g, device=cuda)
-    fs.reset_launches()
-    ff.reset_launches()
+    for mod in (fs, ff, rf):
+        mod.reset_launches()
     prog.log_prob(x)
     prog.sample(512, g)
     torch.cuda.synchronize()
-    counts = {k: v for k, v in {**fs.LAUNCHES, **ff.LAUNCHES}.items() if v}
+    counts = {k: v for k, v in {**fs.LAUNCHES, **ff.LAUNCHES, **rf.LAUNCHES}.items() if v}
     assert counts == {fwd: 1, inv: 1}
+
+
+def test_resflow_exact_inverse_is_one_solve_launch(cuda):
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+
+    prog, g = _program(2, 4, 32, 2, cuda, "resflow", logdet="exact")
+    x = torch.randn(512, 2, generator=g, device=cuda)
+    rf.reset_launches()
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in rf.LAUNCHES.items() if v} == {"fused_resflow_solve": 1}
+    torch.testing.assert_close(xr, x, atol=1e-3, rtol=0)
+    torch.testing.assert_close(ldi, -ld, atol=1e-3, rtol=0)
