@@ -17,9 +17,10 @@ Phases, each of which exits non-zero when it fails:
        ResFlow (LipSwish betas also drawn from U(0.5, 1.5)): 'unbias'
          D = 2, 32 blocks, F = 32, B = 8192, the forward (fwd_ld) and
          the inverse (solve_ld) of its latent; the same with 'exact' for
-         the solve alone; a ragged D = 3, n = 4, F = 64, B = 1000 for all
-         three variants; with each solve's trip count per block and the
-         probes' series lengths printed;
+         the solve alone; a ragged D = 3, n = 4, F = 64, B = 1000 and the
+         widest tiling, D = 2, n = 4, F = 128, B = 1000, for all three
+         variants; with each solve's trip count per block and the probes'
+         series lengths printed;
      forward z atol/rtol 1e-4, logdet atol 1e-3 (f32 sums in another
      order, compounded through 32 couplings); the Flow++ inverse runs on
      the forward's latent of the same data, as tests/test_pallas.py
@@ -45,8 +46,8 @@ Phases, each of which exits non-zero when it fails:
      plain version and, per model, the serving rate
      fwd_inv_samples_per_s = 8192 / (t_fwd + t_inv), bench.py's
      definition; print one main_path line per model, the ResFlow 'exact'
-     program's wall time per direction and the kernels line with each
-     kernel's bound;
+     program's wall time per direction and its device idle share, and the
+     kernels line with each kernel's bound;
   6. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -79,6 +80,7 @@ SMS = 132
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table)
 SFU_PER_SM_CLOCK = 16
 PLAIN_ITERS = 10
+EXACT_ITERS = 30  # calls per direction timed of the ResFlow 'exact' program
 
 KERNEL_SOURCES = {
     "fused_stack_fwd": ("nf_tpu_torch/csrc/fused_stack.cu", "nf_tpu/ops/pallas/fused_stack.py:397"),
@@ -105,7 +107,8 @@ MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
 # ResFlow kernel checks: (estimator, D, blocks, F, B, directions)
 RESFLOW_CASES = [("unbias", 2, 32, 32, BATCH, ("forward", "inverse")),
                  ("exact", 2, 32, 32, BATCH, ("solve",)),
-                 ("unbias", 3, 4, 64, 1000, ("forward", "inverse", "solve"))]
+                 ("unbias", 3, 4, 64, 1000, ("forward", "inverse", "solve")),
+                 ("unbias", 2, 4, 128, 1000, ("forward", "inverse", "solve"))]
 RESFLOW_NAMES = {"forward": "fused_resflow_fwd_ld", "inverse": "fused_resflow_solve_ld",
                  "solve": "fused_resflow_solve"}
 
@@ -302,7 +305,7 @@ def flowpp_work(stack, x, inverse):
             "mixture_evaluations": evaluations, "warp_mixture_evaluations": warp_evaluations}
 
 
-def resflow_work(spec, packed, B, direction, n_terms=None, iters=None):
+def resflow_work(spec, packed, B, direction, n_terms=None, trips=None):
     """Operations and bytes one call of a ResFlow kernel variant needs on
     these inputs.  Per sample and block:
       a hidden evaluation of g (D F + F^2 multiply-adds; 2F sigmoids, one
@@ -310,9 +313,11 @@ def resflow_work(spec, packed, B, direction, n_terms=None, iters=None):
       add and division, a s, / 1.1), and 6 more per feature for the
       LipSwish' masks where the series needs them; g's output layer, F D
       multiply-adds and D bias adds.  The forward evaluates g once; the
-      solve `it` times, `it` the kernel's own trip count for the sample's
-      tile (its iters output), plus the hidden layers once more for the
-      masks (solve_ld); each solve trip also takes 3D operations for the
+      solve `it` times, `it` the block's trip count on the whole batch
+      (``trips``, replayed by the plain version: what nf_tpu's kernel runs
+      with its one tile of 8192 samples; this kernel's 32- or 64-sample
+      tiles stop no later), plus the hidden layers once more for the masks
+      (solve_ld); each solve trip also takes 3D operations for the
       residual test and D for x = z - g;
       the series: sum_s n_terms[s] J^T products, each 2 D F + F^2 + D
       multiply-adds (the last D the dot with the probe), 2F mask products,
@@ -326,11 +331,7 @@ def resflow_work(spec, packed, B, direction, n_terms=None, iters=None):
         evals = B * n
         step_elem = B * n * D
     else:
-        tiles = iters.shape[0]
-        per_tile = -(-B // tiles)
-        valid = torch.full((tiles,), per_tile, dtype=torch.int64)
-        valid[-1] = B - per_tile * (tiles - 1)
-        evals = int((iters.to(torch.int64).cpu().sum(1) * valid).sum())
+        evals = B * sum(trips)
         step_elem = evals * 4 * D
     hidden = evals + (B * n if direction == "inverse" else 0)
     masked = B * n if logdet else 0
@@ -489,10 +490,7 @@ def main():
         for direction in directions:
             name = RESFLOW_NAMES[direction]
             inp = x if direction == "forward" else zr
-            iters = (None if direction == "forward" else
-                     torch.zeros((-(-B // rf.tile(stack.kernel.fp, direction)), layers),
-                                 dtype=torch.int32, device=dev))
-            got = rf.launch(stack, inp, direction, probes, iters)
+            got = rf.launch(stack, inp, direction, probes)
             torch.cuda.synchronize()
             trips = []
             if direction == "forward":
@@ -512,9 +510,8 @@ def main():
                 check(torch.allclose(got[0], want[0], **Z_TOL), f"{name} D={D}: z off by {ey}")
                 check(eld <= LD_ATOL, f"{name} D={D}: logdet off by {eld}")
             else:
-                print(f"  trips per block, walk order: plain (whole batch) {trips}; kernel "
-                      f"tiles max {iters.amax(0).flip(0).tolist()} min "
-                      f"{iters.amin(0).flip(0).tolist()}; plain round trip "
+                print(f"  trips per block, walk order (plain version, whole batch): {trips}; "
+                      f"plain round trip "
                       f"max|x - inv(fwd(x))|={float((want[0] - x).abs().max()):.3e}")
                 check(ey <= RESFLOW_INV_ATOL, f"{name} D={D}: x off by {ey}")
                 check(eld <= RESFLOW_INV_ATOL, f"{name} D={D}: logdet off by {eld}")
@@ -616,29 +613,28 @@ def main():
             probes = eval_probes("unbias", BATCH, 2, dev)
             print(f"resflow main path: the port's n_terms={probes[1].tolist()}")
             z_ex = torch.randn(BATCH, 2, generator=gen, device=dev)
-            plain_of = {"forward": rf.fused_resflow_fwd_logdet_reference,
-                        "inverse": rf.fused_resflow_solve_logdet_reference,
-                        "solve": lambda sp, pk, z, _: rf.fused_resflow_solve_reference(sp, pk, z)}
+            plain_of = {
+                "forward": lambda sp, pk, x_, pr_, _: rf.fused_resflow_fwd_logdet_reference(
+                    sp, pk, x_, pr_),
+                "inverse": rf.fused_resflow_solve_logdet_reference,
+                "solve": lambda sp, pk, z_, _, tr: rf.fused_resflow_solve_reference(sp, pk, z_,
+                                                                                    tr)}
             for st, direction, inp, pr in ((stack, "forward", x, probes),
                                            (stack, "inverse", zin, probes),
                                            (exact.stack, "solve", z_ex, None)):
-                iters = None
-                if direction != "forward":
-                    iters = torch.zeros((BATCH // rf.tile(st.kernel.fp, direction),
-                                         st.spec.n_repeats), dtype=torch.int32, device=dev)
-                    rf.launch(st, inp, direction, pr, iters)
+                trips = []
+                plain_of[direction](st.spec, st.packed, inp, pr, trips)
                 work = resflow_work(st.spec, st.packed, BATCH, direction,
-                                    None if pr is None else pr[1], iters)
+                                    None if pr is None else pr[1], trips)
                 kernels.append(kernel_entry(
                     RESFLOW_NAMES[direction], launches, errs, work, sfu_per_s,
                     device_ms(lambda: rf.launch(st, inp, direction, pr), 200),
-                    device_ms(lambda: plain_of[direction](st.spec, st.packed, inp, pr),
+                    device_ms(lambda: plain_of[direction](st.spec, st.packed, inp, pr, None),
                               PLAIN_ITERS),
                     blocks=st.spec.n_repeats, filters=st.spec.filters,
                     estimator=st.spec.estimator, g_evaluations=work["g_evaluations"],
                     series_products=work["series_products"],
-                    solve_trips_per_block_max=(None if iters is None else
-                                               iters.amax(0).flip(0).tolist())))
+                    solve_trips_per_block=trips[::-1] if trips else None))
             desc = (f"resflow 2d, {spec.n_repeats} blocks, F={spec.filters}, "
                     f"logdet={spec.estimator}")
         else:
@@ -672,10 +668,14 @@ def main():
             "device_idle_share": None if busy is None else 1.0 - busy,
             "card": smi}}))
         if model_name == "resflow":
+            busy = device_busy(lambda: (exact.forward(x), exact.inverse(z_ex)), EXACT_ITERS // 3)
             print(json.dumps({"resflow_exact": {
                 "model": f"resflow 2d, {exact.stack.spec.n_repeats} blocks, logdet=exact",
-                "batch": BATCH, "eval_program_forward_ms": wall_ms(lambda: exact.forward(x), 10),
-                "eval_program_inverse_ms": wall_ms(lambda: exact.inverse(z_ex), 10),
+                "batch": BATCH,
+                "eval_program_forward_ms": wall_ms(lambda: exact.forward(x), EXACT_ITERS),
+                "eval_program_inverse_ms": wall_ms(lambda: exact.inverse(z_ex), EXACT_ITERS),
+                "calls": EXACT_ITERS,
+                "device_idle_share": None if busy is None else 1.0 - busy,
                 "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,11 +10,10 @@
   solved x, negated.
 
 ``probes`` (``ops/estimators.py``'s (V, n_terms)) can be handed to
-``forward`` / ``inverse``; without them the block draws the serving set
-(``eval_probes``: a generator seeded 0 on the data's device), the
-counterpart of ``nf_tpu``'s ``PRNGKey(0)`` when ``ctx.rng`` is None.
-``forward_with_probes`` runs a chain with one probe set handed to every
-block.  Training (``iresblock_forward``'s memory-saved gradient) lands
+``forward`` / ``inverse`` (a ``Chain``'s forward hands its own to every
+block); without them the block draws the serving set (``eval_probes``: a
+generator seeded 0 on the data's device), the counterpart of ``nf_tpu``'s
+``PRNGKey(0)`` when ``ctx.rng`` is None.  Training (``iresblock_forward``'s memory-saved gradient) lands
 with the training slice.
 """
 from __future__ import annotations
@@ -31,6 +30,8 @@ from ..ops import estimators as est
 
 
 class InvertibleResBlock(Bijector):
+    takes_probes = True
+
     def __init__(self, g_net, estimator: str = "unbias", ftol: float = 1.0e-4,
                  n_iters: int = 100):
         super().__init__()
@@ -81,13 +82,3 @@ def InvertibleResLinear(in_features: int, out_features: int, base_filters: int =
         if i != len(dims) - 2:
             layers.append(LipSwish(device=device))
     return InvertibleResBlock(Sequential(layers), estimator=logdet_estimator, ftol=ftol)
-
-
-def forward_with_probes(chain, x, probes: Optional[est.Probes]):
-    """``chain`` forward with ``probes`` handed to every residual block (the
-    serving semantics: one probe set for every block)."""
-    logdet = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    for layer in chain.layers:
-        x, ld = layer(x, probes) if isinstance(layer, InvertibleResBlock) else layer(x)
-        logdet = logdet + ld
-    return x, logdet

@@ -28,7 +28,11 @@ def init_children(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class Bijector(nn.Module):
-    """Base class: subclasses implement ``forward`` and ``inverse``."""
+    """Base class: subclasses implement ``forward`` and ``inverse``.
+    ``takes_probes``: ``forward`` takes ResFlow's log-det probes
+    (``ops/estimators.py``'s (V, n_terms)) as its second argument."""
+
+    takes_probes = False
 
     def init(self, generator: torch.Generator) -> None:
         """Re-draw this bijector's parameters in place."""
@@ -45,16 +49,20 @@ class Bijector(nn.Module):
 
 class Chain(Bijector):
     """Sequential composition: forward in order, inverse reversed, per-layer
-    logdets summed starting from zeros."""
+    logdets summed starting from zeros.  ``forward``'s ``probes`` go to
+    every layer that takes them (one probe set for every block: ResFlow's
+    serving semantics)."""
+
+    takes_probes = True
 
     def __init__(self, layers: Sequence[Bijector]):
         super().__init__()
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x):
+    def forward(self, x, probes=None):
         logdet = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, ld = layer(x)
+            x, ld = layer(x, probes) if layer.takes_probes else layer(x)
             logdet = logdet + ld
         return x, logdet
 

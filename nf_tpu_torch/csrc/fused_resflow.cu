@@ -34,7 +34,7 @@
 //    C of them.  C = 2 where the series runs (F <= 32): each weight a thread
 //    loads then feeds both columns, and their independent chains give twice
 //    the instruction-level parallelism; at B = 8192 that is 128 blocks of 4
-//    warps.  C = 1 for the solve alone (and F = 64, where two columns' t no
+//    warps.  C = 1 for the solve alone (and F >= 64, where two columns' t no
 //    longer fit in registers): 256 blocks, two per SM, overlap each other's
 //    barriers.  On an H100 (chip_smoke.py, B = 8192, n = 32, F = 32) the
 //    series variants took 2.79 / 3.07 ms with C = 1 and 1.37 / 1.75 ms with
@@ -42,10 +42,13 @@
 //  * The series is the work and a chain of dependent products: each thread
 //    runs its own columns, with no barrier inside the loop.  A warp runs its
 //    own probe's n_terms (warp-uniform), not the cap.  The F x F product
-//    reads W2 rows as float4 broadcasts (every lane the same address), four
-//    multiply-adds per load and column, four rows at a time from register
-//    inputs; each output is folded at once into W1 (D1 .): the product's
-//    outputs are never stored.
+//    W2 t runs four output rows at a time from register inputs, its weights
+//    read as float4 broadcasts (every lane the same address), four
+//    multiply-adds per load and column: up to FP = 64 along W2's rows (a
+//    transposed copy of W2t in the weight block), at FP = 128, where the
+//    copy does not fit, down W2t's columns (W2[o..o+3][k] = W2t[k][o..o+3]).
+//    Each output is folded at once into W1 (D1 .): the product's outputs
+//    are never stored.
 //  * g's evaluations (the solve, the masks) are per sample and shared by the
 //    4 probes: the 4 warps split the F hidden features, h1 / h2 and the masks
 //    D1 / D2 go to shared memory [F][32 C] (lane-consecutive: no bank
@@ -55,10 +58,14 @@
 //    samples keeps the threads in step.  nf_tpu stops per batch tile and its
 //    chain on the whole batch; all stop only where max|x - prev| < ftol.
 //  * Weights: one block of the stack is one contiguous weight block (9 KB at
-//    F = 32, D = 2), staged into shared memory with cp.async, double-buffered
-//    one block ahead; fused_resflow.py::kernel_weights lays it out.
-//  * Widths: FP in {8, 16, 32, 64} and DP in {2, 4, 8}, zero-padded on the
-//    host: padded features and dimensions stay exactly 0.
+//    F = 32, D = 2; 75 KB at F = 128, D = 8), staged into shared memory with
+//    cp.async, double-buffered one block ahead;
+//    fused_resflow.py::kernel_weights lays it out.
+//  * Widths: FP in {8, 16, 32, 64, 128} and DP in {2, 4, 8}, zero-padded on
+//    the host: padded features and dimensions stay exactly 0.  Wider stacks
+//    do not fit a block's shared memory; the wrapper refuses them.  At
+//    FP = 128 the loops over features that index no register array stay
+//    rolled (Layout::kUnrollF): unrolled, they only lengthen the build.
 //  * Numerics: accurate expf / exp2f and IEEE division, no fast math.
 
 #include <cuda_pipeline.h>
@@ -77,7 +84,6 @@ struct Params {
   float* ld;           // (B,) log-det (LOGDET)
   const float* w;      // (n, Layout::kSize) per-block weight blocks
   const float* v;      // (S, B, D) probes (LOGDET)
-  int* iters;          // (gridDim.x, n) trip counts (SOLVE), or null
   int n_terms[kProbes];
   int B, n, D, n_iters;
   float ftol, ld_sign, ld_const;
@@ -87,9 +93,10 @@ struct Params {
 // fused_resflow.py's Layout mirrors this.
 template <int FP, int DP>
 struct Layout {
+  static constexpr bool kHasW2 = FP <= 64;        // double-buffered, fits twice
   static constexpr int kW2t = 0;                  // [FP][FP]  a2 = W2t h1
-  static constexpr int kW2 = FP * FP;             // [FP][FP]  W2t^T (J^T rows)
-  static constexpr int kW1t = 2 * FP * FP;        // [FP][DP]
+  static constexpr int kW2 = FP * FP;             // [FP][FP]  W2t^T (J^T rows), kHasW2
+  static constexpr int kW1t = (kHasW2 ? 2 : 1) * FP * FP;  // [FP][DP]
   static constexpr int kB1 = kW1t + FP * DP;      // [FP]
   static constexpr int kB2 = kB1 + FP;            // [FP]
   static constexpr int kW3t = kB2 + FP;           // [DP][FP]
@@ -98,6 +105,8 @@ struct Layout {
   static constexpr int kAnB = kAnS + DP;          // [DP]
   static constexpr int kBeta = kAnB + DP;         // [2]
   static constexpr int kSize = (kBeta + 2 + 3) & ~3;
+  // unroll factor of the loops over features that index no register array
+  static constexpr int kUnrollF = FP <= 64 ? FP : 1;
 };
 
 // Samples per thread (of its warp's probe): two where the series runs and
@@ -147,7 +156,7 @@ __device__ __forceinline__ void hidden(const float* wc, const float (&x)[C][DP],
   constexpr int kTile = 32 * C;
   constexpr int kQ = FP / kProbes;
   const float beta_a = wc[L::kBeta], beta_b = wc[L::kBeta + 1];
-#pragma unroll
+#pragma unroll (L::kUnrollF)
   for (int i = 0; i < kQ; ++i) {
     const int f = warp * kQ + i;
     float a[C];
@@ -173,7 +182,7 @@ __device__ __forceinline__ void hidden(const float* wc, const float (&x)[C][DP],
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int k = 0; k < FP; ++k) hin[c][k] = s.h1[k * kTile + 32 * c + lane];
-#pragma unroll
+#pragma unroll (L::kUnrollF)
   for (int i = 0; i < kQ; ++i) {
     const int f = warp * kQ + i;
     const float* row = wc + L::kW2t + f * FP;
@@ -212,7 +221,7 @@ __device__ __forceinline__ void output(const float* wc, const Scratch& s, int la
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int d = 0; d < DP; ++d) g[c][d] = 0.f;
-#pragma unroll
+#pragma unroll (L::kUnrollF)
   for (int f = 0; f < FP; ++f) {
     float h[C];
 #pragma unroll
@@ -272,17 +281,31 @@ __device__ __forceinline__ void series(const float* wc, const Scratch& s, int la
       for (int c = 0; c < C; ++c)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+      if constexpr (L::kHasW2) {
 #pragma unroll
-      for (int kk = 0; kk < FP; kk += 4) {
+        for (int kk = 0; kk < FP; kk += 4) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 q = ld4(wc + L::kW2 + (o + j) * FP + kk);
+          for (int j = 0; j < 4; ++j) {
+            const float4 q = ld4(wc + L::kW2 + (o + j) * FP + kk);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              acc[c][j] = fmaf(q.x, t[c][kk], acc[c][j]);
+              acc[c][j] = fmaf(q.y, t[c][kk + 1], acc[c][j]);
+              acc[c][j] = fmaf(q.z, t[c][kk + 2], acc[c][j]);
+              acc[c][j] = fmaf(q.w, t[c][kk + 3], acc[c][j]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < FP; ++kk) {
+          const float4 q = ld4(wc + L::kW2t + kk * FP + o);  // W2[o..o+3][kk]
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            acc[c][j] = fmaf(q.x, t[c][kk], acc[c][j]);
-            acc[c][j] = fmaf(q.y, t[c][kk + 1], acc[c][j]);
-            acc[c][j] = fmaf(q.z, t[c][kk + 2], acc[c][j]);
-            acc[c][j] = fmaf(q.w, t[c][kk + 3], acc[c][j]);
+            acc[c][0] = fmaf(q.x, t[c][kk], acc[c][0]);
+            acc[c][1] = fmaf(q.y, t[c][kk], acc[c][1]);
+            acc[c][2] = fmaf(q.z, t[c][kk], acc[c][2]);
+            acc[c][3] = fmaf(q.w, t[c][kk], acc[c][3]);
           }
         }
       }
@@ -395,8 +418,6 @@ __global__ void __launch_bounds__(kT) fused_resflow_kernel(const Params prm) {
           for (int d = 0; d < DP; ++d) x[c][d] = z[c][d] - g[c][d];
         ++it;
       }
-      if (prm.iters != nullptr && tid == 0)
-        prm.iters[(size_t)blockIdx.x * prm.n + block_of(step)] = it;
       if (LOGDET) hidden<FP, DP, C, true>(wc, x, s, lane, warp);  // the masks at the solved x
     } else {
 #pragma unroll
@@ -475,7 +496,7 @@ cudaError_t launch_variant(const Params& prm, int variant, cudaStream_t stream) 
 // padded_width / padded_dim choose them; n_terms is a host array of the
 // 4 probes' series lengths (read for the LOGDET variants).
 extern "C" int nf_fused_resflow(const void* x, void* y, void* ld, const void* w, const void* v,
-                                const int* n_terms, void* iters, int B, int n, int D, int F,
+                                const int* n_terms, int B, int n, int D, int F,
                                 int fp, int dp, int n_iters, float ftol, int variant,
                                 float ld_sign, float ld_const, void* stream) {
   if (D < 1 || D > dp || F < 1 || F > fp || n < 1 || n_iters < 1 || variant < 0 || variant > 2)
@@ -484,7 +505,7 @@ extern "C" int nf_fused_resflow(const void* x, void* y, void* ld, const void* w,
   if (logdet && (v == nullptr || ld == nullptr || n_terms == nullptr))
     return (int)cudaErrorInvalidValue;
   Params prm{static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(ld),
-             static_cast<const float*>(w), static_cast<const float*>(v), static_cast<int*>(iters),
+             static_cast<const float*>(w), static_cast<const float*>(v),
              {0, 0, 0, 0}, B, n, D, n_iters, ftol, ld_sign, ld_const};
   for (int s = 0; s < kProbes; ++s) {
     prm.n_terms[s] = logdet ? n_terms[s] : 0;
@@ -505,6 +526,9 @@ extern "C" int nf_fused_resflow(const void* x, void* y, void* ld, const void* w,
   NF_TILING(64, 2)
   NF_TILING(64, 4)
   NF_TILING(64, 8)
+  NF_TILING(128, 2)
+  NF_TILING(128, 4)
+  NF_TILING(128, 8)
 #undef NF_TILING
   return (int)cudaErrorInvalidValue;
 }

@@ -8,12 +8,12 @@ standard-normal base.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..bijectors.iresblock import forward_with_probes
 from ..core.bijector import Bijector
 from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
                                      fused_flowpp, pack_flowpp)
@@ -23,6 +23,10 @@ from ..ops.cuda.fused_stack import (PackedStack, extract_stack_spec,
                                     fused_stack, pack_stack)
 from ..ops.estimators import Probes, eval_probes
 from ..ops.math import standard_normal_logprob
+
+# ResFlow serving probe sets an EvalProgram keeps, one per batch size, the
+# most recently used; an evicted set is drawn again, the same, when needed
+PROBE_SETS_KEPT = 8
 
 
 def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -99,7 +103,8 @@ class EvalProgram:
 
     ResFlow: with the 'unbias' estimator both directions are one kernel
     each, the series over the probe set of the call's batch size (drawn
-    once by ``eval_probes`` and kept, or the ``probes`` given); with any
+    by ``eval_probes`` and kept for the last ``PROBE_SETS_KEPT`` batch
+    sizes, or the ``probes`` given); with any
     other estimator the forward is the chain, and the inverse is the solve
     kernel followed by one chain forward at the solved x, negated, as
     ``nf_tpu`` serves it."""
@@ -111,7 +116,7 @@ class EvalProgram:
         bij = model.bijector
         self.stack = None
         self.probes = probes
-        self._probe_sets = {}
+        self._probe_sets = OrderedDict()
         spec = extract_stack_spec(bij, model.dims)
         if spec is not None:
             self.stack, run = PackedStack(spec, *pack_stack(bij, spec)), fused_stack
@@ -134,25 +139,31 @@ class EvalProgram:
             self._fwd = lambda x: fused_resflow(self.stack, x, "forward", self._probes(x))
             self._inv = lambda z: fused_resflow(self.stack, z, "inverse", self._probes(z))
         else:
-            self._fwd = lambda x: forward_with_probes(bij, x, self._probes(x))
+            self._fwd = lambda x: bij(x, self._probes(x))
             self._inv = self._solve_and_replay
 
     def _probes(self, x) -> Optional[Probes]:
         """The ResFlow estimator's probes for the batch x: the given set,
-        or the serving set of x's batch size, drawn once."""
+        or the serving set of x's batch size: a seeded draw, so one drawn
+        again after its eviction is the same set."""
         B = x.shape[0]
         if self.probes is not None:
             if self.probes[0].shape[1] != B:
                 raise ValueError(f"the program's probes are for a batch of "
                                  f"{self.probes[0].shape[1]}, got {B}")
             return self.probes
-        if B not in self._probe_sets:
-            self._probe_sets[B] = eval_probes(self.estimator, B, x[0].numel(), self.device)
-        return self._probe_sets[B]
+        sets = self._probe_sets
+        if B in sets:
+            sets.move_to_end(B)
+        else:
+            sets[B] = eval_probes(self.estimator, B, x[0].numel(), self.device)
+            if len(sets) > PROBE_SETS_KEPT:
+                sets.popitem(last=False)
+        return sets[B]
 
     def _solve_and_replay(self, z):
         x = fused_resflow(self.stack, z, "solve")
-        _, ld = forward_with_probes(self.model.bijector, x, self._probes(x))
+        _, ld = self.model.bijector(x, self._probes(x))
         return x, -ld
 
     def _input(self, x):

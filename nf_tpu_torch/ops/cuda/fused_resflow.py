@@ -23,14 +23,16 @@ and the block's log-det is its mean over the probes.
 
 Host side, once per stack:
 
-* ``extract_resflow_spec`` matches the chain with ``nf_tpu``'s rules, and
-  the kernel's limits F <= 64 and D <= 8;
+* ``extract_resflow_spec`` matches the chain with ``nf_tpu``'s rules;
 * ``pack_resflow`` resolves the spectral-norm scaling and lays the
   weights out with ``nf_tpu``'s keys and shapes, so the two compare array
   by array; ``an_const = sum(an_s)`` is ActNorm's constant log-det;
 * ``PackedResFlow`` keeps that and, for a stack on the card, the kernel's
   own layout (``kernel_weights``: one contiguous block per residual block,
-  zero-padded to the kernel's width FP and dimension DP).
+  zero-padded to the kernel's width FP and dimension DP).  The kernel
+  covers F <= 128 and D <= 8 (``covers``): a block's weights then fit its
+  shared memory.  A wider stack on the card raises NotImplementedError;
+  on the CPU the plain versions run it.
 
 The probes are arguments (``ops/estimators.py``): V (S, B, D) and the
 series lengths n_terms (S,).  ``fused_resflow`` is the wrapper: for CPU
@@ -70,8 +72,8 @@ from ..estimators import N_EXACT, N_SAMPLES, Probes, draw_unbias_probes  # noqa:
 from . import _build
 
 SMEM_LIMIT = 232448        # dynamic shared memory one Hopper block may use
-WIDTHS = (8, 16, 32, 64)   # the kernel's padded hidden widths FP
-DIMS = (2, 4, 8)           # and padded data dimensions DP
+WIDTHS = (8, 16, 32, 64, 128)  # the kernel's padded hidden widths FP
+DIMS = (2, 4, 8)                # and padded data dimensions DP
 
 # launches of each kernel variant, counted by the wrapper where it launches
 LAUNCHES = {"fused_resflow_solve": 0, "fused_resflow_solve_ld": 0,
@@ -102,9 +104,8 @@ class ResFlowSpec:
 # --------------------------------------------------------------------------
 def extract_resflow_spec(chain, dims) -> Optional[ResFlowSpec]:
     """Match chain.layers against alternating ActNorm / InvertibleResBlock
-    with the 3-layer SN-Dense + LipSwish g, as ``nf_tpu`` does.  ``nf_tpu``
-    keeps every block's weights in TPU VMEM; the Hopper kernel stages one
-    block at a time, so F <= 64 and D <= 8 are its only limits."""
+    with the 3-layer SN-Dense + LipSwish g, as ``nf_tpu`` does.  The
+    kernel's own limits are in ``covers``."""
     if not isinstance(chain, Chain) or len(dims) != 1:
         return None
     layers = list(chain.layers)
@@ -141,8 +142,6 @@ def extract_resflow_spec(chain, dims) -> Optional[ResFlowSpec]:
             settings = s
         elif settings != s:
             return None
-    if filters > WIDTHS[-1] or D > DIMS[-1]:
-        return None
     n_iters, ftol, estimator = settings
     return ResFlowSpec(n_repeats=len(layers) // 2, dim=D, filters=filters,
                        n_iters=int(n_iters), ftol=float(ftol), estimator=str(estimator))
@@ -302,6 +301,11 @@ def fused_resflow_fwd_logdet_reference(spec: ResFlowSpec, packed, x, probes: Pro
 # --------------------------------------------------------------------------
 # the kernel's layout and its wrapper
 # --------------------------------------------------------------------------
+def covers(spec: ResFlowSpec) -> bool:
+    """Whether the kernel has a tiling for the stack's F and D."""
+    return spec.filters <= WIDTHS[-1] and spec.dim <= DIMS[-1]
+
+
 def padded_width(filters: int) -> int:
     return min(fp for fp in WIDTHS if fp >= filters)
 
@@ -315,11 +319,17 @@ class Layout:
     """Offsets (floats) inside one residual block's weight block; the
     kernel's ``Layout`` computes the same.  Zero-padded to FP and DP:
       w2t [FP][FP]   a2 = w2t h1 (rows: outputs)
-      w2  [FP][FP]   w2t^T: the J^T product's rows
+      w2  [FP][FP]   w2t^T: the J^T product's rows, up to FP = 64 (two
+                     double-buffered copies do not fit at FP = 128, where
+                     the product reads w2t's columns)
       w1t [FP][DP], b1 [FP], b2 [FP], w3t [DP][FP], b3 [DP],
       an_s [DP], an_b [DP], beta [2], padded to a multiple of 4"""
     fp: int
     dp: int
+
+    @property
+    def has_w2(self) -> bool:
+        return self.fp <= 64
 
     @property
     def w2(self) -> int:
@@ -327,7 +337,7 @@ class Layout:
 
     @property
     def w1t(self) -> int:
-        return 2 * self.fp * self.fp
+        return (2 if self.has_w2 else 1) * self.fp * self.fp
 
     @property
     def b1(self) -> int:
@@ -399,7 +409,8 @@ def kernel_weights(spec: ResFlowSpec, packed) -> KernelWeights:
         return w[:, off:off + rows * cols].view(n, rows, cols)
 
     block(0, fp, fp)[:, :F, :F] = packed["w2t"]
-    block(lay.w2, fp, fp)[:, :F, :F] = packed["w2"]
+    if lay.has_w2:
+        block(lay.w2, fp, fp)[:, :F, :F] = packed["w2"]
     block(lay.w1t, fp, dp)[:, :F, :D] = packed["w1t"]
     block(lay.b1, 1, fp)[:, 0, :F] = packed["b1"][:, :, 0]
     block(lay.b2, 1, fp)[:, 0, :F] = packed["b2"][:, :, 0]
@@ -411,36 +422,48 @@ def kernel_weights(spec: ResFlowSpec, packed) -> KernelWeights:
     return KernelWeights(fp=fp, dp=dp, w=w)
 
 
+def _uncovered(spec: ResFlowSpec) -> NotImplementedError:
+    return NotImplementedError(
+        f"fused_resflow: the kernel covers F <= {WIDTHS[-1]} and D <= {DIMS[-1]}, "
+        f"got F = {spec.filters}, D = {spec.dim}")
+
+
 class PackedResFlow:
     """One stack's packed weights, built once: ``nf_tpu``'s layout for the
-    plain versions and, for a stack on the card, the kernel's layout."""
+    plain versions and, for a stack on the card, the kernel's layout.
+    Raises NotImplementedError for a stack off the CPU that the kernel does
+    not cover."""
 
     def __init__(self, spec: ResFlowSpec, packed):
         self.spec = spec
         self.packed = packed
         self.device = packed["an_const"].device
-        self.kernel = kernel_weights(spec, packed) if self.device.type == "cuda" else None
-        self.an_const = float(packed["an_const"]) if self.kernel is not None else None
+        self.kernel = self.an_const = None
+        if self.device.type != "cpu":
+            if not covers(spec):
+                raise _uncovered(spec)
+            self.kernel = kernel_weights(spec, packed)
+            self.an_const = float(packed["an_const"])
 
 
 def _kernel_fn():
     fn = _build.load("fused_resflow").nf_fused_resflow
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [ctypes.POINTER(i), p] + [i] * 7 + [f, i, f, f, p]
+        fn.argtypes = [p] * 5 + [ctypes.POINTER(i)] + [i] * 7 + [f, i, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
-           probes: Optional[Probes] = None, iters: Optional[torch.Tensor] = None):
+           probes: Optional[Probes] = None):
     """Launch the CUDA kernel on ``x`` (B, D).  ``direction`` 'forward'
     (fwd_ld) or 'inverse' (solve_ld) returns (y, logdet (B,)) and needs
-    ``probes``; 'solve' returns x.  ``iters``, an int32 tensor of
-    (ceil(B / tile(FP, direction)), n) on the card, receives each tile's
-    trip count per block (solve variants)."""
+    ``probes``; 'solve' returns x."""
     variant, counter = _variant(direction)
     kw, spec = stack.kernel, stack.spec
+    if not covers(spec):
+        raise _uncovered(spec)
     if not x.is_cuda:
         raise ValueError(f"fused_resflow kernel needs a CUDA tensor, got {x.device}")
     if kw is None or kw.w.device != x.device:
@@ -461,12 +484,6 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
                              "on the device of x")
         if not all(1 <= nt <= N_EXACT + 32 for nt in n_terms):
             raise ValueError(f"fused_resflow: series lengths {n_terms} out of range")
-    tiles = -(-B // tile(kw.fp, direction))
-    if iters is not None and (iters.dtype != torch.int32 or iters.device != x.device
-                              or tuple(iters.shape) != (tiles, spec.n_repeats)
-                              or not iters.is_contiguous()):
-        raise ValueError(f"fused_resflow: iters must be a contiguous int32 "
-                         f"({tiles}, {spec.n_repeats}) tensor on the card")
     y = torch.empty_like(x)
     ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
     if B == 0:
@@ -477,7 +494,6 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), ld.data_ptr() if logdet else None,
                  kw.w.data_ptr(), V.data_ptr() if logdet else None, nt,
-                 iters.data_ptr() if iters is not None else None,
                  B, spec.n_repeats, spec.dim, spec.filters, kw.fp, kw.dp, spec.n_iters,
                  spec.ftol, variant, sign, -sign * stack.an_const,
                  torch.cuda.current_stream().cuda_stream)
@@ -502,7 +518,7 @@ def fused_resflow(stack: PackedResFlow, x: torch.Tensor, direction: str,
     over ``probes``; 'solve' -> x alone.
 
     CPU tensors take the plain versions; any other tensor launches the
-    kernel or raises."""
+    kernel or raises (NotImplementedError for a stack it does not cover)."""
     _variant(direction)
     if x.device.type != "cpu":
         return launch(stack, x, direction, probes)

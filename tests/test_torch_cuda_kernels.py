@@ -83,7 +83,8 @@ def test_fused_flowpp_kernel_matches_plain(cuda, layers, F, K, B):
 
 
 @pytest.mark.parametrize("D,layers,F,B", [(2, 4, 8, 300), (2, 6, 32, 1024), (3, 4, 20, 777),
-                                          (3, 4, 64, 1000), (8, 2, 64, 100), (5, 3, 16, 33)])
+                                          (3, 4, 64, 1000), (8, 2, 64, 100), (5, 3, 16, 33),
+                                          (2, 3, 128, 300), (8, 2, 100, 70)])
 def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
     from nf_tpu_torch.nets.spectral import LipSwish
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
@@ -102,19 +103,18 @@ def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
     zr, ldr = rf.fused_resflow_fwd_logdet_reference(st.spec, st.packed, x, probes)
     torch.testing.assert_close(z, zr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
-    iters = torch.zeros((-(-B // rf.tile(st.kernel.fp, "inverse")), layers),
-                        dtype=torch.int32, device=cuda)
-    xi, ldi = rf.launch(st, zr, "inverse", probes, iters)
+    xi, ldi = rf.fused_resflow(st, zr, "inverse", probes)
     xs = rf.fused_resflow(st, zr, "solve")
     torch.cuda.synchronize()
-    trips = []
-    xr, ldir = rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, zr, probes, trips)
+    xr, ldir = rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, zr, probes)
     torch.testing.assert_close(xi, xr, atol=1e-3, rtol=0)
     torch.testing.assert_close(ldi, ldir, atol=1e-3, rtol=0)
     torch.testing.assert_close(xs, xr, atol=1e-3, rtol=0)
-    # a tile stops no later than the whole batch
-    assert (iters.amax(0).flip(0).cpu() <= torch.tensor(trips, dtype=torch.int32)).all()
-    assert int(iters.min()) >= 1
+
+
+def test_resflow_past_the_kernels_tilings_raises(cuda):
+    with pytest.raises(NotImplementedError, match="F = 256"):
+        _program(2, 2, 256, 0, cuda, "resflow")
 
 
 @pytest.mark.parametrize("name,fwd,inv", [

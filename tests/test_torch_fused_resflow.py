@@ -1,6 +1,7 @@
 """The port's fused ResFlow module against nf_tpu's Pallas kernels, on the CPU.
 
-* spec fields, and None for stacks that are not ResFlow;
+* spec fields, and None for stacks that are not ResFlow; stacks past the
+  kernel's tilings match as in nf_tpu, and the kernel refuses them;
 * ``pack_resflow`` against nf_tpu's, key by key, atol 1e-6;
 * each plain version against its Pallas kernel in interpret mode, with
   nf_tpu's probes injected (``draw_unbias_probes``: V, thr, cap): the
@@ -53,9 +54,28 @@ def test_spec_rejects_nonmatching(name):
 
 
 def test_spec_rejects_past_the_kernels_limits():
-    assert tfr.extract_resflow_spec(torch_model("resflow", 2, 2, 128).bijector, (2,)) is None
-    assert tfr.extract_resflow_spec(torch_model("resflow", 9, 2, 8).bijector, (9,)) is None
-    assert tfr.extract_resflow_spec(torch_model("resflow", 8, 2, 64).bijector, (8,)) is not None
+    """A stack wider than the kernel's tilings matches as in nf_tpu; the
+    plain versions run it on the CPU, and off the CPU both the packing and
+    the wrapper raise NotImplementedError, with no launch counted."""
+    for D, F in ((2, 256), (9, 8)):
+        jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=2)
+        assert jspec is not None and tspec is not None and tspec.filters == jspec.filters
+        assert not tfr.covers(tspec)
+        packed = tfr.pack_resflow(tmodel.bijector, tspec)
+        stack = tfr.PackedResFlow(tspec, packed)
+        x = torch.from_numpy(normal(5, (16, D)))
+        probes = tfr.draw_unbias_probes(16, D, torch.Generator().manual_seed(2))
+        z, _ = tfr.fused_resflow(stack, x, "forward", probes)
+        close(tfr.fused_resflow(stack, z, "solve"), x, 1e-4)
+        with pytest.raises(NotImplementedError, match=f"F = {F}, D = {D}"):
+            tfr.PackedResFlow(tspec, {k: v.to("meta") for k, v in packed.items()})
+        before = dict(tfr.LAUNCHES)
+        for direction in ("forward", "inverse", "solve"):
+            with pytest.raises(NotImplementedError):
+                tfr.fused_resflow(stack, x.to("meta"), direction, probes)
+        assert tfr.LAUNCHES == before
+    widest = torch_model("resflow", 8, 2, 128)
+    assert tfr.covers(tfr.extract_resflow_spec(widest.bijector, widest.dims))
 
 
 @pytest.mark.parametrize("D,F", [(2, 8), (3, 32)])
@@ -111,7 +131,8 @@ def _walk_kernel_layout(kw, spec, x, direction, probes=None):
     order = range(spec.n_repeats)
     for j in (reversed(order) if direction != "forward" else order):
         w = kw.w[j]
-        w2t, w2 = w[:fp * fp].view(fp, fp), w[lay.w2:lay.w1t].view(fp, fp)
+        w2t = w[:fp * fp].view(fp, fp)
+        w2 = w[lay.w2:lay.w1t].view(fp, fp) if lay.has_w2 else w2t.T
         w1t, w3t = w[lay.w1t:lay.b1].view(fp, dp), w[lay.w3t:lay.b3].view(dp, fp)
         b1, b2, b3 = w[lay.b1:lay.b2], w[lay.b2:lay.w3t], w[lay.b3:lay.an_s]
         an_s, an_b, beta = w[lay.an_s:lay.an_b], w[lay.an_b:lay.beta], w[lay.beta:lay.beta + 2]
@@ -146,7 +167,7 @@ def _walk_kernel_layout(kw, spec, x, direction, probes=None):
     return xp[:, :D], acc
 
 
-@pytest.mark.parametrize("D,F", [(3, 20), (2, 8), (5, 40)])
+@pytest.mark.parametrize("D,F", [(3, 20), (2, 8), (5, 40), (2, 100)])
 def test_kernel_layout_matches_plain_versions(D, F):
     tmodel = torch_model("resflow", D, 3, F)
     tmodel.init(torch.Generator().manual_seed(D * F))
@@ -190,6 +211,8 @@ def test_kernel_tilings():
                 assert tfr.smem_bytes(fp, dp, cols) <= tfr.SMEM_LIMIT
     assert tfr.Layout(32, 2).size == 2 * 32 * 32 + 2 * 32 + 2 * 32 + 2 * 32 + 3 * 2 + 2
     assert tfr.smem_bytes(32, 2, 2) == 4 * (2 * 2248 + 4 * 32 * 64 + 4 * 64)
+    # no transposed copy of w2t at FP = 128
+    assert tfr.Layout(128, 2).size == 128 * 128 + 2 * 128 + 2 * 128 + 2 * 128 + 3 * 2 + 2
 
 
 def test_wrapper_takes_plain_versions_on_cpu():

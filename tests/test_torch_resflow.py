@@ -238,6 +238,21 @@ def test_eval_program_serving_probes_and_sample(unbias_full_depth):
     assert torch.isfinite(y).all() and torch.isfinite(log_py).all()
 
 
+def test_eval_program_keeps_a_bounded_set_of_probe_sets():
+    from nf_tpu_torch.models import base
+
+    tmodel = torch_model("resflow", 2, 2, 8)
+    prog = tmodel.eval_program(tmodel.init(torch.Generator().manual_seed(0)))
+    x = torch.from_numpy(normal(13, (base.PROBE_SETS_KEPT + 3, 2)))
+    _, first = prog.forward(x[:1])
+    for B in range(2, x.shape[0] + 1):
+        prog.forward(x[:B])
+        assert len(prog._probe_sets) == min(B, base.PROBE_SETS_KEPT)
+    assert 1 not in prog._probe_sets
+    # drawn again after its eviction: the same set, the same log-det
+    close(prog.forward(x[:1])[1], first, 0.0)
+
+
 def test_eval_program_exact_matches_nf_tpu_full_depth():
     from nf_tpu_torch.ops.cuda import fused_resflow as tfr
 
