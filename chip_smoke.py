@@ -42,17 +42,46 @@ Phases, each of which exits non-zero when it fails:
      draw ResFlow's probes for 256 samples from a generator seeded 0);
      then ResFlow with logdet="exact": one solve launch per inverse, none
      for the forward (the eager chain), against the eager chain;
-  5. time each kernel (CUDA events, warm L2 as in a serving loop), its
-     plain version and, per model, the serving rate
-     fwd_inv_samples_per_s = 8192 / (t_fwd + t_inv), bench.py's
-     definition; print one main_path line per model, the ResFlow 'exact'
-     program's wall time per direction and its device idle share, and the
-     kernels line with each kernel's bound;
-  6. print {"ok": true, "device": {...}} as the last line.
+     the coupling kernels (forward, inverse, backward) at (1024, 512) and a
+     ragged (1000, 384), gain 0.7 and bias -0.1: y and x atol/rtol 1e-5,
+     the row log-dets atol 1e-4 (up to 512 terms summed in another order),
+     gz0 and graw atol/rtol 1e-5, dgain and dbias rtol 1e-4 (B x N terms);
+  5. the image main path, realnvp-img32x1 (bench.py's image zoo: 32x32x1,
+     layers = 32, base_filters = 32; 161 couplings, 6,818,978 parameters):
+     build_model on the card -> Trainer(seed 0).init_state on a batch of
+     uniform(0.05, 0.95) pixels -> train_steps, K = 4 Adam steps at
+     B = 1024 -> eval_program -> log_prob(1024 samples) and sample(1024),
+     with the launch counters set to 0 just before and read just after
+     each call (161 coupling_fwd per forward, 161 coupling_bwd per train
+     step, 161 coupling_inv per inverse, no other kernel); the losses
+     checked finite, the round trip printed; the peak memory of the train
+     steps; log p and the first step's gradients on 64 samples held
+     against the same model on the CPU (state copied after init_state),
+     in f32 and in float64: log p within 1e-4 of its largest magnitude of
+     the CPU's f32; the gradients within twice the CPU's own f32 error,
+     both measured as relative L2 distance to the float64 gradients.
+     cuDNN and the CPU sum each 3x3 conv in another order, and at random
+     init the 161 couplings amplify f32 rounding: the CPU's f32 gradients
+     are themselves several percent from float64 (8.6 % at base_filters
+     = 8 on a CPU), so two f32 runs can only be held to the same error;
+  6. time each kernel (CUDA events, warm L2 as in a serving loop; the
+     coupling kernels by their own device time in a profiler window over
+     8 input sets cycled, 67 MB, past the 50 MB L2), its plain version
+     and, per model, the serving rate fwd_inv_samples_per_s = 8192 /
+     (t_fwd + t_inv), bench.py's definition; print one main_path line per
+     model, the ResFlow 'exact' program's wall time per direction and its
+     device idle share; for the image model eval_fwd_inv_samples_per_s =
+     1024 / (t_fwd + t_inv) and train_samples_per_s = K B / t_chunk
+     (bench.py:269, :327), each with its device idle share and the
+     coupling kernels' share of device time; then the kernels line with
+     each kernel's bound;
+  7. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -81,6 +110,23 @@ SMS = 132
 SFU_PER_SM_CLOCK = 16
 PLAIN_ITERS = 10
 EXACT_ITERS = 30  # calls per direction timed of the ResFlow 'exact' program
+# the image main path: realnvp-img32x1 (bench.py:57-58, :62-64)
+IMG_DIMS = (32, 32, 1)
+IMG_BATCH = 1024
+IMG_TRAIN_CHUNK = 4
+IMG_COUPLINGS = 161
+IMG_PARAMS = 6_818_978
+IMG_PARITY = 64          # samples held against the same model on the CPU
+IMG_LOGP_RTOL = 1e-4     # of the largest |log p|
+IMG_GRAD_FACTOR = 2.0    # the card's f32 gradient error over the CPU's
+IMG_ITERS = 3            # calls per direction timed, after 3 warm-up calls
+IMG_TRAIN_TIMED = 2      # train chunks timed (the main path has warmed the step)
+COUPLING_CASES = [(1024, 512), (1000, 384)]
+COUPLING_TOL = dict(atol=1e-5, rtol=1e-5)
+COUPLING_LD_ATOL = 1e-4
+COUPLING_SUM_RTOL = 1e-4
+COUPLING_SETS = 8        # input sets cycled when timing: 8 x 8.4 MB > 50 MB of L2
+COUPLING_ITERS = 200
 
 KERNEL_SOURCES = {
     "fused_stack_fwd": ("nf_tpu_torch/csrc/fused_stack.cu", "nf_tpu/ops/pallas/fused_stack.py:397"),
@@ -99,6 +145,9 @@ KERNEL_SOURCES = {
                                "nf_tpu/ops/pallas/fused_resflow.py:306"),
     "fused_resflow_solve": ("nf_tpu_torch/csrc/fused_resflow.cu",
                             "nf_tpu/ops/pallas/fused_resflow.py:184"),
+    "coupling_fwd": ("nf_tpu_torch/csrc/coupling.cu", "nf_tpu/ops/pallas/coupling.py:34"),
+    "coupling_inv": ("nf_tpu_torch/csrc/coupling.cu", "nf_tpu/ops/pallas/coupling.py:42"),
+    "coupling_bwd": ("nf_tpu_torch/csrc/coupling.cu", "nf_tpu/ops/pallas/coupling.py:99"),
 }
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
@@ -183,12 +232,11 @@ def wall_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_busy(fn, iters):
-    """Share of a window of ``iters`` calls in which the card runs a
-    kernel, from torch.profiler (CPU and CUDA activity): the kernels' own
-    device time over the window's wall time.  The profiler adds host cost,
-    so the idle share it gives is an upper bound.  None when the trace
-    holds no device time."""
+def profile_window(fn, iters):
+    """torch.profiler (CPU and CUDA activity) over ``iters`` calls after
+    one warm-up: (the window's wall time in us, {kernel name: its own
+    device time in us}).  User annotations (``Optimizer.step#...``) are
+    left out: their device ranges span kernels counted on their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,9 +248,27 @@ def device_busy(fn, iters):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    return wall_us, {e.key: e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)}
+
+
+def device_busy(fn, iters):
+    """Share of a window of ``iters`` calls in which the card runs a
+    kernel: the kernels' own device time over the window's wall time.  The
+    profiler adds host cost, so the idle share it gives is an upper bound.
+    None when the trace holds no device time."""
+    wall_us, kernels = profile_window(fn, iters)
+    busy_us = sum(kernels.values())
     return busy_us / wall_us if busy_us > 0 else None
+
+
+def kernel_device_ms(fn, iters):
+    """Device time per call of ``fn``: the kernels' own time in a profiler
+    window (CUPTI), so a call's host cost, longer than a few-microsecond
+    kernel, does not count."""
+    _, kernels = profile_window(fn, iters)
+    return sum(kernels.values()) / iters / 1e3
 
 
 def stack_work(stack, batch):
@@ -358,6 +424,272 @@ def bound_of(work, sfu_per_s):
     return times[by] * 1e3, by
 
 
+def coupling_work(B, N, backward):
+    """Operations and bytes of one coupling kernel call on (B, N) halves,
+    every input read once and every output written once.  Per element:
+    forward / inverse 5 f32 operations (s = tanh * gain + bias, the
+    transform's multiply-add, the row sum) and 2 transcendentals (tanh,
+    exp); 4 (B, N) tensors and the log-det move.  Backward: 13 operations
+    (s, ds, gz0, graw, the two partial sums) and the same 2
+    transcendentals; gy, z0, raw_s in, gz0 and graw out, gld, dgain and
+    dbias."""
+    if backward:
+        return {"flop": 13 * B * N, "mac_flop": 0, "elem": 13 * B * N,
+                "transcendental": 2 * B * N, "bytes": 4 * (5 * B * N + B + 4)}
+    return {"flop": 5 * B * N, "mac_flop": 0, "elem": 5 * B * N,
+            "transcendental": 2 * B * N, "bytes": 4 * (4 * B * N + B + 2)}
+
+
+def coupling_inputs(B, N, g, device):
+    """(z0, t, raw_s, gain, bias, gy, gld) with gain and bias off zero."""
+    z0, t, raw, gy = (torch.randn(B, N, generator=g, device=device) for _ in range(4))
+    gld = torch.randn(B, generator=g, device=device)
+    return (z0, t, raw, torch.tensor([0.7], device=device), torch.tensor([-0.1], device=device),
+            gy, gld)
+
+
+def max_diff(a, b):
+    return float((a - b).abs().max())
+
+
+def check_coupling_kernels(tc, device, errs):
+    """The three coupling kernels against their plain versions."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for B, N in COUPLING_CASES:
+        z0, t, raw, gain, bias, gy, gld = coupling_inputs(B, N, g, device)
+        y, ld = tc.launch(z0, t, raw, gain, bias, inverse=False)
+        x, ldi = tc.launch(y, t, raw, gain, bias, inverse=True)
+        gz0, graw, dgain, dbias = tc.launch_bwd(z0, raw, gain, bias, gy, gld)
+        torch.cuda.synchronize()
+        yr, ldr = tc.coupling_fwd_reference(z0, t, raw, gain, bias)
+        xr, ldir = tc.coupling_inv_reference(y, t, raw, gain, bias)
+        gz0r, _, grawr, dgainr, dbiasr = tc.coupling_bwd_reference(z0, raw, gain, bias, gy, gld)
+        rel = [float((a - b).abs() / b.abs()) for a, b in ((dgain, dgainr), (dbias, dbiasr))]
+        print(f"check coupling B={B} N={N}: fwd max|dy|={max_diff(y, yr):.3e} "
+              f"max|dld|={max_diff(ld, ldr):.3e}; inv max|dx|={max_diff(x, xr):.3e} "
+              f"max|dld|={max_diff(ldi, ldir):.3e}; bwd max|dgz0|={max_diff(gz0, gz0r):.3e} "
+              f"max|dgraw|={max_diff(graw, grawr):.3e} rel dgain={rel[0]:.3e} "
+              f"rel dbias={rel[1]:.3e}")
+        for out, want, ldo, ldw, name in ((y, yr, ld, ldr, "coupling_fwd"),
+                                          (x, xr, ldi, ldir, "coupling_inv")):
+            check(bool(torch.isfinite(out).all() and torch.isfinite(ldo).all()),
+                  f"{name}: non-finite output")
+            check(torch.allclose(out, want, **COUPLING_TOL), f"{name} B={B} N={N}: output off")
+            check(max_diff(ldo, ldw) <= COUPLING_LD_ATOL, f"{name} B={B} N={N}: logdet off")
+            errs[name] = max(errs[name], max_diff(out, want), max_diff(ldo, ldw))
+        check(torch.allclose(gz0, gz0r, **COUPLING_TOL) and torch.allclose(graw, grawr,
+                                                                            **COUPLING_TOL),
+              f"coupling_bwd B={B} N={N}: gz0 / graw off")
+        check(max(rel) <= COUPLING_SUM_RTOL, f"coupling_bwd B={B} N={N}: dgain / dbias off {rel}")
+        errs["coupling_bwd"] = max(errs["coupling_bwd"], max_diff(gz0, gz0r),
+                                   max_diff(graw, grawr), max_diff(dgain, dgainr),
+                                   max_diff(dbias, dbiasr))
+
+
+def image_model(cfg, device, state=None):
+    from nf_tpu_torch.models import build_model
+
+    model = build_model("realnvp", IMG_DIMS, "image", cfg, device=device)
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def image_cpu_parity(cfg, state, xs):
+    """Eval-mode log p and one train-mode gradient on ``xs`` for the same
+    state on the card (f32) and on the CPU (plain versions, f32 and
+    float64)."""
+    logp, grads = {}, {}
+    runs = {"card": ("cuda", torch.float32), "cpu": ("cpu", torch.float32),
+            "cpu64": ("cpu", torch.float64)}
+    for run, (device, dtype) in runs.items():
+        model = image_model(cfg, device, state).to(dtype).eval()
+        x = xs.to(device=device, dtype=dtype)
+        with torch.no_grad():
+            logp[run] = model.log_prob(x).cpu().double()
+        model.train()
+        (-model.log_prob(x).mean()).backward()
+        grads[run] = torch.cat([p.grad.reshape(-1).cpu().double() for p in model.parameters()])
+
+    def rel_l2(run):
+        return float((grads[run] - grads["cpu64"]).norm() / grads["cpu64"].norm())
+
+    out = {"samples": xs.shape[0],
+           "logp_max_abs_diff": max_diff(logp["card"], logp["cpu"]),
+           "logp_max_abs": float(logp["cpu"].abs().max()),
+           "logp_f64_max_abs_diff": {r: max_diff(logp[r], logp["cpu64"]) for r in ("card", "cpu")},
+           "grad_rel_l2_card_vs_cpu": float((grads["card"] - grads["cpu"]).norm()
+                                            / grads["cpu"].norm()),
+           "grad_rel_l2_to_f64": {r: rel_l2(r) for r in ("card", "cpu")},
+           "grad_max_abs": float(grads["cpu64"].abs().max())}
+    print(f"realnvp-img32x1 card vs CPU, {xs.shape[0]} samples: max|dlog p|="
+          f"{out['logp_max_abs_diff']:.3e} (max|log p|={out['logp_max_abs']:.1f}; to float64: "
+          f"card {out['logp_f64_max_abs_diff']['card']:.3e}, CPU "
+          f"{out['logp_f64_max_abs_diff']['cpu']:.3e}); gradients relative L2 card vs CPU "
+          f"{out['grad_rel_l2_card_vs_cpu']:.3e}, to float64: card "
+          f"{out['grad_rel_l2_to_f64']['card']:.3e}, CPU {out['grad_rel_l2_to_f64']['cpu']:.3e}")
+    check(out["logp_max_abs_diff"] <= IMG_LOGP_RTOL * out["logp_max_abs"],
+          "realnvp-img32x1: log p on the card disagrees with the CPU")
+    check(out["grad_rel_l2_to_f64"]["card"]
+          <= IMG_GRAD_FACTOR * out["grad_rel_l2_to_f64"]["cpu"],
+          "realnvp-img32x1: gradients on the card are less accurate than the CPU's")
+    return out
+
+
+def image_main_path(device, counters, launches_of):
+    """realnvp-img32x1 through Trainer and EvalProgram, each call's
+    launches counted.  Returns what the timing phase needs."""
+    from nf_tpu_torch.bijectors.coupling import AffineCoupling
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.train import Trainer
+
+    cfg = NetworkConfig(name="realnvp", layers=32)
+    model = image_model(cfg, None)
+    n_couplings = sum(isinstance(m, AffineCoupling) for m in model.modules())
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.device.type == "cuda", "build_model did not default to the card")
+    check((n_couplings, n_params) == (IMG_COUPLINGS, IMG_PARAMS),
+          f"realnvp-img32x1 has {n_couplings} couplings and {n_params} parameters")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def pixels(*shape):   # as bench.py:248-259 makes its batches
+        return 0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)
+
+    batch0 = pixels(IMG_BATCH, *IMG_DIMS)
+    chunk = pixels(IMG_TRAIN_CHUNK, IMG_BATCH, *IMG_DIMS)
+    x = pixels(IMG_BATCH, *IMG_DIMS)
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    n = IMG_COUPLINGS
+
+    def counted(what, fn, want):
+        reset_all(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launches_of()
+        got = {k: v for k, v in counts.items() if v}
+        print(f"main path realnvp-img32x1 {what} launches: {got}")
+        check(got == want, f"realnvp-img32x1 {what}: expected {want}, got {got}")
+        for k, v in counts.items():
+            totals[k] += v
+        return out
+
+    ts = counted("init_state", lambda: trainer.init_state(batch0), {"coupling_fwd": n})
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    K = IMG_TRAIN_CHUNK
+    ts, losses = counted(f"train_steps K={K}", lambda: trainer.train_steps(ts, chunk),
+                         {"coupling_fwd": K * n, "coupling_bwd": K * n})
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    print(f"realnvp-img32x1 losses (nats per sample) {losses}; train peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    check(all(math.isfinite(v) for v in losses), "realnvp-img32x1: non-finite loss")
+    prog = model.eval_program()
+    log_px = counted("log_prob", lambda: prog.log_prob(x), {"coupling_fwd": n})
+    y_s, log_py = counted("sample", lambda: prog.sample(IMG_BATCH, gen), {"coupling_inv": n})
+    check(log_px.shape == (IMG_BATCH,) and y_s.shape == (IMG_BATCH,) + IMG_DIMS
+          and log_py.shape == (IMG_BATCH,), "realnvp-img32x1: main path output shapes")
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"realnvp-img32x1 {what}: non-finite values")
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    err = (xr - x).abs()
+    round_trip = {"max": float(err.max()), "median": float(err.median()),
+                  "ld_max": max_diff(ld, -ldi), "ld_max_abs": float(ld.abs().max())}
+    print(f"realnvp-img32x1 round trip: max|x - inv(fwd(x))|={round_trip['max']:.3e} "
+          f"median {round_trip['median']:.3e}; max|ld_fwd + ld_inv|={round_trip['ld_max']:.3e} "
+          f"(max|ld|={round_trip['ld_max_abs']:.1f})")
+    check(bool(torch.isfinite(z).all() and torch.isfinite(xr).all()),
+          "realnvp-img32x1: non-finite round trip")
+    t0 = time.perf_counter()
+    parity = image_cpu_parity(cfg, state, x[:IMG_PARITY])
+    print(f"card vs CPU parity took {time.perf_counter() - t0:.1f} s")
+    return dict(model=model, prog=prog, trainer=trainer, ts=ts, chunk=chunk, x=x, z=z,
+                totals=totals, losses=losses, peak=peak, round_trip=round_trip,
+                parity=parity, n_params=n_params)
+
+
+def device_breakdown(wall_us, kernels, calls):
+    """A profile window's device idle share, the coupling kernels' share of
+    its device time, and its six longest kernels in ms per call."""
+    total = sum(kernels.values())
+    mine = sum(v for k, v in kernels.items()
+               if "coupling_kernel" in k or "coupling_bwd_kernel" in k
+               or "reduce_partials_kernel" in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_idle_share": 1.0 - total / wall_us,
+            "device_ms_per_call": total / calls / 1e3,
+            "coupling_device_share": mine / total,
+            "top_kernels_ms_per_call": [[k[:100], v / calls / 1e3] for k, v in top]}
+
+
+def image_timing(img, smi):
+    """The image model's serving and training rates, idle shares, the
+    coupling kernels' share of device time and the longest kernels."""
+    prog, trainer, x, z = img["prog"], img["trainer"], img["x"], img["z"]
+    t_fwd = wall_ms(lambda: prog.forward(x), IMG_ITERS)
+    t_inv = wall_ms(lambda: prog.inverse(z), IMG_ITERS)
+    eval_profile = device_breakdown(
+        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1), 1)
+    state = {"ts": img["ts"]}
+
+    def chunk():
+        state["ts"], _ = trainer.train_steps(state["ts"], img["chunk"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IMG_TRAIN_TIMED):
+        chunk()
+    torch.cuda.synchronize()
+    t_chunk = (time.perf_counter() - t0) * 1e3 / IMG_TRAIN_TIMED
+    train_profile = device_breakdown(
+        *profile_window(lambda: trainer.train_step(state["ts"], img["chunk"][0]), 1), 1)
+    K, B = IMG_TRAIN_CHUNK, IMG_BATCH
+    line = {
+        "model": f"realnvp-img32x1: {'x'.join(map(str, IMG_DIMS))} image, "
+                 f"{IMG_COUPLINGS} couplings, base_filters=32, {img['n_params']} parameters",
+        "batch": B, "train_chunk": K,
+        "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+        "eval_fwd_inv_samples_per_s": B / ((t_fwd + t_inv) / 1e3),
+        "eval_profile_fwd_inv_pair": eval_profile,
+        "train_chunk_ms": t_chunk, "train_step_ms": t_chunk / K,
+        "train_samples_per_s": K * B / (t_chunk / 1e3),
+        "train_profile_step": train_profile,
+        "train_peak_memory_bytes": img["peak"], "losses": img["losses"],
+        "round_trip": img["round_trip"], "cpu_parity": img["parity"], "card": smi}
+    print(json.dumps({"main_path": line}))
+
+
+def coupling_entries(tc, launches, errs, sfu_per_s, device):
+    """The three coupling kernels' entries on the kernels line, timed at
+    the main path's shape (1024, 512) over input sets cycled past L2."""
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    sets = [coupling_inputs(IMG_BATCH, 512, g, device) for _ in range(COUPLING_SETS)]
+    calls = {
+        "coupling_fwd": (lambda a: tc.launch(*a[:5], inverse=False),
+                         lambda a: tc.coupling_fwd_reference(*a[:5])),
+        "coupling_inv": (lambda a: tc.launch(*a[:5], inverse=True),
+                         lambda a: tc.coupling_inv_reference(*a[:5])),
+        "coupling_bwd": (lambda a: tc.launch_bwd(a[0], a[2], a[3], a[4], a[5], a[6]),
+                         lambda a: tc.coupling_bwd_reference(a[0], a[2], a[3], a[4], a[5],
+                                                             a[6]))}
+    entries = []
+    for name, (kernel, plain) in calls.items():
+        cycle = itertools.cycle(sets)
+        entries.append(kernel_entry(
+            name, launches, errs, coupling_work(IMG_BATCH, 512, name == "coupling_bwd"),
+            sfu_per_s, kernel_device_ms(lambda: kernel(next(cycle)), COUPLING_ITERS),
+            kernel_device_ms(lambda: plain(next(cycle)), COUPLING_ITERS),
+            shape=[IMG_BATCH, 512],
+            event_ms=device_ms(lambda: kernel(next(cycle)), COUPLING_ITERS),
+            timing="ms and plain_ms: the kernels' own device time per call (profiler); "
+                   "event_ms: CUDA events over back-to-back calls, host cost included",
+            library_note="no single PyTorch call computes the coupling transform",
+            calls_per_pass=IMG_COUPLINGS))
+    return entries
+
+
 def kernel_entry(name, launches, errs, work, sfu_per_s, ms, plain_ms, **extra):
     """One kernel's entry on the kernels line: its measured times, its
     launches on the main path, its largest error against the plain
@@ -408,6 +740,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from nf_tpu_torch.ops.cuda import _build
+    from nf_tpu_torch.ops.cuda import coupling as tc
     from nf_tpu_torch.ops.cuda import fused_flowpp as ff
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
     from nf_tpu_torch.ops.cuda import fused_stack as fs
@@ -417,8 +750,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = (fs, ff, rf)
-    launches_of = lambda: {**fs.LAUNCHES, **ff.LAUNCHES, **rf.LAUNCHES}  # noqa: E731
+    counters = (fs, ff, rf, tc)
+    launches_of = lambda: {**fs.LAUNCHES, **ff.LAUNCHES, **rf.LAUNCHES,  # noqa: E731
+                           **tc.LAUNCHES}
 
     # ---- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -433,7 +767,7 @@ def main():
           f"max SM clock {clock} MHz")
 
     # ---- 2. build every kernel of the path
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     libs = _build.build()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
@@ -516,6 +850,7 @@ def main():
                 check(ey <= RESFLOW_INV_ATOL, f"{name} D={D}: x off by {ey}")
                 check(eld <= RESFLOW_INV_ATOL, f"{name} D={D}: logdet off by {eld}")
             errs[name] = max(errs[name], ey, eld)
+    check_coupling_kernels(tc, dev, errs)
 
     # ---- 4. the main path, through the entry points a user calls
     from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
@@ -603,7 +938,13 @@ def main():
     check(e_x < RESFLOW_INV_ATOL and e_ld < RESFLOW_INV_ATOL,
           "resflow exact: serving program disagrees with the eager chain")
 
-    # ---- 5. timing and bounds
+    # ---- 5. the image main path: training and serving
+    print(f"phase 5 (image main path) starts at {time.perf_counter() - t_start:.1f} s")
+    img = image_main_path(dev, counters, launches_of)
+    launches.update({k: img["totals"][k] for k in tc.LAUNCHES})
+    print(f"phase 6 (timing) starts at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 6. timing and bounds
     kernels = []
     for model_name, (prog, x, gen) in programs.items():
         stack = prog.stack
@@ -677,6 +1018,11 @@ def main():
                 "calls": EXACT_ITERS,
                 "device_idle_share": None if busy is None else 1.0 - busy,
                 "card": smi}}))
+    t_img = time.perf_counter()
+    image_timing(img, smi)
+    kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev)
+    print(f"image timing took {time.perf_counter() - t_img:.1f} s; the run "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,18 @@
-"""Affine coupling (counterpart of ``nf_tpu/bijectors/coupling.py``), 1-D.
+"""Affine coupling (counterpart of ``nf_tpu/bijectors/coupling.py``).
 
 ``s = tanh(raw_s) * s_log_scale + s_bias`` with a learned scalar gain and
-bias; forward ``z0' = z0 * exp(s) + t``, logdet ``sum(s)``.  1-D splits use
-stride-2 slicing (even / odd features), the odd coupling swapping which
-half is transformed.  The plain math below is what ``nf_tpu`` runs at
-D = 2 too: its fused coupling kernel only takes halves 128 wide.
+bias; forward ``z0' = z0 * exp(s) + t``, logdet ``sum(s)``.  The split
+follows ``nf_tpu``: 1-D data by stride-2 slicing (even / odd features),
+NHWC images by the checkerboard (``ops/squeeze.py``'s (a, d) / (b, c)
+cells) or channelwise split; ``odd`` swaps which half is transformed.  The
+conditioner is an MLP for 1-D data and a ConvNet for images, its
+channel-last output split into t (the first ``out_chs`` channels) and
+raw_s (the rest).
+
+The transform goes through ``ops/cuda/coupling.py``'s dispatchers on the
+flattened halves: a half a multiple of 128 wide (every image coupling of
+the zoo) runs the CUDA kernels on the card, with the analytic backward;
+narrower halves (2-D density) take the plain math, as in ``nf_tpu``.
 """
 from __future__ import annotations
 
@@ -12,8 +20,9 @@ import torch
 from torch import nn
 
 from ..core.bijector import Bijector
-from ..nets.conditioners import MLP
-from ..ops.math import sum_except_batch
+from ..nets.conditioners import MLP, ConvNet
+from ..ops import squeeze as sq
+from ..ops.cuda.coupling import coupling_fwd, coupling_inv
 
 
 def split1d(z, odd: bool = False):
@@ -31,6 +40,10 @@ def merge1d(z0, z1, odd: bool = False):
     return out
 
 
+_SPLITS = {"checkerboard": (sq.checker_split, sq.checker_merge),
+           "channelwise": (sq.channel_split, sq.channel_merge)}
+
+
 class _CouplingBase(Bijector):
     """Split / merge plumbing; subclasses implement ``_transform`` /
     ``_inverse_transform`` over (z0, z1) with z1 the conditioning half."""
@@ -40,26 +53,38 @@ class _CouplingBase(Bijector):
         self.dims = tuple(dims)
         self.masking = masking
         self.odd = odd
-        if len(self.dims) != 1:
-            raise NotImplementedError(
-                "image (checkerboard / channelwise) couplings land with the "
-                "image tier")
+        if len(self.dims) == 1:
+            self._split, self._merge = split1d, merge1d
+        elif len(self.dims) == 3 and masking in _SPLITS:
+            self._split, self._merge = _SPLITS[masking]
+        else:
+            raise ValueError(f"unsupported masking/dims: {masking}, {dims}")
 
     def half_dims(self):
-        """Sizes of the transformed half (z0) and conditioning half (z1)."""
-        d = self.dims[0]
-        n_even, n_odd = (d + 1) // 2, d // 2
-        return (n_odd, n_even) if self.odd else (n_even, n_odd)
+        """Sizes of the transformed half (z0) and conditioning half (z1):
+        features for 1-D data, channels for images."""
+        if len(self.dims) == 1:
+            d = self.dims[0]
+            n_even, n_odd = (d + 1) // 2, d // 2
+            return (n_odd, n_even) if self.odd else (n_even, n_odd)
+        c = self.dims[2]
+        if self.masking == "checkerboard":
+            return 2 * c, 2 * c
+        return c // 2, c - c // 2
 
     def forward(self, x):
-        z0, z1 = split1d(x, self.odd)
+        z0, z1 = self._split(x, self.odd)
         z0, ld = self._transform(z0, z1)
-        return merge1d(z0, z1, self.odd), ld
+        return self._merge(z0, z1, self.odd), ld
 
     def inverse(self, y):
-        y0, y1 = split1d(y, self.odd)
+        y0, y1 = self._split(y, self.odd)
         y0, ld = self._inverse_transform(y0, y1)
-        return merge1d(y0, y1, self.odd), ld
+        return self._merge(y0, y1, self.odd), ld
+
+
+def _flat2d(x):
+    return x.reshape(x.shape[0], -1)
 
 
 class AffineCoupling(_CouplingBase):
@@ -69,8 +94,8 @@ class AffineCoupling(_CouplingBase):
                  base_filters=32, device=None):
         super().__init__(dims, masking, odd)
         self.out_chs, in_chs = self.half_dims()
-        self.net = MLP(in_chs, 2 * self.out_chs, base_filters=base_filters,
-                       device=device)
+        net = MLP if len(self.dims) == 1 else ConvNet
+        self.net = net(in_chs, 2 * self.out_chs, base_filters=base_filters, device=device)
         kw = dict(device=device, dtype=torch.float32)
         self.s_log_scale = nn.Parameter(torch.zeros(1, **kw))
         self.s_bias = nn.Parameter(torch.zeros(1, **kw))
@@ -82,16 +107,16 @@ class AffineCoupling(_CouplingBase):
             z = torch.randn(1, generator=generator, device=generator.device)
             p.copy_(z * 0.01)
 
-    def _scale_shift(self, z1):
+    def _shift_raw(self, z1):
         raw = self.net(z1)
-        t, raw_s = raw[:, :self.out_chs], raw[:, self.out_chs:]
-        s = torch.tanh(raw_s) * self.s_log_scale + self.s_bias
-        return s, t
+        return _flat2d(raw[..., :self.out_chs]), _flat2d(raw[..., self.out_chs:])
 
     def _transform(self, z0, z1):
-        s, t = self._scale_shift(z1)
-        return z0 * torch.exp(s) + t, sum_except_batch(s)
+        t, raw_s = self._shift_raw(z1)
+        y, ld = coupling_fwd(_flat2d(z0), t, raw_s, self.s_log_scale, self.s_bias)
+        return y.reshape(z0.shape), ld
 
     def _inverse_transform(self, y0, y1):
-        s, t = self._scale_shift(y1)
-        return (y0 - t) * torch.exp(-s), -sum_except_batch(s)
+        t, raw_s = self._shift_raw(y1)
+        x, ld = coupling_inv(_flat2d(y0), t, raw_s, self.s_log_scale, self.s_bias)
+        return x.reshape(y0.shape), ld

@@ -1,16 +1,18 @@
 """ActNorm and invertible flow-BatchNorm (counterpart of
-``nf_tpu/bijectors/norm.py``), eval mode.
+``nf_tpu/bijectors/norm.py``).
 
-ActNorm is ``y = (x - bias) * exp(-log_scale)``.  Its data-dependent init
-(``nf_tpu``'s ``dd_init``) comes with the training slice; serving loads
-initialized parameters, and ``initialized`` is kept as a bool buffer as
-``nf_tpu`` keeps it in state.
+ActNorm is ``y = (x - bias) * exp(-log_scale)``.  ``dd_init`` sets bias to
+the batch mean and log_scale to log(std + eps), std with ddof = 1, and
+marks ``initialized`` (a bool buffer, as ``nf_tpu`` keeps it in state).
 
-BatchNorm eval normalizes by the running statistics with
-``rsqrt(running_var)`` and NO eps (the eps is folded into ``running_var``
-when the batch statistics are taken in training).  A non-affine BatchNorm
-keeps its identity ``log_gamma`` / ``beta`` as buffers, as ``nf_tpu`` keeps
-them in state.  Layout: channel axis last.
+BatchNorm in training normalizes by the batch mean and ``varb`` = the
+biased batch variance + eps, with gradients through both; it moves the
+running statistics by ``momentum`` toward them and caches them (detached)
+as ``batch_mean`` / ``batch_var``, which the training-mode inverse uses.
+Eval normalizes by the running statistics with ``rsqrt(running_var)`` and
+NO further eps (it is folded into ``running_var``).  A non-affine
+BatchNorm keeps its identity ``log_gamma`` / ``beta`` as buffers, as
+``nf_tpu`` keeps them in state.  Layout: channel axis last.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 
 from ..core.bijector import Bijector
-from ..nets.layers import _TRAINING
+from ..nets.layers import batch_moments, update_running
 
 
 def _num_pixels(x):
@@ -50,6 +52,17 @@ class ActNorm(Bijector):
 
     def _logdet(self, x, sign):
         return (sign * self.log_scale.sum() * _num_pixels(x)).expand(x.shape[0])
+
+    @torch.no_grad()
+    def dd_init(self, x):
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        n = x.numel() // x.shape[-1]
+        var = ((x - mean) ** 2).sum(dim=axes) / max(n - 1, 1)
+        self.log_scale.copy_(torch.log(torch.sqrt(var) + self.eps))
+        self.bias.copy_(mean)
+        self.initialized.fill_(True)
+        return self(x)[0]
 
     def forward(self, x):
         y = (x - self.bias) * torch.exp(-self.log_scale)
@@ -88,20 +101,28 @@ class BatchNorm(Bijector):
         self.running_var.fill_(1.0)
         self.batch_var.fill_(1.0)
 
-    def _logdet(self, x, sign):
-        ld = (self.log_gamma - 0.5 * torch.log(self.running_var)).sum()
+    def _logdet(self, x, var, sign):
+        ld = (self.log_gamma - 0.5 * torch.log(var)).sum()
         return (sign * ld * _num_pixels(x)).expand(x.shape[0])
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(_TRAINING)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var)
+            mean, var, centered = batch_moments(x)
+            var = var + self.eps
+            update_running(self, mean, var)
+            self.batch_mean.copy_(mean.detach())
+            self.batch_var.copy_(var.detach())
+        else:
+            var, centered = self.running_var, x - self.running_mean
+        y = centered * torch.rsqrt(var)
         y = y * torch.exp(self.log_gamma) + self.beta
-        return y, self._logdet(x, 1.0)
+        return y, self._logdet(x, var, 1.0)
 
     def inverse(self, y):
         if self.training:
-            raise NotImplementedError(_TRAINING)
+            mean, var = self.batch_mean, self.batch_var
+        else:
+            mean, var = self.running_mean, self.running_var
         x = (y - self.beta) * torch.exp(-self.log_gamma)
-        x = x * torch.sqrt(self.running_var) + self.running_mean
-        return x, self._logdet(y, -1.0)
+        x = x * torch.sqrt(var) + mean
+        return x, self._logdet(y, var, -1.0)

@@ -1,12 +1,14 @@
 """Configuration fields the ported model builders read.
 
 Counterpart of ``nf_tpu/config.py``: the port keeps its own copy of the
-``NetworkConfig`` fields that its builders use, with the same names and
-defaults, and ``NETWORK_DEFAULTS`` for the ported networks.
+``NetworkConfig`` fields that its builders use and of
+``OptimizerConfig``, with the same names and defaults, and
+``NETWORK_DEFAULTS`` for the ported networks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
@@ -20,6 +22,26 @@ class NetworkConfig:
     spnorm_coeff: float = 0.9
     # conditioner width (reference MLP/ConvNet base_filters=32)
     base_filters: int = 32
+    # matmul / conv precision: None, "float32" or "highest" run f32 (TF32
+    # off on the card); "bfloat16" is not ported yet and raises on the card
+    matmul_precision: Optional[str] = None
+    # conditioner compute dtype; only "float32" is ported
+    compute_dtype: str = "float32"
+    # nf_tpu's rematerialization and lax.scan composition: not ported
+    remat: bool = False
+    scan: bool = False
+
+
+@dataclass
+class OptimizerConfig:
+    """Counterpart of ``nf_tpu.config.OptimizerConfig``."""
+    name: str = "adam"
+    lr: float = 1.0e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    weight_decay: float = 0.0
+    decay_steps: int = 10000
+    decay_ratio: float = 0.5
 
 
 # per-network defaults mirroring configs/network/*.yaml

@@ -8,6 +8,11 @@ matching parameters and buffers.  Layout differences handled here:
 
 * ``Dense`` weights are ``(in, out)`` in ``nf_tpu`` and ``(out, in)`` here,
   so ``v`` / ``w`` are transposed; ``g`` stays per input feature.
+* ``Conv2d`` kernels are HWIO ``(kh, kw, in, out)`` there and
+  ``(out, in, kh, kw)`` here; ``g`` is ``(kh, kw, in)`` there and
+  ``(in, kh, kw)`` here.  ``ResBlock2d`` nests ``net`` / ``bridge`` as
+  ``ResBlockLinear`` does, and ``ConvNet`` is a ``Sequential``.
+* ``Logit``, ``Squeeze2d`` and ``Unsqueeze2d`` have no variables.
 * A non-affine flow ``BatchNorm`` keeps ``log_gamma`` / ``beta`` in state,
   here as buffers.
 * ``ActNorm``'s ``initialized`` flag, and ``InvertibleConv1x1``'s ``P`` and
@@ -26,22 +31,28 @@ import torch
 
 from .bijectors.conv1x1 import InvertibleConv1x1
 from .bijectors.coupling import AffineCoupling
+from .bijectors.elementwise import Logit
 from .bijectors.flowpp_coupling import MixLogAttnCoupling
 from .bijectors.iresblock import InvertibleResBlock
 from .bijectors.norm import ActNorm, BatchNorm
+from .bijectors.squeeze import Squeeze2d, Unsqueeze2d
 from .core.bijector import Chain
 from .models.base import FlowModel
 from .nets.conditioners import ResBlockLinear
 from .nets.core import Activation, Sequential
 from .nets.gated import GatedAttn, GatedLinear, LayerNormNet
-from .nets.layers import BatchNormNet, Dense
+from .nets.layers import BatchNormNet, Conv2d, Dense
 from .nets.spectral import LipSwish, SpectralNormDense
 
 
-def _copy(dst: torch.Tensor, src, name: str, transpose: bool = False) -> None:
+def _copy(dst: torch.Tensor, src, name: str, transpose=False) -> None:
+    """Copy ``src`` into ``dst``; ``transpose`` is True (reverse the axes) or
+    an axis order for ``np.transpose``."""
     a = np.asarray(src, dtype=np.float32)
-    if transpose:
+    if transpose is True:
         a = a.T
+    elif transpose:
+        a = a.transpose(transpose)
     if tuple(a.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: shape {a.shape} does not fit {tuple(dst.shape)}")
     dst.copy_(torch.tensor(a))
@@ -64,6 +75,14 @@ def _load(module, params, state, path: str) -> None:
         else:
             _copy(module.w, params["w"], f"{path}.w", transpose=True)
         _copy(module.b, params["b"], f"{path}.b")
+    elif isinstance(module, Conv2d):
+        hwio = (3, 2, 0, 1)
+        if module.weight_norm:
+            _copy(module.g, params["g"], f"{path}.g", transpose=(2, 0, 1))
+            _copy(module.v, params["v"], f"{path}.v", transpose=hwio)
+        else:
+            _copy(module.w, params["w"], f"{path}.w", transpose=hwio)
+        _copy(module.b, params["b"], f"{path}.b")
     elif isinstance(module, BatchNormNet):
         for k in ("gamma", "beta"):
             _copy(getattr(module, k), params[k], f"{path}.{k}")
@@ -74,7 +93,7 @@ def _load(module, params, state, path: str) -> None:
         if module.bridge is not None:
             _load(module.bridge, params["bridge"], state["bridge"],
                   f"{path}.bridge")
-    elif isinstance(module, Activation):
+    elif isinstance(module, (Activation, Logit, Squeeze2d, Unsqueeze2d)):
         pass
     elif isinstance(module, BatchNorm):
         src = params if module.affine else state

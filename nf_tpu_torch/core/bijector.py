@@ -7,7 +7,9 @@ to latent and returns ``(y, logdet (B,))``, ``inverse(y)`` is the generative
 direction and returns the log-det of the inverse map, so summing the
 returned values along a chain always gives the log-det of the composite map
 that was applied.  ``init(generator)`` re-draws the parameters in place
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``.  ``nf_tpu``'s ``Ctx.train`` is the
+module's ``training`` flag; ``dd_init(x)`` is the one-time data-dependent
+pass, run by ``FlowModel.data_dependent_init`` in train mode.
 """
 from __future__ import annotations
 
@@ -46,6 +48,13 @@ class Bijector(nn.Module):
         """latent -> data. Returns ``(x, logdet)``."""
         raise NotImplementedError
 
+    def dd_init(self, x: torch.Tensor) -> torch.Tensor:
+        """Data-dependent initialization; returns the forward-transformed
+        batch for the layers after it.  Default: a forward in the module's
+        mode (train mode under ``data_dependent_init``, so buffers such as
+        running statistics move once) that keeps the parameters."""
+        return self(x)[0]
+
 
 class Chain(Bijector):
     """Sequential composition: forward in order, inverse reversed, per-layer
@@ -72,3 +81,8 @@ class Chain(Bijector):
             y, ld = layer.inverse(y)
             logdet = logdet + ld
         return y, logdet
+
+    def dd_init(self, x):
+        for layer in self.layers:
+            x = layer.dd_init(x)
+        return x

@@ -53,6 +53,20 @@ class FlowModel(nn.Module):
         self.bijector.init(generator)
         return self.state_dict()
 
+    @torch.no_grad()
+    def data_dependent_init(self, batch: torch.Tensor) -> dict:
+        """The one-time data-dependent pass (ActNorm's init; every flow and
+        conditioner BatchNorm's running statistics move once): the chain's
+        ``dd_init`` in train mode over ``batch``, without gradients.  The
+        module's mode is restored after it.  Returns the state dict."""
+        mode = self.training
+        self.train()
+        try:
+            self.bijector.dd_init(batch.to(device=self.device, dtype=torch.float32))
+        finally:
+            self.train(mode)
+        return self.state_dict()
+
     def eval_program(self, params: Optional[dict] = None,
                      probes: Optional[Probes] = None) -> "EvalProgram":
         """Build the serving program over fixed parameters: the weights are
@@ -100,6 +114,10 @@ class EvalProgram:
     eager chain on the model's device, as ``nf_tpu`` runs its jitted chain
     where no fused kernel applies.  ``stack`` holds the packed weights, or
     None for the chain.
+
+    A program over the chain serves the live module in eval mode: a call
+    sets it back to eval mode where training (``Trainer``) left it in train
+    mode.
 
     ResFlow: with the 'unbias' estimator both directions are one kernel
     each, the series over the probe set of the call's batch size (drawn
@@ -167,6 +185,8 @@ class EvalProgram:
         return x, -ld
 
     def _input(self, x):
+        if self.model.training:
+            self.model.eval()
         return x.to(device=self.device, dtype=torch.float32).contiguous()
 
     @torch.no_grad()

@@ -1,33 +1,46 @@
 """Conditioner networks used inside coupling layers (counterpart of
 ``nf_tpu/nets/conditioners.py``): residual blocks of BN -> ReLU ->
-(weight-normed) dense x2 with a bridge projection when widths differ, an
-input projection, and a BN -> ReLU -> projection head."""
+(weight-normed) dense or 3x3 conv, twice, with a bridge projection when
+widths differ, an input projection, and a BN -> ReLU -> projection head."""
 from __future__ import annotations
 
 from .core import Net, Sequential, relu
-from .layers import BatchNormNet, Dense
+from .layers import BatchNormNet, Conv2d, Dense
 
 
 class ResBlockLinear(Net):
     def __init__(self, in_features: int, out_features: int,
                  weight_norm: bool = True, device=None):
         super().__init__()
+        proj = self._projection
         self.net = Sequential([
             BatchNormNet(in_features, device=device),
             relu(),
-            Dense(in_features, out_features, weight_norm, device),
+            proj(in_features, out_features, weight_norm, device),
             BatchNormNet(out_features, device=device),
             relu(),
-            Dense(out_features, out_features, weight_norm, device),
+            proj(out_features, out_features, weight_norm, device),
         ])
-        self.bridge = (Dense(in_features, out_features, weight_norm, device)
+        self.bridge = (proj(in_features, out_features, weight_norm, device)
                        if in_features != out_features else None)
+
+    @staticmethod
+    def _projection(in_features, out_features, weight_norm, device) -> Net:
+        return Dense(in_features, out_features, weight_norm, device)
 
     def forward(self, x):
         y = self.net(x)
         if self.bridge is not None:
             x = self.bridge(x)
         return x + y
+
+
+class ResBlock2d(ResBlockLinear):
+    """The same block over NHWC maps, with 3x3 convs."""
+
+    @staticmethod
+    def _projection(in_channels, out_channels, weight_norm, device) -> Net:
+        return Conv2d(in_channels, out_channels, 3, weight_norm, device)
 
 
 def MLP(in_features: int, out_features: int, base_filters: int = 32,
@@ -39,4 +52,16 @@ def MLP(in_features: int, out_features: int, base_filters: int = 32,
            for _ in range(n_blocks)]
         + [BatchNormNet(base_filters, device=device), relu(),
            Dense(base_filters, out_features, weight_norm, device)]
+    )
+
+
+def ConvNet(in_channels: int, out_channels: int, base_filters: int = 32,
+            n_blocks: int = 2, weight_norm: bool = True, device=None) -> Net:
+    """Conv conditioner: 3x3 in-proj, n residual blocks, BN-ReLU-1x1 head."""
+    return Sequential(
+        [Conv2d(in_channels, base_filters, 3, weight_norm, device)]
+        + [ResBlock2d(base_filters, base_filters, weight_norm, device)
+           for _ in range(n_blocks)]
+        + [BatchNormNet(base_filters, device=device), relu(),
+           Conv2d(base_filters, out_channels, 1, weight_norm, device)]
     )

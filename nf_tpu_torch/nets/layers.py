@@ -1,11 +1,13 @@
 """Primitive conditioner layers (counterpart of ``nf_tpu/nets/layers.py``):
-dense with optional weight norm, and standard (non-flow) batch norm.
+dense and NHWC conv with optional weight norm, and standard (non-flow)
+batch norm.
 
-Layout: weights are PyTorch's ``(out, in)``, where ``nf_tpu`` keeps
-``(in, out)``.  The weight norm is the same parameterization: per-INPUT
-feature norms, ``g`` of shape ``(in,)``, the norm taken over the out axis
-(dim 0 here, axis 1 in ``nf_tpu``) and the eps added to the norm,
-``w = v * g / (||v|| + 1e-5)``.
+Layout: weights are PyTorch's ``(out, in)`` and ``(out, in, kh, kw)``,
+where ``nf_tpu`` keeps ``(in, out)`` and ``(kh, kw, in, out)``.  The weight
+norm is the same parameterization: ``g`` holds one norm per input feature
+(dense, ``(in,)``) or per (input channel, tap) (conv, ``(in, kh, kw)``;
+``nf_tpu``'s ``(kh, kw, in)``), the norm taken over the out axis (dim 0
+here) and the eps added to the norm, ``w = v * g / (||v|| + 1e-5)``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,11 @@ from .core import Net
 
 _WN_EPS = 1.0e-5
 _TRAINING = "training lands in a later slice"
+
+
+def _weight_normed(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """v * g / (||v|| + eps), the norm over the out axis (dim 0)."""
+    return v * (g / (torch.linalg.vector_norm(v, dim=0) + _WN_EPS))[None]
 
 
 def uniform(generator: torch.Generator, shape, bound: float, device) -> torch.Tensor:
@@ -61,18 +68,68 @@ class Dense(Net):
 
     def weight(self) -> torch.Tensor:
         """The effective (out, in) weight."""
-        if self.weight_norm:
-            vnorm = torch.linalg.vector_norm(self.v, dim=0)
-            return self.v * (self.g / (vnorm + _WN_EPS))[None, :]
-        return self.w
+        return _weight_normed(self.v, self.g) if self.weight_norm else self.w
 
     def forward(self, x):
         return F.linear(x, self.weight(), self.b)
 
 
+class Conv2d(Net):
+    """NHWC conv, 'SAME' padding, stride 1, with optional weight norm.
+
+    The input is seen as NCHW through a permute (a channels-last view,
+    no copy in PyTorch) and the output permuted back to NHWC.  The f32
+    kernel cuDNN picks on an H100 is an NCHW one, so cuDNN converts the
+    layout around it (PERF.md)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 weight_norm: bool = True, device=None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.weight_norm = weight_norm
+        k = kernel_size
+        kw = dict(device=device, dtype=torch.float32)
+        if weight_norm:
+            self.g = nn.Parameter(torch.ones(in_channels, k, k, **kw))
+            self.v = nn.Parameter(torch.zeros(out_channels, in_channels, k, k, **kw))
+        else:
+            self.w = nn.Parameter(torch.zeros(out_channels, in_channels, k, k, **kw))
+        self.b = nn.Parameter(torch.zeros(out_channels, **kw))
+
+    @torch.no_grad()
+    def init(self, generator):
+        """Kaiming-uniform with fan_in = in * k * k, as ``nf_tpu``."""
+        k = self.kernel_size
+        bound = math.sqrt(1.0 / (self.in_channels * k * k))
+        dev = self.b.device
+        w = uniform(generator, (self.out_channels, self.in_channels, k, k), bound, dev)
+        self.b.copy_(uniform(generator, (self.out_channels,), bound, dev))
+        if self.weight_norm:
+            g = torch.linalg.vector_norm(w, dim=0)
+            self.g.copy_(g)
+            self.v.copy_(w / (g[None] + _WN_EPS))
+        else:
+            self.w.copy_(w)
+
+    def weight(self) -> torch.Tensor:
+        """The effective (out, in, kh, kw) weight."""
+        return _weight_normed(self.v, self.g) if self.weight_norm else self.w
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight(), self.b, padding="same")
+        return y.permute(0, 2, 3, 1)
+
+
 class BatchNormNet(Net):
-    """Standard batch norm over all-but-channel axes (channel last); eval
-    mode uses ``rsqrt(running_var + eps)``."""
+    """Standard batch norm over all-but-channel axes (channel last).
+
+    Training normalizes by the batch mean and the BIASED batch variance
+    and moves the running statistics by ``momentum`` toward them
+    (detached), as ``nf_tpu`` does; ``F.batch_norm`` would move
+    ``running_var`` toward the unbiased variance.  Eval normalizes by the
+    running statistics.  Both use ``rsqrt(var + eps)``."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1.0e-5, device=None):
@@ -95,6 +152,26 @@ class BatchNormNet(Net):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(_TRAINING)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            mean, var, centered = batch_moments(x)
+            update_running(self, mean, var)
+        else:
+            var, centered = self.running_var, x - self.running_mean
+        y = centered * torch.rsqrt(var + self.eps)
         return y * self.gamma + self.beta
+
+
+def batch_moments(x: torch.Tensor):
+    """Per-channel (last axis) mean and biased variance over all other
+    axes, and x - mean (computed once: autograd keeps one copy of it)."""
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=axes)
+    centered = x - mean
+    return mean, (centered * centered).mean(dim=axes), centered
+
+
+@torch.no_grad()
+def update_running(module, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """running <- (1 - momentum) * running + momentum * batch, in place."""
+    m = module.momentum
+    module.running_mean.copy_((1 - m) * module.running_mean + m * mean)
+    module.running_var.copy_((1 - m) * module.running_var + m * var)

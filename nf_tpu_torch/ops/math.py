@@ -4,6 +4,22 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+
+
+def log_deriv_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log sigma'(x) = log sigma(x) + log(1 - sigma(x)) = x - 2*softplus(x)."""
+    return x - 2.0 * F.softplus(x)
+
+
+def logit(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x) - torch.log1p(-x)
+
+
+def log_deriv_logit(x: torch.Tensor, eps: float = 1.0e-8) -> torch.Tensor:
+    """log logit'(x), the inverse-function derivative of sigmoid, with x
+    clamped to [eps, 1 - eps] first."""
+    return -log_deriv_sigmoid(logit(torch.clamp(x, eps, 1.0 - eps)))
 
 
 def sum_except_batch(x: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,45 @@ def torch_model(name: str, D: int, layers: int, filters: int, var=None,
     return model
 
 
+def uniform(seed: int, shape, low: float = 0.05, high: float = 0.95) -> np.ndarray:
+    """Pixels away from the Logit edges, as bench.py makes its batches."""
+    return np.random.default_rng(seed).uniform(low, high, shape).astype(np.float32)
+
+
+def jax_image_model(dims=(16, 16, 1), layers: int = 1, filters: int = 8, seed: int = 0,
+                    batch: int = 16, train_passes: int = 3):
+    """nf_tpu's image RealNVP after its data-dependent init and
+    ``train_passes`` train-mode passes, which move every batch-norm
+    running statistic off its init value.  Returns (model, numpy var)."""
+    from nf_tpu.config import NetworkConfig
+    from nf_tpu.core import Ctx
+    from nf_tpu.models import build_model
+
+    cfg = NetworkConfig(name="realnvp", layers=layers, base_filters=filters)
+    model = build_model("realnvp", dims, datatype="image", cfg=cfg)
+    var = model.init(jax.random.PRNGKey(seed))
+    x = uniform(seed + 100, (batch,) + tuple(dims))
+    var = model.data_dependent_init(var, x)
+    ctx_t = Ctx(rng=None, train=True)
+    fwd = jax.jit(lambda v, y: model.bijector.forward(v, y, ctx_t)[2])
+    for i in range(train_passes):
+        var = {"params": var["params"], "state": fwd(var, uniform(seed + 101 + i, x.shape))}
+    return model, to_numpy(var)
+
+
+def torch_image_model(dims=(16, 16, 1), layers: int = 1, filters: int = 8, var=None):
+    """The port's image RealNVP on the CPU, with ``var`` loaded when given."""
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.convert import load_jax_variables
+    from nf_tpu_torch.models import build_model
+
+    cfg = NetworkConfig(name="realnvp", layers=layers, base_filters=filters)
+    model = build_model("realnvp", dims, "image", cfg, device="cpu")
+    if var is not None:
+        load_jax_variables(model, var)
+    return model
+
+
 def jax_realnvp(D: int, layers: int, filters: int, seed: int = 0, batch: int = 64):
     return jax_model("realnvp", D, layers, filters, seed, batch)
 

@@ -7,7 +7,10 @@ Tolerances as chip_smoke.py: z atol/rtol 1e-4, logdet atol 1e-3; the
 Flow++ inverse x atol 1e-3, logdet atol 5e-3 (two Newton solves meet the
 same root only within XTOL, compounded through the couplings); the ResFlow
 inverse x and logdet atol 1e-3 (the kernel stops each fixed point per tile
-of 32 samples, the plain version on the whole batch).
+of 32 samples, the plain version on the whole batch).  The coupling
+kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
+(up to 1536 terms summed in another order), dgain and dbias rtol 1e-4
+(B x N terms).
 """
 import pytest
 import torch
@@ -150,3 +153,113 @@ def test_resflow_exact_inverse_is_one_solve_launch(cuda):
     assert {k: v for k, v in rf.LAUNCHES.items() if v} == {"fused_resflow_solve": 1}
     torch.testing.assert_close(xr, x, atol=1e-3, rtol=0)
     torch.testing.assert_close(ldi, -ld, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("B,N", [(1024, 512), (1000, 384), (3, 128), (77, 1536)])
+def test_coupling_kernels_match_plain(cuda, B, N):
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    g = torch.Generator(device=cuda).manual_seed(B + N)
+    z0, t, raw, gy = (torch.randn(B, N, generator=g, device=cuda) for _ in range(4))
+    gld = torch.randn(B, generator=g, device=cuda)
+    gain = torch.tensor([0.7], device=cuda)
+    bias = torch.tensor([-0.1], device=cuda)
+    y, ld = tc.launch(z0, t, raw, gain, bias, inverse=False)
+    x, ldi = tc.launch(y, t, raw, gain, bias, inverse=True)
+    gz0, graw, dgain, dbias = tc.launch_bwd(z0, raw, gain, bias, gy, gld)
+    torch.cuda.synchronize()
+    yr, ldr = tc.coupling_fwd_reference(z0, t, raw, gain, bias)
+    xr, ldir = tc.coupling_inv_reference(y, t, raw, gain, bias)
+    gz0r, gtr, grawr, dgainr, dbiasr = tc.coupling_bwd_reference(z0, raw, gain, bias, gy, gld)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ld, ldr, atol=1e-4, rtol=0)
+    torch.testing.assert_close(x, xr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ldi, ldir, atol=1e-4, rtol=0)
+    torch.testing.assert_close(x, z0, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gz0, gz0r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(graw, grawr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dgain, dgainr, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(dbias, dbiasr, atol=1e-3, rtol=1e-4)
+
+
+def test_coupling_backward_is_deterministic(cuda):
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    z0, raw, gy = (torch.randn(1024, 512, generator=g, device=cuda) for _ in range(3))
+    gld = torch.randn(1024, generator=g, device=cuda)
+    gain, bias = torch.tensor([0.7], device=cuda), torch.tensor([-0.1], device=cuda)
+    first = tc.launch_bwd(z0, raw, gain, bias, gy, gld)
+    for _ in range(3):
+        for a, b in zip(first, tc.launch_bwd(z0, raw, gain, bias, gy, gld)):
+            assert torch.equal(a, b)
+
+
+def test_coupling_autograd_on_the_card_matches_the_cpu(cuda):
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    g = torch.Generator().manual_seed(3)
+    cpu = [torch.randn(64, 256, generator=g) for _ in range(3)] + [
+        torch.tensor([0.7]), torch.tensor([-0.1])]
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [a.detach().to(dev).requires_grad_() for a in cpu]
+        y, ld = tc.coupling_fwd(*leaves)
+        (y.square().sum() + 3.0 * ld.sum()).backward()
+        grads.append([a.grad.cpu() for a in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_image_realnvp_launches_161_per_pass(cuda):
+    """realnvp-img32x1: one coupling_fwd per coupling per forward, one
+    coupling_bwd per coupling per train step, one coupling_inv per
+    coupling per inverse, and no other kernel of the port."""
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops.cuda import coupling as tc
+    from nf_tpu_torch.ops.cuda import fused_flowpp as ff
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+    from nf_tpu_torch.train import Trainer
+
+    def counts():
+        return {k: v for k, v in {**fs.LAUNCHES, **ff.LAUNCHES, **rf.LAUNCHES,
+                                  **tc.LAUNCHES}.items() if v}
+
+    def reset():
+        for mod in (fs, ff, rf, tc):
+            mod.reset_launches()
+
+    model = build_model("realnvp", (32, 32, 1), "image", NetworkConfig())
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = 0.05 + 0.9 * torch.rand(2, 8, 32, 32, 1, generator=g, device=cuda)
+    tr = Trainer(model, OptimizerConfig(), seed=0)
+    reset()
+    ts = tr.init_state(batch[0])
+    assert counts() == {"coupling_fwd": 161}
+    reset()
+    ts, losses = tr.train_steps(ts, batch)
+    assert counts() == {"coupling_fwd": 322, "coupling_bwd": 322}
+    assert torch.isfinite(losses).all()
+    prog = model.eval_program()
+    reset()
+    prog.log_prob(batch[0])
+    assert counts() == {"coupling_fwd": 161}
+    reset()
+    y, log_py = prog.sample(8, g)
+    torch.cuda.synchronize()
+    assert counts() == {"coupling_inv": 161}
+    assert torch.isfinite(log_py).all()
+
+
+def test_matmul_precision_on_the_card(cuda):
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.models import build_model
+
+    torch.backends.cudnn.allow_tf32 = True
+    build_model("realnvp", (2,), "2d", NetworkConfig(layers=2, base_filters=8))
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        build_model("realnvp", (16, 16, 1), "image",
+                    NetworkConfig(layers=1, matmul_precision="bfloat16"))

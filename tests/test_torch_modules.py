@@ -73,10 +73,19 @@ def test_batchnorm_net_eval():
 
 
 def test_batchnorm_net_training_raises():
+    """Train mode is ported: batch statistics, and the running statistics
+    moved toward the biased batch variance, as nf_tpu."""
+    from nf_tpu.nets.layers import BatchNormNet as JBN
     from nf_tpu_torch.nets.layers import BatchNormNet
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        BatchNormNet(3, device="cpu").train()(torch.zeros(2, 3))
+    jb = JBN(3)
+    var = jb.init(jax.random.PRNGKey(3))
+    x = normal(3, (10, 3), 1.5) - 0.2
+    tb = _load(BatchNormNet(3, device="cpu"), var).train()
+    jy, st = jb.apply(var, x, TRAIN)
+    close(tb(_t(x)).detach(), jy, ATOL)
+    close(tb.running_mean, st["running_mean"], 1e-6)
+    close(tb.running_var, st["running_var"], 1e-6)
 
 
 @pytest.mark.parametrize("in_f,out_f", [(1, 2), (2, 4)])
@@ -162,7 +171,19 @@ def test_affine_coupling(D, odd):
 
 
 def test_image_coupling_not_in_this_slice():
+    """Image couplings are ported: a ConvNet conditioner over NHWC halves,
+    with nf_tpu's half sizes (tests/test_torch_image.py holds them to
+    nf_tpu)."""
     from nf_tpu_torch.bijectors.coupling import AffineCoupling
+    from nf_tpu_torch.nets.layers import Conv2d
 
-    with pytest.raises(NotImplementedError):
-        AffineCoupling((4, 4, 2), device="cpu")
+    for masking, halves in (("checkerboard", (4, 4)), ("channelwise", (1, 1))):
+        c = AffineCoupling((4, 4, 2), masking=masking, base_filters=8, device="cpu")
+        c.init(torch.Generator().manual_seed(0))
+        assert c.half_dims() == halves and isinstance(c.net.layers[0], Conv2d)
+        x = torch.from_numpy(normal(1, (3, 4, 4, 2)))
+        with torch.no_grad():
+            y, ld = c.eval()(x)
+            xr, ldi = c.inverse(y)
+        close(xr, x, 1e-5)
+        close(ldi, -ld, 1e-5)

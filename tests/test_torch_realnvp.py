@@ -96,17 +96,46 @@ def test_init_and_round_trip():
 
 
 def test_training_mode_raises():
-    model = torch_realnvp(2, 2, 8).train()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model(torch.zeros(3, 2))
+    """Train mode is ported: a train-mode forward of the density model
+    matches nf_tpu's (batch statistics) and moves the running statistics
+    as nf_tpu's state update does."""
+    import jax
+    from nf_tpu.core import Ctx
+
+    jmodel, var = jax_realnvp(2, 2, 8, seed=5)
+    model = torch_realnvp(2, 2, 8, var).train()
+    x = normal(14, (48, 2)) * 1.2 - 0.3
+    jz, jld, jst = jmodel.forward(jax.tree.map(jax.numpy.asarray, var), x,
+                                  Ctx(rng=None, train=True))
+    z, ld = model(torch.from_numpy(x))
+    close(z.detach(), jz, 2e-5)
+    close(ld.detach(), jld, 2e-5)
+    close(model.bijector.layers[0].running_mean, jst[0]["running_mean"], 1e-6)
+    close(model.bijector.layers[0].batch_var, jst[0]["batch_var"], 1e-6)
 
 
 def test_image_mode_not_in_this_slice():
+    """The image tier is ported: at 8x8x1 the builder emits Logit, one
+    final checkerboard block of layers + 1 couplings and no squeeze, and
+    the model inverts itself (tests/test_torch_image.py holds the image
+    model to nf_tpu)."""
+    from nf_tpu_torch.bijectors.coupling import AffineCoupling
+    from nf_tpu_torch.bijectors.elementwise import Logit
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError):
-        build_model("realnvp", (8, 8, 1), "image", NetworkConfig(), device="cpu")
+    model = build_model("realnvp", (8, 8, 1), "image", NetworkConfig(layers=2, base_filters=8),
+                        device="cpu")
+    layers = list(model.bijector.layers)
+    assert isinstance(layers[0], Logit) and len(layers) == 1 + 2 * 3
+    assert all(isinstance(c, AffineCoupling) and c.masking == "checkerboard"
+               for c in layers[2::2])
+    prog = model.eval_program(model.init(torch.Generator().manual_seed(0)))
+    x = torch.rand(5, 8, 8, 1, generator=torch.Generator().manual_seed(1)) * 0.9 + 0.05
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    close(xr, x, 1e-5)
+    close(ldi, -ld, 1e-3)
     with pytest.raises(ValueError, match="unknown network"):
         build_model("maf", (2,), "2d", device="cpu")
 

@@ -1,0 +1,225 @@
+"""The port's Trainer against nf_tpu's on the CPU.
+
+* ``make_optimizer``: the staircase schedule, Adam and the hand-written
+  RMSprop against optax over a fixed gradient sequence, with and without
+  weight decay, atol 1e-6 on the parameters.
+* Three Adam steps of the same model on the same batches, after the same
+  init and data-dependent init: losses within rtol 1e-5 per step, the
+  first step's gradients within atol 1e-5 + rtol 1e-5 of ``jax.grad``
+  (s_bias's gradient sums thousands of terms to about 15), and the state
+  after the steps.  For the image RealNVP at 16x16x1 (layers = 1,
+  base_filters = 8, every coupling through the coupling kernel's Function
+  and its analytic backward) and for RealNVP 2-D density (D = 2,
+  layers = 2).
+
+The state check is tight where the gradient is real: parameter entries
+whose first gradient exceeds 1e-4, and the variances (running_var,
+batch_var), within 1e-5.  Some parameters have a zero true gradient: the
+biases ahead of a train-mode batch norm, and each head's t-channel biases
+ahead of the next flow BatchNorm.  Their f32 gradients are rounding noise
+near 1e-7, above Adam's eps = 1e-8, so Adam moves them by up to about lr
+per step in a direction each framework draws from its own noise.  They
+leave the loss unchanged in train mode but shift the means downstream.
+So those entries are held within 2 x 3 steps x lr (+ margin) = 1e-3, and
+the running / batch means, which add up a few such shifts, within 2e-3.
+"""
+import jax
+import numpy as np
+import optax
+import pytest
+import torch
+from _torch_parity import close, normal, to_numpy, uniform
+
+from nf_tpu.config import NetworkConfig as JNetworkConfig
+from nf_tpu.config import OptimizerConfig as JOptimizerConfig
+
+
+def _configs(**kw):
+    from nf_tpu_torch.config import OptimizerConfig
+    return JOptimizerConfig(**kw), OptimizerConfig(**kw)
+
+
+def test_lr_schedule_is_optax_staircase():
+    from nf_tpu_torch.train import lr_schedule
+
+    jcfg, cfg = _configs(lr=3e-3, decay_steps=4, decay_ratio=0.3)
+    ref = optax.exponential_decay(jcfg.lr, jcfg.decay_steps, jcfg.decay_ratio,
+                                  staircase=True)
+    sched = lr_schedule(cfg)
+    for k in range(14):
+        assert abs(sched(k) - float(ref(k))) <= 1e-9
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
+@pytest.mark.parametrize("name", ["adam", "rmsprop"])
+def test_optimizer_matches_optax(name, weight_decay):
+    from nf_tpu.train.trainer import make_optimizer as jmake
+    from nf_tpu_torch.train import lr_schedule, make_optimizer
+
+    jcfg, cfg = _configs(name=name, lr=1e-2, decay_steps=3, decay_ratio=0.5,
+                         weight_decay=weight_decay)
+    p0 = {"a": normal(0, (5, 3)), "b": normal(1, (4,))}
+    jopt = jmake(jcfg)
+    jp, jst = dict(p0), jopt.init(p0)
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in p0.items()}
+    opt, sched = make_optimizer(cfg, list(tp.values())), lr_schedule(cfg)
+    for k in range(7):
+        g = {"a": normal(10 + k, (5, 3)), "b": normal(20 + k, (4,), 1e-3)}
+        up, jst = jopt.update(g, jst, jp)
+        jp = optax.apply_updates(jp, up)
+        for key, p in tp.items():
+            p.grad = torch.from_numpy(g[key])
+        for group in opt.param_groups:
+            group["lr"] = sched(k)
+        opt.step()
+        for key, p in tp.items():
+            close(p.detach(), jp[key], 1e-6)
+
+
+def _jax_start(dims, datatype, layers, filters):
+    from nf_tpu.models import build_model
+
+    cfg = JNetworkConfig(name="realnvp", layers=layers, base_filters=filters)
+    model = build_model("realnvp", dims, datatype=datatype, cfg=cfg)
+    return model, model.init(jax.random.PRNGKey(0))
+
+
+def _grads_in_port_layout(tmodel_factory, grads, state):
+    """nf_tpu's gradient pytree loaded into a fresh port model, whose
+    parameters then hold the gradients in the port's layouts."""
+    from nf_tpu_torch.convert import load_jax_variables
+
+    m = tmodel_factory()
+    load_jax_variables(m, to_numpy({"params": grads, "state": state}))
+    return dict(m.named_parameters())
+
+
+NOISE_DRIVEN = 1e-3      # 2 x 3 steps x lr (1e-4), with a margin
+MEANS = 2e-3             # a few noise-driven shifts added up
+
+
+def _trainer_parity(dims, datatype, layers, filters, batches):
+    from nf_tpu.core import Ctx
+    from nf_tpu.train import Trainer as JTrainer
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.convert import load_jax_variables
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    def tmodel():
+        return build_model("realnvp", dims, datatype,
+                           NetworkConfig(layers=layers, base_filters=filters), device="cpu")
+
+    jmodel, var0 = _jax_start(dims, datatype, layers, filters)
+    jt = JTrainer(jmodel, JOptimizerConfig(), seed=0)
+    jts = jt.init_state(jax.random.PRNGKey(0), batches[0])
+
+    def loss(params, batch):
+        v = {"params": params, "state": jts.state}
+        return -jmodel.log_prob(v, batch, Ctx(rng=None, train=True))[0].mean()
+
+    jgrads = jax.grad(loss)(jts.params, batches[1])
+    jlosses = []
+    for k in range(1, 4):
+        jts, lj = jt.train_step(jts, batches[k])
+        jlosses.append(float(lj))
+
+    model = tmodel()
+    tt = Trainer(model, OptimizerConfig(), seed=0)
+    ts = tt.init_state(torch.from_numpy(batches[0]),
+                       params=load_jax_variables(model, to_numpy(var0)))
+    losses = []
+    for k in range(1, 4):
+        ts, lt = tt.train_step(ts, torch.from_numpy(batches[k]))
+        losses.append(float(lt))
+        if k == 1:
+            first = _grads_in_port_layout(tmodel, jgrads, jts.state)
+            for name, p in model.named_parameters():
+                close(p.grad, first[name].detach(), 1e-5, 1e-5)
+    assert ts.step == 3
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+
+    ref = tmodel()
+    load_jax_variables(ref, to_numpy(jts.var))
+    want = ref.state_dict()
+    params = dict(model.named_parameters())
+    for name, got in model.state_dict().items():
+        diff = (got.float() - want[name].float()).abs()
+        if name in params:
+            real = first[name].detach().abs() > 1e-4
+            assert not real.any() or diff[real].max() <= 1e-5, name
+            assert diff.max() <= NOISE_DRIVEN, name
+        elif name.endswith("_var"):
+            assert diff.max() <= 1e-5, name
+        elif name.endswith("_mean"):
+            assert diff.max() <= MEANS, name
+        else:
+            assert diff.max() == 0, name
+
+
+def test_trainer_image_realnvp_matches_nf_tpu():
+    dims = (16, 16, 1)
+    batches = np.stack([uniform(30 + k, (16,) + dims) for k in range(4)])
+    _trainer_parity(dims, "image", 1, 8, batches)
+
+
+def test_trainer_density_realnvp_matches_nf_tpu():
+    batches = np.stack([normal(40 + k, (64, 2)) * 1.3 + 0.2 for k in range(4)])
+    _trainer_parity((2,), "2d", 2, 8, batches)
+
+
+def test_trainer_runs_train_mode_after_an_eval_program():
+    """eval_program puts the shared module in eval mode; the next step is
+    a train step all the same, and the program serves in eval mode."""
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    model = build_model("realnvp", (16, 16, 1), "image",
+                        NetworkConfig(layers=1, base_filters=8), device="cpu")
+    tt = Trainer(model, OptimizerConfig(lr=1e-3), seed=0)
+    batches = torch.from_numpy(np.stack([uniform(50 + k, (8, 16, 16, 1)) for k in range(3)]))
+    ts = tt.init_state(batches[0])
+    ts, losses = tt.train_steps(ts, batches[:2])
+    assert losses.shape == (2,) and torch.isfinite(losses).all() and ts.step == 2
+    prog = model.eval_program()
+    assert not model.training
+    bn = next(m for m in model.modules() if type(m).__name__ == "BatchNorm")
+    running = bn.running_mean.clone()
+    ts, _ = tt.train_step(ts, batches[2])
+    assert model.training and not torch.equal(bn.running_mean, running)
+    running = bn.running_mean.clone()
+    lp = prog.log_prob(batches[0])
+    assert not model.training and torch.equal(bn.running_mean, running)
+    torch.testing.assert_close(lp, tt.log_prob(ts, batches[0]))
+    y, log_py = tt.sample(ts, 4, torch.Generator().manual_seed(0))
+    assert y.shape == (4, 16, 16, 1) and torch.isfinite(log_py).all()
+
+
+def test_unported_options_raise():
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import make_optimizer
+
+    for kw in (dict(scan=True), dict(remat=True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build_model("realnvp", (16, 16, 1), "image", NetworkConfig(layers=1, **kw),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        build_model("realnvp", (16, 16, 1), "image",
+                    NetworkConfig(layers=1, compute_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError, match="matmul_precision"):
+        build_model("realnvp", (2,), "2d", NetworkConfig(matmul_precision="tf32"),
+                    device="cpu")
+    with pytest.raises(ValueError, match="unsupported optimizer"):
+        make_optimizer(OptimizerConfig(name="sgd"), [torch.zeros(1, requires_grad=True)])
+
+
+def test_image_build_model_defaults_to_the_card():
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.models import build_model
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model("realnvp", (16, 16, 1), "image", NetworkConfig(layers=1, base_filters=8))
