@@ -46,6 +46,12 @@ Phases, each of which exits non-zero when it fails:
      ragged (1000, 384), gain 0.7 and bias -0.1: y and x atol/rtol 1e-5,
      the row log-dets atol 1e-4 (up to 512 terms summed in another order),
      gz0 and graw atol/rtol 1e-5, dgain and dbias rtol 1e-4 (B x N terms);
+     attention_fwd at (4096, L, 8), L = 256, 64, 16 (flowpp-img32x1's
+     calls), a ragged (1000, 49, 8) and (64, 100, 32): out atol/rtol 1e-5
+     against the plain version, and PyTorch's SDPA within the same;
+     mix_log_cdf_inverse at (1024, 512, K = 8) and a ragged (1000, 300,
+     K = 5), inputs as tests/test_pallas.py: x atol/rtol 1e-4, log-det
+     atol 1e-3, the round trip to x within 1e-3;
   5. the image main path, realnvp-img32x1 (bench.py's image zoo: 32x32x1,
      layers = 32, base_filters = 32; 161 couplings, 6,818,978 parameters):
      build_model on the card -> Trainer(seed 0).init_state on a batch of
@@ -64,18 +70,38 @@ Phases, each of which exits non-zero when it fails:
      init the 161 couplings amplify f32 rounding: the CPU's f32 gradients
      are themselves several percent from float64 (8.6 % at base_filters
      = 8 on a CPU), so two f32 runs can only be held to the same error;
-  6. time each kernel (CUDA events, warm L2 as in a serving loop; the
+  6. the image Flow++ main path, flowpp-img32x1 (nf_tpu's Flow++ image
+     model at its defaults at 32x32x1: 161 couplings, 20,461,106
+     parameters): build_model on the card -> init(generator) -> ActNorm
+     and the 1x1 convs moved off init by the seed -> eval_program (the
+     eager chain) -> log_prob(1024 pixels) and sample(1024), each call's
+     launches counted (161 attention_fwd, 64 / 64 / 33 at L = 256 / 64 /
+     16, no other kernel); the outputs finite, the round trip on the
+     data's latent printed (at random init the 161 couplings contract the
+     data by about e^-11 per dimension, so the whole inverse expands each
+     Newton solve's XTOL residual to O(1), on any device and in float64);
+     on 16 samples against the same model on the CPU (state copied): log p
+     within 1e-4 of its largest magnitude, and each of the 488 layers'
+     inverse of its own output within 1e-3 of the CPU's and of its input;
+     then mix_log_cdf_inverse through its entry point at (1024, 512,
+     K = 8), one launch, the round trip within 1e-3;
+  7. time each kernel (CUDA events, warm L2 as in a serving loop; the
      coupling kernels by their own device time in a profiler window over
-     8 input sets cycled, 67 MB, past the 50 MB L2), its plain version
+     8 input sets cycled, 67 MB, past the 50 MB L2; attention and the
+     mixture inverse, their plain versions and SDPA by calls captured in a
+     CUDA graph, warm), its plain version
      and, per model, the serving rate fwd_inv_samples_per_s = 8192 /
      (t_fwd + t_inv), bench.py's definition; print one main_path line per
      model, the ResFlow 'exact' program's wall time per direction and its
      device idle share; for the image model eval_fwd_inv_samples_per_s =
      1024 / (t_fwd + t_inv) and train_samples_per_s = K B / t_chunk
      (bench.py:269, :327), each with its device idle share and the
-     coupling kernels' share of device time; then the kernels line with
-     each kernel's bound;
-  7. print {"ok": true, "device": {...}} as the last line.
+     coupling kernels' share of device time; for flowpp-img32x1
+     eval_fwd_inv_samples_per_s with its device idle share and the
+     attention kernels' share of device time; attention's entry summed
+     over a pass's 161 calls, beside SDPA's time (library_ms); then the
+     kernels line with each kernel's bound;
+  8. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -119,14 +145,35 @@ IMG_PARAMS = 6_818_978
 IMG_PARITY = 64          # samples held against the same model on the CPU
 IMG_LOGP_RTOL = 1e-4     # of the largest |log p|
 IMG_GRAD_FACTOR = 2.0    # the card's f32 gradient error over the CPU's
-IMG_ITERS = 3            # calls per direction timed, after 3 warm-up calls
-IMG_TRAIN_TIMED = 2      # train chunks timed (the main path has warmed the step)
+IMG_ITERS = 2            # calls per direction timed, after 3 warm-up calls
+IMG_TRAIN_TIMED = 1      # train chunks timed (the main path has warmed the step)
 COUPLING_CASES = [(1024, 512), (1000, 384)]
 COUPLING_TOL = dict(atol=1e-5, rtol=1e-5)
 COUPLING_LD_ATOL = 1e-4
 COUPLING_SUM_RTOL = 1e-4
 COUPLING_SETS = 8        # input sets cycled when timing: 8 x 8.4 MB > 50 MB of L2
 COUPLING_ITERS = 200
+# the image Flow++ main path: flowpp-img32x1, nf_tpu's Flow++ image model at
+# its defaults (nf_tpu/config.py:75-79: layers 32, mixtures 8,
+# base_filters 32) at 32x32x1
+FLOWPP_IMG_PARAMS = 20_461_106
+FLOWPP_IMG_LENGTHS = {256: 64, 64: 64, 16: 33}   # attention calls per pass, by L
+FLOWPP_IMG_PARITY = 16   # samples held against the same model on the CPU
+# a layer's inverse, card vs CPU and against its input: each Newton solve
+# stops within XTOL = 1e-5 of the root, its conditioner rounded otherwise
+FLOWPP_IMG_INV_ATOL = 1e-3
+FLOWPP_IMG_ITERS = 2     # calls per direction timed (the main path has warmed both)
+ATTN_HEADS_BH = IMG_BATCH * 4    # B * heads: (4096, L, 8) on the main path
+ATTN_CASES = [(ATTN_HEADS_BH, 256, 8), (ATTN_HEADS_BH, 64, 8), (ATTN_HEADS_BH, 16, 8),
+              (1000, 49, 8), (64, 100, 32)]
+ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
+ATTN_ITERS = 20
+# the mixture-CDF inverse: inputs and tolerances as tests/test_pallas.py
+MIX_CASES = [(1024, 512, 8), (1000, 300, 5)]
+MIX_X_TOL = dict(atol=1e-4, rtol=1e-4)
+MIX_LD_ATOL = 1e-3
+MIX_ROUND_TRIP_ATOL = 1e-3
+MIX_ITERS = 20
 
 KERNEL_SOURCES = {
     "fused_stack_fwd": ("nf_tpu_torch/csrc/fused_stack.cu", "nf_tpu/ops/pallas/fused_stack.py:397"),
@@ -148,6 +195,9 @@ KERNEL_SOURCES = {
     "coupling_fwd": ("nf_tpu_torch/csrc/coupling.cu", "nf_tpu/ops/pallas/coupling.py:34"),
     "coupling_inv": ("nf_tpu_torch/csrc/coupling.cu", "nf_tpu/ops/pallas/coupling.py:42"),
     "coupling_bwd": ("nf_tpu_torch/csrc/coupling.cu", "nf_tpu/ops/pallas/coupling.py:99"),
+    "attention_fwd": ("nf_tpu_torch/csrc/attention.cu", "nf_tpu/ops/pallas/attention.py:42"),
+    "mix_log_cdf_inverse": ("nf_tpu_torch/csrc/mixlogcdf.cu",
+                            "nf_tpu/ops/pallas/mixlogcdf.py:51"),
 }
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
@@ -221,8 +271,8 @@ def device_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def wall_ms(fn, iters):
-    for _ in range(3):
+def wall_ms(fn, iters, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -232,17 +282,19 @@ def wall_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_window(fn, iters):
-    """torch.profiler (CPU and CUDA activity) over ``iters`` calls after
-    one warm-up: (the window's wall time in us, {kernel name: its own
-    device time in us}).  User annotations (``Optimizer.step#...``) are
-    left out: their device ranges span kernels counted on their own."""
+def profile_window(fn, iters, warmup=True, cpu=True):
+    """torch.profiler (CPU and CUDA activity, or CUDA alone) over ``iters``
+    calls after one warm-up: (the window's wall time in us, {kernel name:
+    its own device time in us}).  User annotations (``Optimizer.step#...``)
+    are left out: their device ranges span kernels counted on their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -261,6 +313,27 @@ def device_busy(fn, iters):
     wall_us, kernels = profile_window(fn, iters)
     busy_us = sum(kernels.values())
     return busy_us / wall_us if busy_us > 0 else None
+
+
+def graph_ms(fn, iters):
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed between CUDA events, so no host cost counts."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
 
 
 def kernel_device_ms(fn, iters):
@@ -486,10 +559,26 @@ def check_coupling_kernels(tc, device, errs):
                                    max_diff(dbias, dbiasr))
 
 
+def counted_call(what, fn, want, counters, launches_of, totals):
+    """fn() with every launch counter set to 0 just before and read just
+    after; fails unless the kernels launched are exactly ``want``.  Adds the
+    counts to ``totals``."""
+    reset_all(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launches_of()
+    got = {k: v for k, v in counts.items() if v}
+    print(f"main path {what} launches: {got}")
+    check(got == want, f"{what}: expected {want}, got {got}")
+    for k, v in counts.items():
+        totals[k] += v
+    return out
+
+
 def image_model(cfg, device, state=None):
     from nf_tpu_torch.models import build_model
 
-    model = build_model("realnvp", IMG_DIMS, "image", cfg, device=device)
+    model = build_model(cfg.name, IMG_DIMS, "image", cfg, device=device)
     if state is not None:
         model.load_state_dict(state)
     return model
@@ -563,16 +652,7 @@ def image_main_path(device, counters, launches_of):
     n = IMG_COUPLINGS
 
     def counted(what, fn, want):
-        reset_all(counters)
-        out = fn()
-        torch.cuda.synchronize()
-        counts = launches_of()
-        got = {k: v for k, v in counts.items() if v}
-        print(f"main path realnvp-img32x1 {what} launches: {got}")
-        check(got == want, f"realnvp-img32x1 {what}: expected {want}, got {got}")
-        for k, v in counts.items():
-            totals[k] += v
-        return out
+        return counted_call(f"realnvp-img32x1 {what}", fn, want, counters, launches_of, totals)
 
     ts = counted("init_state", lambda: trainer.init_state(batch0), {"coupling_fwd": n})
     state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
@@ -610,17 +690,18 @@ def image_main_path(device, counters, launches_of):
                 parity=parity, n_params=n_params)
 
 
-def device_breakdown(wall_us, kernels, calls):
-    """A profile window's device idle share, the coupling kernels' share of
-    its device time, and its six longest kernels in ms per call."""
+COUPLING_KERNELS = ("coupling_kernel", "coupling_bwd_kernel", "reduce_partials_kernel")
+
+
+def device_breakdown(wall_us, kernels, calls, mine=COUPLING_KERNELS, label="coupling"):
+    """A profile window's device idle share, the named kernels' share of its
+    device time, and its six longest kernels in ms per call."""
     total = sum(kernels.values())
-    mine = sum(v for k, v in kernels.items()
-               if "coupling_kernel" in k or "coupling_bwd_kernel" in k
-               or "reduce_partials_kernel" in k)
+    ours = sum(v for k, v in kernels.items() if any(n in k for n in mine))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {"device_idle_share": 1.0 - total / wall_us,
             "device_ms_per_call": total / calls / 1e3,
-            "coupling_device_share": mine / total,
+            f"{label}_device_share": ours / total,
             "top_kernels_ms_per_call": [[k[:100], v / calls / 1e3] for k, v in top]}
 
 
@@ -713,6 +794,308 @@ def kernel_entry(name, launches, errs, work, sfu_per_s, ms, plain_ms, **extra):
         "bytes": work["bytes"], "shape": [BATCH, 2], **extra}
 
 
+# --------------------------------------------------------------------------
+# attention and the mixture-CDF inverse (image Flow++)
+# --------------------------------------------------------------------------
+def attention_work(BH, L, D):
+    """One attention call on (BH, L, D): 2 L^2 D multiply-adds for q k^T and
+    as many for p v per slice, 3 f32 operations (max, subtract, normalise)
+    and one exp per score; q, k, v read and out written once (as
+    scripts/unported_kernel_bounds.py counts them)."""
+    scores = BH * L * L
+    mac = 2 * 2 * BH * L * L * D
+    return {"flop": mac + 3 * scores, "mac_flop": mac, "elem": 3 * scores,
+            "transcendental": scores, "bytes": 4 * 4 * BH * L * D}
+
+
+def check_attention_kernel(ca, ta, device, errs):
+    """attention_fwd against its plain version and PyTorch's SDPA."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    for BH, L, D in ATTN_CASES:
+        q, k, v = (torch.randn(BH, L, D, generator=g, device=device) for _ in range(3))
+        out = ca.launch(q, k, v)
+        torch.cuda.synchronize()
+        want = ta.attention_reference(q, k, v)
+        lib = F.scaled_dot_product_attention(q, k, v)
+        e, e_lib = max_diff(out, want), max_diff(lib, want)
+        print(f"check attention_fwd BH={BH} L={L} D={D}: max|dout|={e:.3e} "
+              f"(SDPA against the plain version {e_lib:.3e})")
+        check(bool(torch.isfinite(out).all()), "attention_fwd: non-finite output")
+        check(torch.allclose(out, want, **ATTN_TOL), f"attention_fwd L={L} D={D}: off by {e}")
+        check(torch.allclose(lib, want, **ATTN_TOL), f"SDPA L={L} D={D}: off by {e_lib}")
+        errs["attention_fwd"] = max(errs["attention_fwd"], e)
+
+
+def mix_inputs(B, N, K, g, device):
+    """As tests/test_pallas.py: x = 2 N(0, 1), logpi = log_softmax(N(0, 1)),
+    mu = N(0, 1), s = 0.3 N(0, 1); y = mix_log_cdf_forward(x)."""
+    from nf_tpu_torch.bijectors.mixlogcdf import mix_log_cdf_forward
+
+    x = 2.0 * torch.randn(B, N, generator=g, device=device)
+    logpi = torch.log_softmax(torch.randn(B, N, K, generator=g, device=device), dim=-1)
+    mu = torch.randn(B, N, K, generator=g, device=device)
+    s = 0.3 * torch.randn(B, N, K, generator=g, device=device)
+    y, _ = mix_log_cdf_forward(x, logpi, mu, s)
+    return x, y, logpi, mu, s
+
+
+def mixlogcdf_work(B, N, K, evaluations):
+    """Operations and bytes of one mixture-inverse call on these inputs.
+    Per element: exp(logpi) and exp(-s) per component and two logs (2K + 2
+    transcendentals); per Newton evaluation K exps (one sigmoid each) and
+    one log, about 11K + 20 f32 operations (the sigmoid's add and
+    division, the CDF and pdf sums, the step, its tests); the log-det per
+    component an exp and a log1p (softplus) and the log-sum-exp's exp, about
+    10 f32 operations, then a log and the row sum.  Bytes: y and the three
+    (B, N, K) tensors read, x and the log-det written, once each."""
+    elements = B * N
+    elem = evaluations * (11 * K + 20) + elements * (10 * K + 3)
+    trans = elements * (2 * K + 2) + evaluations * (K + 1) + elements * (3 * K + 1)
+    return {"flop": elem, "mac_flop": 0, "elem": elem, "transcendental": trans,
+            "bytes": 4 * (elements * (2 + 3 * K) + B), "newton_evaluations": evaluations}
+
+
+def check_mixlogcdf_kernel(cm, mlc, device, errs):
+    """mix_log_cdf_inverse against its plain version, and the round trip."""
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    for B, N, K in MIX_CASES:
+        x, y, logpi, mu, s = mix_inputs(B, N, K, g, device)
+        xk, ldk = cm.launch(y, logpi, mu, s)
+        torch.cuda.synchronize()
+        xr, ldr = mlc.mix_log_cdf_inverse_reference(y, logpi, mu, s)
+        ex, eld, rt = max_diff(xk, xr), max_diff(ldk, ldr), max_diff(xk, x)
+        print(f"check mix_log_cdf_inverse B={B} N={N} K={K}: max|dx|={ex:.3e} "
+              f"max|dlogdet|={eld:.3e}; round trip max|x - inv(fwd(x))|={rt:.3e} "
+              f"(plain {max_diff(xr, x):.3e})")
+        check(bool(torch.isfinite(xk).all() and torch.isfinite(ldk).all()),
+              "mix_log_cdf_inverse: non-finite output")
+        check(torch.allclose(xk, xr, **MIX_X_TOL), f"mix_log_cdf_inverse K={K}: x off by {ex}")
+        check(eld <= MIX_LD_ATOL, f"mix_log_cdf_inverse K={K}: logdet off by {eld}")
+        check(rt <= MIX_ROUND_TRIP_ATOL, f"mix_log_cdf_inverse K={K}: round trip {rt}")
+        errs["mix_log_cdf_inverse"] = max(errs["mix_log_cdf_inverse"], ex, eld)
+
+
+@torch.no_grad()
+def perturb_flowpp_image(model, g):
+    """ActNorm shift and log-scale off identity, and each 1x1 conv's
+    log-diagonal off its orthogonal init, from the seed."""
+    from nf_tpu_torch.bijectors.conv1x1 import InvertibleConv1x1
+    from nf_tpu_torch.bijectors.norm import ActNorm
+
+    for m in model.modules():
+        if isinstance(m, ActNorm):
+            for p in (m.log_scale, m.bias):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g, device=g.device))
+        elif isinstance(m, InvertibleConv1x1):
+            m.log_s.add_(0.05 * torch.randn(m.log_s.shape, generator=g, device=g.device))
+
+
+def flowpp_image_config():
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
+
+    return NetworkConfig(name="flow++", **NETWORK_DEFAULTS["flow++"])
+
+
+def flowpp_image_main_path(device, counters, launches_of, ca):
+    """flowpp-img32x1 through EvalProgram's eager chain, each call's
+    launches counted (161 attention_fwd, 64 / 64 / 33 by L, nothing else);
+    log p and the inverse held against the same model on the CPU."""
+    from nf_tpu_torch.bijectors.flowpp_coupling import MixLogAttnCoupling
+
+    cfg = flowpp_image_config()
+    model = image_model(cfg, None)
+    n_couplings = sum(isinstance(m, MixLogAttnCoupling) for m in model.modules())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"flowpp-img32x1: {len(model.bijector.layers)} layers, {n_couplings} couplings, "
+          f"{n_params} parameters")
+    check(model.device.type == "cuda", "build_model did not default to the card")
+    check((n_couplings, n_params) == (IMG_COUPLINGS, FLOWPP_IMG_PARAMS),
+          f"flowpp-img32x1 has {n_couplings} couplings and {n_params} parameters")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model.init(gen)
+    perturb_flowpp_image(model, gen)
+    prog = model.eval_program()
+    check(prog.stack is None, "flowpp-img32x1 should run the eager chain")
+    x = 0.05 + 0.9 * torch.rand((IMG_BATCH,) + IMG_DIMS, generator=gen, device=device)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    want = {"attention_fwd": IMG_COUPLINGS}
+
+    def counted(what, fn):
+        out = counted_call(f"flowpp-img32x1 {what}", fn, want, counters, launches_of, totals)
+        by_len = dict(ca.launches_by_len)
+        print(f"  attention_fwd launches by L: {by_len}")
+        check(by_len == FLOWPP_IMG_LENGTHS, f"flowpp-img32x1 {what}: attention by L {by_len}")
+        return out
+
+    t0 = time.perf_counter()
+    log_px = counted("log_prob", lambda: prog.log_prob(x))
+    y_s, log_py = counted("sample", lambda: prog.sample(IMG_BATCH, gen))
+    print(f"flowpp-img32x1 log_prob + sample took {time.perf_counter() - t0:.1f} s")
+    check(log_px.shape == (IMG_BATCH,) and y_s.shape == (IMG_BATCH,) + IMG_DIMS
+          and log_py.shape == (IMG_BATCH,), "flowpp-img32x1: main path output shapes")
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"flowpp-img32x1 {what}: non-finite values")
+    print(f"flowpp-img32x1 log p of the pixels: mean {float(log_px.mean()):.2f}, "
+          f"range [{float(log_px.min()):.2f}, {float(log_px.max()):.2f}]")
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    check(bool(torch.isfinite(z).all() and torch.isfinite(xr).all()),
+          "flowpp-img32x1: non-finite round trip")
+    err = (xr - x).abs()
+    round_trip = {"max": float(err.max()), "median": float(err.median()),
+                  "ld_max": max_diff(ld, -ldi), "ld_max_abs": float(ld.abs().max())}
+    print(f"flowpp-img32x1 round trip on the data's latent: max|x - inv(fwd(x))|="
+          f"{round_trip['max']:.3e} median {round_trip['median']:.3e}; "
+          f"max|ld_fwd + ld_inv|={round_trip['ld_max']:.3e} "
+          f"(max|ld|={round_trip['ld_max_abs']:.1f})")
+
+    # the same state on the CPU, on a few samples (its Newton loop is slow).
+    # The whole inverse is not comparable: at random init the 161 couplings
+    # contract the data by about e^-11 per dimension (log-det near -11,000),
+    # so the inverse expands each Newton solve's XTOL = 1e-5 residual to
+    # O(1), in float64 as in f32, on either device.  Each layer's inverse of
+    # its own output is well posed: it is held on the card and the CPU.
+    t0 = time.perf_counter()
+    n = FLOWPP_IMG_PARITY
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    cpu = image_model(cfg, "cpu", state).eval()
+    with torch.no_grad():
+        lp_cpu = cpu.log_prob(x[:n].cpu()).double()
+        h = x[:n]
+        layer_x = layer_ld = layer_rt = 0.0
+        for card_layer, cpu_layer in zip(model.bijector.layers, cpu.bijector.layers):
+            y, _ = card_layer(h)
+            xi, ldi_layer = card_layer.inverse(y)
+            xc, ldc = cpu_layer.inverse(y.cpu())
+            layer_x = max(layer_x, max_diff(xi.cpu(), xc))
+            layer_ld = max(layer_ld, max_diff(ldi_layer.cpu(), ldc))
+            layer_rt = max(layer_rt, max_diff(xi, h))
+            h = y
+    lp_card = prog.log_prob(x[:n]).cpu().double()
+    parity = {"samples": n, "logp_max_abs_diff": max_diff(lp_card, lp_cpu),
+              "logp_max_abs": float(lp_cpu.abs().max()),
+              "layer_inverse_x_max_abs_diff": layer_x, "layer_inverse_ld_max_abs_diff": layer_ld,
+              "layer_round_trip_max": layer_rt}
+    print(f"flowpp-img32x1 card vs CPU, {n} samples: "
+          f"max|dlog p|={parity['logp_max_abs_diff']:.3e} "
+          f"(max|log p|={parity['logp_max_abs']:.1f}); each of the "
+          f"{len(model.bijector.layers)} layers' inverse of its own output: card vs CPU "
+          f"max|dx|={layer_x:.3e} max|dlogdet|={layer_ld:.3e}, card round trip "
+          f"max|dx|={layer_rt:.3e}; took {time.perf_counter() - t0:.1f} s")
+    check(parity["logp_max_abs_diff"] <= IMG_LOGP_RTOL * parity["logp_max_abs"],
+          "flowpp-img32x1: log p on the card disagrees with the CPU")
+    check(layer_x <= FLOWPP_IMG_INV_ATOL and layer_rt <= FLOWPP_IMG_INV_ATOL,
+          "flowpp-img32x1: a layer's inverse on the card disagrees with the CPU or its input")
+    return dict(prog=prog, x=x, z=z, totals=totals, round_trip=round_trip, parity=parity,
+                n_params=n_params)
+
+
+def mixlogcdf_main_path(device, counters, launches_of):
+    """The mixture inverse through its entry point,
+    bijectors.mixlogcdf.mix_log_cdf_inverse, at (1024, 512, K = 8): one
+    launch of its kernel, nothing else."""
+    from nf_tpu_torch.bijectors.mixlogcdf import mix_log_cdf_inverse
+
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    B, N, K = MIX_CASES[0]
+    inputs = mix_inputs(B, N, K, g, device)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    xk, ld = counted_call("mix_log_cdf_inverse", lambda: mix_log_cdf_inverse(*inputs[1:]),
+                          {"mix_log_cdf_inverse": 1}, counters, launches_of, totals)
+    check(bool(torch.isfinite(xk).all() and torch.isfinite(ld).all())
+          and max_diff(xk, inputs[0]) <= MIX_ROUND_TRIP_ATOL,
+          "mix_log_cdf_inverse entry point: round trip")
+    return inputs, totals
+
+
+def flowpp_image_timing(fp, smi):
+    """flowpp-img32x1's serving rate, device idle share and the attention
+    kernels' share of device time."""
+    prog, x, z = fp["prog"], fp["x"], fp["z"]
+    t0 = time.perf_counter()
+    t_fwd = wall_ms(lambda: prog.forward(x), FLOWPP_IMG_ITERS, warmup=0)
+    t_inv = wall_ms(lambda: prog.inverse(z), FLOWPP_IMG_ITERS, warmup=0)
+    t1 = time.perf_counter()
+    # one pair, CUDA activity only: a pair is about 200,000 ATen ops
+    profile = device_breakdown(
+        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1, warmup=False, cpu=False),
+        1, mine=("attention_fwd_kernel",), label="attention")
+    print(f"flowpp-img32x1 timing: wall {t1 - t0:.1f} s, profiled pair "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"main_path": {
+        "model": f"flowpp-img32x1: {'x'.join(map(str, IMG_DIMS))} image, {IMG_COUPLINGS} "
+                 f"couplings, base_filters=32, mixtures=8, {fp['n_params']} parameters",
+        "batch": IMG_BATCH, "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+        "eval_fwd_inv_samples_per_s": IMG_BATCH / ((t_fwd + t_inv) / 1e3),
+        "eval_profile_fwd_inv_pair": profile, "round_trip": fp["round_trip"],
+        "cpu_parity": fp["parity"], "card": smi}}))
+
+
+def attention_entry(ca, ta, launches, errs, sfu_per_s, device):
+    """attention_fwd's entry on the kernels line, per pass of
+    flowpp-img32x1: each time summed over its 64 / 64 / 33 calls at
+    (4096, L, 8), L = 256 / 64 / 16, each call timed by its kernels' own
+    device time (warm L2, as the chain hands the kernel what it just
+    wrote)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    per_len, total = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "event_ms": 0.0}
+    work = dict.fromkeys(("flop", "mac_flop", "elem", "transcendental", "bytes"), 0)
+    for L, calls in FLOWPP_IMG_LENGTHS.items():
+        q, k, v = (torch.randn(ATTN_HEADS_BH, L, 8, generator=g, device=device)
+                   for _ in range(3))
+        w = attention_work(ATTN_HEADS_BH, L, 8)
+        bound, by = bound_of(w, sfu_per_s)
+        t = {"ms": graph_ms(lambda: ca.launch(q, k, v), ATTN_ITERS),
+             "plain_ms": graph_ms(lambda: ta.attention_reference(q, k, v), ATTN_ITERS),
+             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                    ATTN_ITERS),
+             "event_ms": device_ms(lambda: ca.launch(q, k, v), ATTN_ITERS)}
+        per_len[L] = {"calls_per_pass": calls, "shape": [ATTN_HEADS_BH, L, 8], **t,
+                      "bound_ms": bound, "bound_by": by}
+        for key in total:
+            total[key] += calls * t[key]
+        for key in work:
+            work[key] += calls * w[key]
+    return kernel_entry(
+        "attention_fwd", launches, errs, work, sfu_per_s, total["ms"], total["plain_ms"],
+        library_ms=total["library_ms"], event_ms=total["event_ms"],
+        library_note="torch.nn.functional.scaled_dot_product_attention, f32",
+        shape="per pass of flowpp-img32x1: " + " + ".join(
+            f"{calls} x ({ATTN_HEADS_BH}, {L}, 8)" for L, calls in FLOWPP_IMG_LENGTHS.items()),
+        per_length=per_len,
+        timing="ms, plain_ms, library_ms: device time per call, 20 calls in one CUDA graph "
+               "between CUDA events, warm L2, summed per pass; event_ms: CUDA events over "
+               "back-to-back calls, host cost included")
+
+
+def mixlogcdf_entry(cm, mlc, launches, errs, sfu_per_s, inputs):
+    """mix_log_cdf_inverse's entry at (1024, 512, 8), its bound counted from
+    the Newton evaluations these inputs need."""
+    _, y, logpi, mu, s = inputs
+    B, N, K = logpi.shape
+    counts = []
+    mlc._newton_solve(y, logpi, mu, s, evaluations=counts)
+    evals = counts[0]
+    lanes = torch.nn.functional.pad(evals.reshape(-1), (0, -evals.numel() % 32))
+    work = mixlogcdf_work(B, N, K, int(evals.sum()))
+    return kernel_entry(
+        "mix_log_cdf_inverse", launches, errs, work, sfu_per_s,
+        graph_ms(lambda: cm.launch(y, logpi, mu, s), MIX_ITERS),
+        graph_ms(lambda: mlc.mix_log_cdf_inverse_reference(y, logpi, mu, s), 3),
+        event_ms=device_ms(lambda: cm.launch(y, logpi, mu, s), MIX_ITERS),
+        library_note="no single PyTorch call inverts a mixture CDF",
+        shape=[B, N, K], newton_evaluations=work["newton_evaluations"],
+        newton_evaluations_mean=float(evals.double().mean()),
+        warp_newton_evaluations=32 * int(lanes.view(-1, 32).amax(1).sum()),
+        timing="ms, plain_ms: device time per call in one CUDA graph between CUDA events; "
+               "event_ms: CUDA events over back-to-back calls, host cost included")
+
+
+
 def ptxas_summary(log):
     """One line per kernel instantiation from nvcc's -Xptxas -v output:
     its template arguments, registers and spill bytes."""
@@ -739,20 +1122,23 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from nf_tpu_torch.bijectors import mixlogcdf as mlc
+    from nf_tpu_torch.ops import attention as ta
     from nf_tpu_torch.ops.cuda import _build
+    from nf_tpu_torch.ops.cuda import attention as ca
     from nf_tpu_torch.ops.cuda import coupling as tc
     from nf_tpu_torch.ops.cuda import fused_flowpp as ff
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
     from nf_tpu_torch.ops.cuda import fused_stack as fs
+    from nf_tpu_torch.ops.cuda import mixlogcdf as cm
     from nf_tpu_torch.ops.estimators import draw_unbias_probes, eval_probes
     from nf_tpu_torch.ops.math import standard_normal_logprob
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = (fs, ff, rf, tc)
-    launches_of = lambda: {**fs.LAUNCHES, **ff.LAUNCHES, **rf.LAUNCHES,  # noqa: E731
-                           **tc.LAUNCHES}
+    counters = (fs, ff, rf, tc, ca, cm)
+    launches_of = lambda: {k: v for m in counters for k, v in m.LAUNCHES.items()}  # noqa: E731
 
     # ---- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -851,6 +1237,8 @@ def main():
                 check(eld <= RESFLOW_INV_ATOL, f"{name} D={D}: logdet off by {eld}")
             errs[name] = max(errs[name], ey, eld)
     check_coupling_kernels(tc, dev, errs)
+    check_attention_kernel(ca, ta, dev, errs)
+    check_mixlogcdf_kernel(cm, mlc, dev, errs)
 
     # ---- 4. the main path, through the entry points a user calls
     from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
@@ -942,7 +1330,12 @@ def main():
     print(f"phase 5 (image main path) starts at {time.perf_counter() - t_start:.1f} s")
     img = image_main_path(dev, counters, launches_of)
     launches.update({k: img["totals"][k] for k in tc.LAUNCHES})
-    print(f"phase 6 (timing) starts at {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 6 (image Flow++ main path) starts at {time.perf_counter() - t_start:.1f} s")
+    fp = flowpp_image_main_path(dev, counters, launches_of, ca)
+    launches["attention_fwd"] = fp["totals"]["attention_fwd"]
+    mix_main, mix_totals = mixlogcdf_main_path(dev, counters, launches_of)
+    launches["mix_log_cdf_inverse"] = mix_totals["mix_log_cdf_inverse"]
+    print(f"phase 7 (timing) starts at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. timing and bounds
     kernels = []
@@ -1021,7 +1414,12 @@ def main():
     t_img = time.perf_counter()
     image_timing(img, smi)
     kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev)
-    print(f"image timing took {time.perf_counter() - t_img:.1f} s; the run "
+    print(f"image timing took {time.perf_counter() - t_img:.1f} s")
+    t_img = time.perf_counter()
+    flowpp_image_timing(fp, smi)
+    kernels.append(attention_entry(ca, ta, launches, errs, sfu_per_s, dev))
+    kernels.append(mixlogcdf_entry(cm, mlc, launches, errs, sfu_per_s, mix_main))
+    print(f"image Flow++ timing took {time.perf_counter() - t_img:.1f} s; the run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

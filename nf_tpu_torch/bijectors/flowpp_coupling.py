@@ -1,13 +1,16 @@
 """Flow++ logistic-mixture attention coupling (counterpart of
-``nf_tpu/bijectors/flowpp_coupling.py``), 1-D.
+``nf_tpu/bijectors/flowpp_coupling.py``).
 
 Conditioner: in-proj -> GatedLinear -> LayerNorm -> GatedAttn -> LayerNorm
--> out-proj emitting ``(a, b, logpi, mu, s)`` along the last axis.  The
+-> out-proj emitting ``(a, b, logpi, mu, s)`` along the last axis: dense
+layers for 1-D data; for NHWC images 3x3 convs (no weight norm) and
+``GatedConv2d`` over the half's spatial shape (h/2, w/2 for the
+checkerboard split, h, w channelwise), attention over its pixels.  The
 transform is ``z0 -> logit(MixLogCDF(z0)) * exp(a) + b`` with ``a =
 tanh(raw_a) * a_log_scale + a_bias``; the inverse undoes the affine and
 solves the mixture by Newton.  Mixture tensors reshape k-major, ``(...,
 K * oc) -> (..., K, oc) -> (..., oc, K)``, as the reference's
-``view(B, K, *C)``.
+``view(B, K, *C)``; for images the same on each pixel's channels.
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ import torch
 from torch import nn
 
 from ..nets.core import Sequential
-from ..nets.gated import GatedAttn, GatedLinear, LayerNormNet
-from ..nets.layers import Dense
+from ..nets.gated import GatedAttn, GatedConv2d, GatedLinear, LayerNormNet
+from ..nets.layers import Conv2d, Dense
 from ..ops.math import sum_except_batch
 from .coupling import _CouplingBase
 from .mixlogcdf import mix_log_cdf_logit_forward, mix_log_cdf_logit_inverse
@@ -29,14 +32,25 @@ class MixLogAttnCoupling(_CouplingBase):
         self.n_mixtures = n_mixtures
         self.out_chs, in_chs = self.half_dims()
         n_out = self.out_chs * (2 + 3 * n_mixtures)
-        mid = (base_filters,)
+        bf = base_filters
+        if len(self.dims) == 1:
+            mid = (bf,)
+            proj_in = Dense(in_chs, bf, weight_norm=False, device=device)
+            gated = GatedLinear(bf, device=device)
+            proj_out = Dense(bf, n_out, weight_norm=False, device=device)
+        else:
+            h, w, _ = self.dims
+            mid = (h // 2, w // 2, bf) if masking == "checkerboard" else (h, w, bf)
+            proj_in = Conv2d(in_chs, bf, 3, weight_norm=False, device=device)
+            gated = GatedConv2d(bf, device=device)
+            proj_out = Conv2d(bf, n_out, 3, weight_norm=False, device=device)
         self.net = Sequential([
-            Dense(in_chs, base_filters, weight_norm=False, device=device),
-            GatedLinear(base_filters, device=device),
+            proj_in,
+            gated,
             LayerNormNet(mid, device=device),
-            GatedAttn(mid, base_filters, device=device),
+            GatedAttn(mid, bf, device=device),
             LayerNormNet(mid, device=device),
-            Dense(base_filters, n_out, weight_norm=False, device=device),
+            proj_out,
         ])
         kw = dict(device=device, dtype=torch.float32)
         self.a_log_scale = nn.Parameter(torch.zeros(1, **kw))
@@ -53,7 +67,7 @@ class MixLogAttnCoupling(_CouplingBase):
         raw = self.net(z1)
         oc, K = self.out_chs, self.n_mixtures
 
-        def mix(t):   # (B, K * oc) -> (B, oc, K), k-major
+        def mix(t):   # (..., K * oc) -> (..., oc, K), k-major
             return t.reshape(t.shape[:-1] + (K, oc)).transpose(-1, -2)
 
         a = torch.tanh(raw[..., :oc]) * self.a_log_scale + self.a_bias

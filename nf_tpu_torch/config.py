@@ -20,6 +20,8 @@ class NetworkConfig:
     # resflow (configs/network/resflow.yaml)
     logdet: str = "unbias"
     spnorm_coeff: float = 0.9
+    # flow++ image mode: variational dequantization; not ported (raises)
+    var_dequant: bool = False
     # conditioner width (reference MLP/ConvNet base_filters=32)
     base_filters: int = 32
     # matmul / conv precision: None, "float32" or "highest" run f32 (TF32

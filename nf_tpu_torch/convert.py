@@ -18,8 +18,9 @@ matching parameters and buffers.  Layout differences handled here:
 * ``ActNorm``'s ``initialized`` flag, and ``InvertibleConv1x1``'s ``P`` and
   ``sign_s``, are state there and buffers here.  ``L`` arrives whole from
   the LU factorization; only its strict lower part counts.
-* ``GatedAttn`` keeps ``nf_tpu``'s ``(in, out)`` layout for its raw
-  projections, so they copy as they are.
+* ``GatedLinear`` and ``GatedConv2d`` nest their dense or conv layer (no
+  weight norm) under ``"op"``.  ``GatedAttn`` keeps ``nf_tpu``'s
+  ``(in, out)`` layout for its raw projections, so they copy as they are.
 * ``SpectralNormDense`` keeps ``nf_tpu``'s ``(in, out)`` ``w_bar``; its
   power-iteration vectors ``u`` / ``v`` are state there and buffers here.
   ``InvertibleResBlock`` nests its g-net under ``"g"`` in both trees.
@@ -40,7 +41,7 @@ from .core.bijector import Chain
 from .models.base import FlowModel
 from .nets.conditioners import ResBlockLinear
 from .nets.core import Activation, Sequential
-from .nets.gated import GatedAttn, GatedLinear, LayerNormNet
+from .nets.gated import GatedAttn, GatedConv2d, GatedLinear, LayerNormNet
 from .nets.layers import BatchNormNet, Conv2d, Dense
 from .nets.spectral import LipSwish, SpectralNormDense
 
@@ -114,7 +115,7 @@ def _load(module, params, state, path: str) -> None:
             _copy(getattr(module, k), params[k], f"{path}.{k}")
         for k in ("P", "sign_s"):
             _copy(getattr(module, k), state[k], f"{path}.{k}")
-    elif isinstance(module, GatedLinear):
+    elif isinstance(module, (GatedLinear, GatedConv2d)):
         _load(module.op, params["op"], {}, f"{path}.op")
     elif isinstance(module, LayerNormNet):
         for k in ("gamma", "beta"):

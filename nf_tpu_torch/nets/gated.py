@@ -1,17 +1,20 @@
-"""Flow++ conditioner blocks (counterpart of ``nf_tpu/nets/gated.py``), 1-D:
-gated dense layer, full-shape LayerNorm and gated self-attention.
+"""Flow++ conditioner blocks (counterpart of ``nf_tpu/nets/gated.py``):
+gated dense and conv layers, full-shape LayerNorm and gated self-attention.
 
-* ``GatedLinear``: ``y = op(elu([x, -x]))``, then ``x + elu(y) *
-  sigmoid(elu(-y))`` (in == out features).
-* ``LayerNormNet``: normalizes over ALL non-batch axes with a full-shape
-  affine, eps 1e-5.
-* ``GatedAttn``: V / K / Q from one projection of ``x + pos_emb``; the
-  reference attends with the roles permuted, ``A = attn(query=K, key=V,
-  value=Q)``, then a gated output projection and a residual.  Its raw
-  parameters keep ``nf_tpu``'s ``(in, out)`` layout: ``w_qkv`` (C, 3f) in
-  v | k | q order, ``w_out`` (f, 2C).  At one token (L == 1, every 1-D
-  density) attention is the identity on its value, so ``A = Q``; longer
-  sequences come with the image Flow++ slice and its attention kernel.
+* ``GatedLinear`` / ``GatedConv2d``: ``y = op(elu([x, -x]))`` with ``op`` a
+  dense layer or an NHWC 3x3 conv (no weight norm, in == out features),
+  then ``x + elu(y) * sigmoid(elu(-y))``: the second ``elu([y, -y])``
+  split into its halves.
+* ``LayerNormNet``: normalizes over ALL non-batch axes (a feature vector,
+  or an image's (h, w, f)) with a full-shape affine, eps 1e-5.
+* ``GatedAttn``: V / K / Q from one projection of ``x + pos_emb`` over the
+  flattened spatial axis (L tokens, one for 1-D data), in that v | k | q
+  order, split into heads as (B, L, h, D) -> (B, h, L, D).  ``nf_tpu``
+  attends with the roles permuted, ``A = attention(query=K, key=V,
+  value=Q)`` (``ops/attention.py``: the CUDA kernel on the card), then a
+  gated output projection and a residual.  At one token attention is the
+  identity on its value, so ``A = Q``.  The raw parameters keep
+  ``nf_tpu``'s ``(in, out)`` layout: ``w_qkv`` (C, 3f), ``w_out`` (f, 2C).
 """
 from __future__ import annotations
 
@@ -21,19 +24,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import attention
 from .core import Net
-from .layers import Dense, uniform
+from .layers import Conv2d, Dense, uniform
 
 
-class GatedLinear(Net):
-    def __init__(self, features: int, device=None):
+class _Gated(Net):
+    """``x + elu(y) * sigmoid(elu(-y))`` with ``y = op(elu([x, -x]))``,
+    the features on the last axis."""
+
+    def __init__(self, features: int, op: Net):
         super().__init__()
         self.features = features
-        self.op = Dense(features * 2, features, weight_norm=False, device=device)
+        self.op = op
 
     def forward(self, x):
         y = self.op(F.elu(torch.cat([x, -x], dim=-1)))
         return x + F.elu(y) * torch.sigmoid(F.elu(-y))
+
+
+class GatedLinear(_Gated):
+    def __init__(self, features: int, device=None):
+        super().__init__(features, Dense(features * 2, features, weight_norm=False,
+                                         device=device))
+
+
+class GatedConv2d(_Gated):
+    def __init__(self, features: int, device=None):
+        super().__init__(features, Conv2d(features * 2, features, 3, weight_norm=False,
+                                          device=device))
 
 
 class LayerNormNet(Net):
@@ -90,13 +109,17 @@ class GatedAttn(Net):
         self.pos_emb.copy_(0.01 * pos.to(dev))
 
     def forward(self, x):
-        B, C, f = x.shape[0], self.channels, self.filters
+        B, C, f, h = x.shape[0], self.channels, self.filters, self.heads
+        D = f // h
         xr = (x + self.pos_emb).reshape(B, -1, C)                  # (B, L, C)
-        if xr.shape[1] != 1:
-            raise NotImplementedError("attention over more than one token lands "
-                                      "with the image Flow++ slice")
-        qkv = xr @ self.w_qkv + self.b_qkv                          # (B, 1, 3f)
-        A = qkv[..., 2 * f:]            # softmax of one score is 1: A = Q
-        y = A @ self.w_out + self.b_out                             # (B, 1, 2C)
+        L = xr.shape[1]
+        v_, k_, q_ = (xr @ self.w_qkv + self.b_qkv).split(f, dim=-1)
+
+        def heads_of(t):   # (B, L, f) -> (B * h, L, D)
+            return t.reshape(B, L, h, D).transpose(1, 2).reshape(B * h, L, D)
+
+        A = attention(heads_of(k_), heads_of(v_), heads_of(q_))
+        A = A.reshape(B, h, L, D).transpose(1, 2).reshape(B, L, f)
+        y = A @ self.w_out + self.b_out                             # (B, L, 2C)
         out = y[..., :C] * torch.sigmoid(y[..., C:])
         return x + out.reshape(x.shape)

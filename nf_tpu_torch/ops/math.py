@@ -22,6 +22,19 @@ def log_deriv_logit(x: torch.Tensor, eps: float = 1.0e-8) -> torch.Tensor:
     return -log_deriv_sigmoid(logit(torch.clamp(x, eps, 1.0 - eps)))
 
 
+def logistic_logpdf(x: torch.Tensor, mu: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """log pdf of Logistic(mu, exp(s)) at x (s is the log-scale)."""
+    z = (x - mu) * torch.exp(-s)
+    return z - s - 2.0 * F.softplus(z)
+
+
+def mix_logistic_logpdf(x: torch.Tensor, logpi: torch.Tensor, mu: torch.Tensor,
+                        s: torch.Tensor) -> torch.Tensor:
+    """log pdf of a K-mixture of logistics at x (...); ``logpi``, ``mu``,
+    ``s`` are (..., K) with logpi log-softmaxed over the last axis."""
+    return torch.logsumexp(logpi + logistic_logpdf(x[..., None], mu, s), dim=-1)
+
+
 def sum_except_batch(x: torch.Tensor) -> torch.Tensor:
     """Reduce all axes but the leading batch axis -> (B,)."""
     return x.reshape(x.shape[0], -1).sum(dim=1)

@@ -10,7 +10,11 @@ inverse x and logdet atol 1e-3 (the kernel stops each fixed point per tile
 of 32 samples, the plain version on the whole batch).  The coupling
 kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 (up to 1536 terms summed in another order), dgain and dbias rtol 1e-4
-(B x N terms).
+(B x N terms).  Attention: out atol / rtol 1e-5 against the plain version
+(and PyTorch's SDPA), its gradient through the Function 1e-5.  The
+mixture-CDF inverse: x atol / rtol 1e-4 against the plain version and
+1e-3 against the x that made y, the log-det atol 1e-3 (up to 1500 terms
+in another order), as nf_tpu's tests/test_pallas.py holds its kernel.
 """
 import pytest
 import torch
@@ -263,3 +267,123 @@ def test_matmul_precision_on_the_card(cuda):
     with pytest.raises(NotImplementedError, match="bfloat16"):
         build_model("realnvp", (16, 16, 1), "image",
                     NetworkConfig(layers=1, matmul_precision="bfloat16"))
+
+
+@pytest.mark.parametrize("BH,L,D", [(4096, 256, 8), (4096, 64, 8), (4096, 16, 8), (1000, 49, 8),
+                                    (64, 100, 32), (33, 300, 64), (70, 16, 2), (10, 1024, 4),
+                                    (5, 2, 16)])
+def test_attention_kernel_matches_plain(cuda, BH, L, D):
+    import torch.nn.functional as F
+
+    from nf_tpu_torch.ops import attention as ta
+    from nf_tpu_torch.ops.cuda import attention as ca
+
+    g = torch.Generator(device=cuda).manual_seed(BH + L + D)
+    q, k, v = (torch.randn(BH, L, D, generator=g, device=cuda) for _ in range(3))
+    out = ca.launch(q, k, v)
+    torch.cuda.synchronize()
+    want = ta.attention_reference(q, k, v)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(F.scaled_dot_product_attention(q, k, v), want, atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_attention_gradient_through_the_function(cuda):
+    from nf_tpu_torch.ops import attention as ta
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    base = [torch.randn(96, 64, 8, generator=g, device=cuda) for _ in range(4)]
+    grads = []
+    for fn in (ta.attention, ta.attention_reference):
+        leaves = [t.clone().requires_grad_() for t in base[:3]]
+        (fn(*leaves) * base[3]).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,N,K", [(1024, 512, 8), (1000, 300, 5), (7, 64, 32), (3, 1500, 12)])
+def test_mix_log_cdf_inverse_kernel_matches_plain(cuda, B, N, K):
+    from nf_tpu_torch.bijectors import mixlogcdf as mlc
+    from nf_tpu_torch.ops.cuda import mixlogcdf as cm
+
+    g = torch.Generator(device=cuda).manual_seed(B + N + K)
+    x = 2.0 * torch.randn(B, N, generator=g, device=cuda)
+    logpi = torch.log_softmax(torch.randn(B, N, K, generator=g, device=cuda), dim=-1)
+    mu = torch.randn(B, N, K, generator=g, device=cuda)
+    s = 0.3 * torch.randn(B, N, K, generator=g, device=cuda)
+    y, _ = mlc.mix_log_cdf_forward(x, logpi, mu, s)
+    xk, ldk = cm.launch(y, logpi, mu, s)
+    torch.cuda.synchronize()
+    xr, ldr = mlc.mix_log_cdf_inverse_reference(y, logpi, mu, s)
+    torch.testing.assert_close(xk, xr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ldk, ldr, atol=1e-3, rtol=0)
+    torch.testing.assert_close(xk, x, atol=1e-3, rtol=0)
+    again = cm.launch(y, logpi, mu, s)
+    assert torch.equal(again[0], xk) and torch.equal(again[1], ldk)
+
+
+def test_mix_log_cdf_inverse_has_no_gradient(cuda):
+    from nf_tpu_torch.bijectors import mixlogcdf as mlc
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    y = torch.rand(4, 128, generator=g, device=cuda).requires_grad_()
+    logpi = torch.log_softmax(torch.randn(4, 128, 8, generator=g, device=cuda), dim=-1)
+    mu, s = (torch.randn(4, 128, 8, generator=g, device=cuda) for _ in range(2))
+    x, ld = mlc.mix_log_cdf_inverse(y, logpi, mu, s)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        (x.sum() + ld.sum()).backward()
+
+
+def test_uncovered_shapes_raise_on_the_card(cuda):
+    from nf_tpu_torch.bijectors import mixlogcdf as mlc
+    from nf_tpu_torch.ops import attention as ta
+    from nf_tpu_torch.ops.cuda import attention as ca
+    from nf_tpu_torch.ops.cuda import mixlogcdf as cm
+
+    ca.reset_launches()
+    cm.reset_launches()
+    for BH, L, D in ((4, 16, 6), (2, 1025, 8), (3, 8, 128)):
+        q = torch.randn(BH, L, D, device=cuda)
+        with pytest.raises(NotImplementedError, match="attention kernel covers"):
+            ta.attention(q, q, q)
+    y = torch.rand(2, 64, device=cuda)
+    p = torch.randn(2, 64, 33, device=cuda)
+    with pytest.raises(NotImplementedError, match="K <= 32"):
+        mlc.mix_log_cdf_inverse(y, p, p, p)
+    with pytest.raises(ValueError, match="float32"):
+        ca.launch(*(torch.randn(4, 16, 8, device=cuda, dtype=torch.float64),) * 3)
+    assert ca.LAUNCHES == {"attention_fwd": 0} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}
+
+
+def test_image_flowpp_launches_only_attention(cuda):
+    """flowpp-img32x1 through EvalProgram's eager chain: one attention_fwd
+    per coupling per pass (64 / 64 / 33 over L = 256 / 64 / 16) and no
+    other kernel of the port."""
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops.cuda import attention as ca
+    from nf_tpu_torch.ops.cuda import coupling as tc
+    from nf_tpu_torch.ops.cuda import fused_flowpp as ff
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+    from nf_tpu_torch.ops.cuda import mixlogcdf as cm
+
+    mods = (fs, ff, rf, tc, ca, cm)
+
+    def counts():
+        return {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+
+    model = build_model("flow++", (32, 32, 1), "image", NetworkConfig(name="flow++"))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    prog = model.eval_program(model.init(g))
+    assert prog.stack is None
+    x = 0.05 + 0.9 * torch.rand(8, 32, 32, 1, generator=g, device=cuda)
+    for call in (lambda: prog.log_prob(x), lambda: prog.sample(8, g)):
+        for m in mods:
+            m.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        assert counts() == {"attention_fwd": 161}
+        assert dict(ca.launches_by_len) == {256: 64, 64: 64, 16: 33}
+        assert all(torch.isfinite(t).all() for t in (out if isinstance(out, tuple) else (out,)))

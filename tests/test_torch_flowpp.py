@@ -1,7 +1,7 @@
 """The port's Flow++ density serving path against nf_tpu's, on the CPU.
 
 * the conditioner blocks (``GatedLinear``, ``LayerNormNet``, ``GatedAttn``
-  at one token), the logit-space mixture transform and
+  at one token and at four), the logit-space mixture transform and
   ``MixLogAttnCoupling``: forward atol 2e-5; the Newton inverse atol 1e-4
   on x and 1e-3 on the log-det (two solves meet the root within XTOL);
 * the fused Flow++ module: spec fields, ``pack_flowpp`` (atol 1e-6),
@@ -82,10 +82,17 @@ def test_gated_attn_at_one_token():
 
 
 def test_gated_attn_over_many_tokens_is_not_in_this_slice():
+    """Attention over more than one token is ported (image Flow++): at
+    (2, 2, 4) it matches nf_tpu; tests/test_torch_flowpp_image.py holds
+    the image shapes."""
+    from nf_tpu.nets.gated import GatedAttn as JGA
     from nf_tpu_torch.nets.gated import GatedAttn
 
-    with pytest.raises(NotImplementedError, match="image Flow"):
-        GatedAttn((2, 2, 4), 4, device="cpu")(torch.zeros(3, 2, 2, 4))
+    ja = JGA((2, 2, 4), 4)
+    var = ja.init(jax.random.PRNGKey(5))
+    x = normal(5, (3, 2, 2, 4))
+    ta = _load(GatedAttn((2, 2, 4), 4, device="cpu"), var)
+    close(ta(_t(x)).detach(), ja.apply(var, x, EVAL)[0], ATOL)
     with pytest.raises(ValueError, match="heads"):
         GatedAttn((6,), 6)
 
@@ -358,8 +365,26 @@ def test_eval_program_matches_eager_chain_and_round_trips(full_depth):
 
 
 def test_image_mode_not_in_this_slice():
+    """The image tier is ported: at 8x8x1 the builder emits Logit and one
+    final checkerboard block of layers + 1 x [ActNorm, InvertibleConv1x1,
+    MixLogAttnCoupling], and the model inverts itself
+    (tests/test_torch_flowpp_image_model.py holds it to nf_tpu)."""
+    from nf_tpu_torch.bijectors.conv1x1 import InvertibleConv1x1
+    from nf_tpu_torch.bijectors.elementwise import Logit
+    from nf_tpu_torch.bijectors.flowpp_coupling import MixLogAttnCoupling
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError):
-        build_model("flow++", (8, 8, 1), "image", NetworkConfig(), device="cpu")
+    model = build_model("flow++", (8, 8, 1), "image",
+                        NetworkConfig(layers=2, base_filters=8, mixtures=2), device="cpu")
+    layers = list(model.bijector.layers)
+    assert isinstance(layers[0], Logit) and len(layers) == 1 + 3 * 3
+    assert all(isinstance(c, InvertibleConv1x1) for c in layers[2::3])
+    assert all(isinstance(c, MixLogAttnCoupling) and c.masking == "checkerboard"
+               for c in layers[3::3])
+    prog = model.eval_program(model.init(torch.Generator().manual_seed(0)))
+    x = torch.rand(5, 8, 8, 1, generator=torch.Generator().manual_seed(1)) * 0.9 + 0.05
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    close(xr, x, 1e-4)
+    close(ldi, -ld, 1e-3)
