@@ -47,8 +47,10 @@ Phases, each of which exits non-zero when it fails:
      the row log-dets atol 1e-4 (up to 512 terms summed in another order),
      gz0 and graw atol/rtol 1e-5, dgain and dbias rtol 1e-4 (B x N terms);
      attention_fwd at (4096, L, 8), L = 256, 64, 16 (flowpp-img32x1's
-     calls), a ragged (1000, 49, 8) and (64, 100, 32): out atol/rtol 1e-5
-     against the plain version, and PyTorch's SDPA within the same;
+     calls), (4096, 256, 12) (base_filters = 48), a ragged (1000, 49, 8),
+     (64, 100, 32), (64, 1500, 8), (64, 100, 128) and (4, 16, 6): out
+     atol/rtol 1e-5 against the plain version, and PyTorch's SDPA within
+     the same;
      mix_log_cdf_inverse at (1024, 512, K = 8) and a ragged (1000, 300,
      K = 5), inputs as tests/test_pallas.py: x atol/rtol 1e-4, log-det
      atol 1e-3, the round trip to x within 1e-3;
@@ -100,7 +102,10 @@ Phases, each of which exits non-zero when it fails:
      eval_fwd_inv_samples_per_s with its device idle share and the
      attention kernels' share of device time; attention's entry summed
      over a pass's 161 calls, beside SDPA's time (library_ms); then the
-     kernels line with each kernel's bound;
+     kernels line with each kernel's bounds (bound_ms with every
+     multiply-add at the f32 FFMA rate, bound_tc_ms with them on the tensor
+     cores in 3xTF32 at 165 TFLOP/s) and its share of the bound of the units
+     it runs its products on, which fails the run above 1;
   8. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -128,7 +133,9 @@ FLOWPP_INV_LD_ATOL = 5e-3
 RESFLOW_INV_ATOL = 1e-3
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 F32_FLOPS = 67e12
-TF32_FLOPS = 495e12
+# f32-accurate products on the tensor cores: 3xTF32 is three TF32
+# products at 495 TFLOP/s for each f32 product
+TC_F32_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
 # special-function unit results per SM and clock, compute capability 9.0
@@ -165,7 +172,8 @@ FLOWPP_IMG_INV_ATOL = 1e-3
 FLOWPP_IMG_ITERS = 2     # calls per direction timed (the main path has warmed both)
 ATTN_HEADS_BH = IMG_BATCH * 4    # B * heads: (4096, L, 8) on the main path
 ATTN_CASES = [(ATTN_HEADS_BH, 256, 8), (ATTN_HEADS_BH, 64, 8), (ATTN_HEADS_BH, 16, 8),
-              (1000, 49, 8), (64, 100, 32)]
+              (ATTN_HEADS_BH, 256, 12), (1000, 49, 8), (64, 100, 32), (64, 1500, 8),
+              (64, 100, 128), (4, 16, 6)]
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 ATTN_ITERS = 20
 # the mixture-CDF inverse: inputs and tolerances as tests/test_pallas.py
@@ -199,6 +207,8 @@ KERNEL_SOURCES = {
     "mix_log_cdf_inverse": ("nf_tpu_torch/csrc/mixlogcdf.cu",
                             "nf_tpu/ops/pallas/mixlogcdf.py:51"),
 }
+# kernels whose multiply-adds run on the tensor cores (3xTF32)
+TENSOR_CORE_KERNELS = {"attention_fwd"}
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
@@ -370,9 +380,17 @@ def newton_evaluation_counter():
     """A stand-in for fused_flowpp's mixture inverse that counts how many
     mixture evaluations the kernel's Newton does on these inputs: an
     element evaluates once per trip until it is done, and once more after
-    the last trip if it never is.  Each call records (evaluations, what a
-    warp of 32 consecutive samples runs: 32 x its slowest lane's count)."""
+    the last trip if it never is.  Each call records (evaluations, what
+    the kernel's warps run: a warp holds 32 / LANES consecutive samples and
+    runs its slowest one's count for each, what its blocks run: a block of
+    SAMPLES samples meets a barrier per coupling, so it takes as long as
+    its slowest sample)."""
     from nf_tpu_torch.bijectors import mixlogcdf as mlc
+    from nf_tpu_torch.ops.cuda.fused_flowpp import LANES, SAMPLES
+
+    def slowest(evals, n):
+        padded = torch.nn.functional.pad(evals, (0, -evals.numel() % n))
+        return n * int(padded.view(-1, n).amax(1).sum())
 
     counts = []
 
@@ -400,8 +418,7 @@ def newton_evaluation_counter():
             x = torch.where(done, x, xn)
             dxold = torch.where(done, torch.zeros_like(dx), dx)
         evals += active
-        lanes = torch.nn.functional.pad(evals, (0, -evals.numel() % 32))
-        counts.append((int(evals.sum()), 32 * int(lanes.view(-1, 32).amax(1).sum())))
+        counts.append((int(evals.sum()), slowest(evals, 32 // LANES), slowest(evals, SAMPLES)))
         return mlc.mix_log_cdf_logit_inverse(y, logpi, mu, s)
 
     return counting_inverse, counts
@@ -433,15 +450,17 @@ def flowpp_work(stack, x, inverse):
             ff.mix_log_cdf_logit_inverse = original
         evaluations = sum(c[0] for c in counts)
         warp_evaluations = sum(c[1] for c in counts)
+        block_evaluations = sum(c[2] for c in counts)
     else:
-        evaluations = warp_evaluations = B * n
+        evaluations = warp_evaluations = block_evaluations = B * n
     mac = B * n * (F + 5 * F * F + (2 + 3 * K) * F)
     elem = B * n * (30 * F + 15 * K + 20) + evaluations * (12 * K + 15)
     trans = B * n * (6 * F + 2 * K + 5) + evaluations * (5 * K + 3)
     weights = sum(t.numel() for p in stack.packed for k, t in p.items() if k != "prei")
     return {"flop": 2 * mac + elem, "mac_flop": 2 * mac, "elem": elem,
             "transcendental": trans, "bytes": 4 * (2 * B * 2 + B + weights),
-            "mixture_evaluations": evaluations, "warp_mixture_evaluations": warp_evaluations}
+            "mixture_evaluations": evaluations, "warp_mixture_evaluations": warp_evaluations,
+            "block_mixture_evaluations": block_evaluations}
 
 
 def resflow_work(spec, packed, B, direction, n_terms=None, trips=None):
@@ -487,11 +506,16 @@ def resflow_work(spec, packed, B, direction, n_terms=None, trips=None):
             "g_evaluations": evals, "series_products": products}
 
 
-def bound_of(work, sfu_per_s):
+def bound_of(work, sfu_per_s, tensor_cores=False):
     """The least time in ms: the largest of f32 operations, transcendentals
-    on the SFUs, and bytes, each at its peak rate."""
-    times = {"operations": max(work["flop"] / F32_FLOPS,
-                               work["transcendental"] / sfu_per_s),
+    on the SFUs, and bytes, each at its peak rate.  With ``tensor_cores``
+    the multiply-adds' flops (``mac_flop``) run at the f32-accurate 3xTF32
+    rate and only the other f32 operations at the FFMA rate."""
+    flop_s = work["flop"] / F32_FLOPS
+    if tensor_cores:
+        flop_s = max(work["mac_flop"] / TC_F32_FLOPS,
+                     (work["flop"] - work["mac_flop"]) / F32_FLOPS)
+    times = {"operations": max(flop_s, work["transcendental"] / sfu_per_s),
              "bytes": work["bytes"] / HBM_BYTES_PER_S}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
@@ -774,22 +798,26 @@ def coupling_entries(tc, launches, errs, sfu_per_s, device):
 def kernel_entry(name, launches, errs, work, sfu_per_s, ms, plain_ms, **extra):
     """One kernel's entry on the kernels line: its measured times, its
     launches on the main path, its largest error against the plain
-    version, and the bounds its work gives."""
+    version, and the bounds its work gives: ``bound_ms`` with every
+    multiply-add at the FFMA rate, ``bound_tc_ms`` with them on the tensor
+    cores in 3xTF32.  ``share`` is the bound of the units the kernel runs
+    its products on over its time; the run fails if it reads over 1."""
     source, replaces = KERNEL_SOURCES[name]
     bound, bound_by = bound_of(work, sfu_per_s)
+    bound_tc, bound_tc_by = bound_of(work, sfu_per_s, tensor_cores=True)
+    units = "tensor_cores" if name in TENSOR_CORE_KERNELS else "fp32"
+    share = (bound_tc if units == "tensor_cores" else bound) / ms
+    check(share <= 1.0, f"{name}: {ms} ms is below its {units} bound: the work count is wrong")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None,
+        "bound_tc_ms": bound_tc, "bound_tc_by": bound_tc_by, "products_on": units,
+        "share": share, "library_ms": None,
         "library_note": "no single PyTorch call computes the whole stack",
         "f32_ms": work["flop"] / F32_FLOPS * 1e3,
         "sfu_ms": work["transcendental"] / sfu_per_s * 1e3,
         "bytes_ms": work["bytes"] / HBM_BYTES_PER_S * 1e3,
-        "tf32_bound_ms": max(work["mac_flop"] / TF32_FLOPS,
-                             (work["flop"] - work["mac_flop"]) / F32_FLOPS,
-                             work["transcendental"] / sfu_per_s,
-                             work["bytes"] / HBM_BYTES_PER_S) * 1e3,
         "flop": work["flop"], "transcendental": work["transcendental"],
         "bytes": work["bytes"], "shape": [BATCH, 2], **extra}
 
@@ -1049,13 +1077,16 @@ def attention_entry(ca, ta, launches, errs, sfu_per_s, device):
                    for _ in range(3))
         w = attention_work(ATTN_HEADS_BH, L, 8)
         bound, by = bound_of(w, sfu_per_s)
+        bound_tc, by_tc = bound_of(w, sfu_per_s, tensor_cores=True)
         t = {"ms": graph_ms(lambda: ca.launch(q, k, v), ATTN_ITERS),
              "plain_ms": graph_ms(lambda: ta.attention_reference(q, k, v), ATTN_ITERS),
              "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                                     ATTN_ITERS),
              "event_ms": device_ms(lambda: ca.launch(q, k, v), ATTN_ITERS)}
         per_len[L] = {"calls_per_pass": calls, "shape": [ATTN_HEADS_BH, L, 8], **t,
-                      "bound_ms": bound, "bound_by": by}
+                      "bound_ms": bound, "bound_by": by, "bound_tc_ms": bound_tc,
+                      "bound_tc_by": by_tc, "share": bound_tc / t["ms"]}
+        check(per_len[L]["share"] <= 1.0, f"attention_fwd L={L}: below its bound")
         for key in total:
             total[key] += calls * t[key]
         for key in work:
@@ -1383,7 +1414,8 @@ def main():
                 if flowpp:
                     extra = dict(mixtures=spec.n_mixtures,
                                  mixture_evaluations=work["mixture_evaluations"],
-                                 warp_mixture_evaluations=work["warp_mixture_evaluations"])
+                                 warp_mixture_evaluations=work["warp_mixture_evaluations"],
+                                 block_mixture_evaluations=work["block_mixture_evaluations"])
                 kernels.append(kernel_entry(
                     name, launches, errs, work, sfu_per_s,
                     device_ms(lambda: mod.launch(stack, inp, inv), 200),

@@ -30,6 +30,12 @@ the fixed-trip bracket-safeguarded Newton of ``bijectors/mixlogcdf.py``
 for CUDA tensors it launches the kernel or raises, and counts the launch
 in ``LAUNCHES``.
 
+The kernel runs a group of ``LANES`` lanes per sample, ``SAMPLES`` samples
+per block: each dense layer split by output feature, the LayerNorm and
+log-sum-exp reductions by shuffles within the group, the mixture's
+components split across its lanes, and the group's Newton trips taken
+together (tests/test_torch_flowpp.py walks that split).
+
 Bound (H100 SXM): per sample and coupling the conditioner does
 ``F + 2F^2 + F^2 + 2F^2 + (2+3K)F`` multiply-adds (5,984 at F = 32,
 K = 8); the inverse adds up to 25 evaluations of the mixture, each about
@@ -58,7 +64,8 @@ from ...nets.layers import Dense
 from . import _build
 
 LN_EPS = 1.0e-5
-SAMPLES = 64            # samples per block, one thread each
+LANES = 8               # lanes of one sample's group
+SAMPLES = 32            # samples per block: 256 threads
 SMEM_LIMIT = 232448     # dynamic shared memory one Hopper block may use
 WIDTHS = (8, 16, 32, 64, 128)     # the kernel's padded conditioner widths FP
 MIXTURES = (8, 32)                # and padded mixture counts KP
@@ -335,11 +342,13 @@ class Layout:
 
 def smem_bytes(fp: int, kp: int, staged: bool) -> int:
     """Dynamic shared memory of one block; the kernel computes the same:
-    each thread's scratch column of max(FP, HP) floats and, when staged,
-    two coupling blocks."""
+    each sample's row of 3 FP + 4 floats (two buffers of the conditioner's
+    vectors) and, when staged, two coupling blocks with every matrix row
+    padded by 4 floats."""
     lay = Layout(fp, kp)
-    scratch = max(fp, lay.hp) * SAMPLES
-    return 4 * (scratch + (2 * lay.size if staged else 0))
+    rows = SAMPLES * (3 * fp + 4)
+    padded = lay.size + 4 * (4 * fp + lay.hp)
+    return 4 * (rows + (2 * padded if staged else 0))
 
 
 def staged(fp: int, kp: int) -> bool:

@@ -7,9 +7,13 @@ against nf_tpu's, on the CPU.
   tests/test_pallas.py holds the Pallas kernel);
 * the one-token identity, the role permutation against the reference's
   legacy einsum, and the gradient against nf_tpu's custom VJP (1e-5);
-* the kernel's tiling (``tiling``) walked block by block in PyTorch the way
-  csrc/attention.cu walks it (two passes over staged key tiles, the
-  division last): atol / rtol 1e-5 against the plain version;
+* the kernel's tiling (``tiling``) walked in PyTorch the way
+  csrc/attention.cu walks it (every row owned by one warp; one pass over
+  the key tiles with an online max and exp2 of prescaled scores, both
+  products in 3xTF32 emulated bit by bit (q and v rounded to TF32, k and p
+  truncated, the small parts truncated as the tensor core reads them); the
+  division last): atol / rtol 1e-5 against the
+  plain version, at D = 2 to 128 and L = 2 to 1500;
 * the wrapper: a CPU tensor takes the plain version with no launch
   counted, and the kernel's own entry refuses a CPU tensor.
 """
@@ -74,48 +78,102 @@ def test_gradient_matches_nf_tpu():
         close(t.grad, j, 1e-5, 1e-5)
 
 
+def _tf32(x):
+    """Round to TF32 as cvt.rna.tf32.f32 does: the 13 low mantissa bits
+    cleared, to nearest with ties away from zero, on the int32 view."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _trunc_tf32(x):
+    """What a tensor core reads of an f32 operand: its top 19 bits."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b, round_a):
+    """a @ b in 3xTF32: big = tf32(x), rounded on the side ``round_a``
+    names (a if true, else b) and truncated on the other, small = x - big
+    as the tensor core reads it (truncated to TF32); the small products
+    first, then big @ big, summed in f32."""
+    ab = _tf32(a) if round_a else _trunc_tf32(a)
+    bb = _trunc_tf32(b) if round_a else _tf32(b)
+    as_, bs = _trunc_tf32(a - ab), _trunc_tf32(b - bb)
+    return ab @ bs + as_ @ bb + ab @ bb
+
+
 def _walk_kernel(q, k, v):
-    """csrc/attention.cu's loop in PyTorch: blocks of S slices x R rows,
-    keys staged T at a time, pass one the row maximum, pass two the
-    exp-weighted sums, the division last."""
+    """csrc/attention.cu's walk in PyTorch: the grid of ``tiling``'s blocks
+    (each (slice, row) owned by exactly one warp), q prescaled by log2(e) /
+    sqrt(D), then per staged tile of T keys and per chunk of ``key_chunk``
+    keys in it the 3xTF32 scores, the chunk's row maximum, one rescale of
+    the running sum and accumulators, exp2(s - m) and the 3xTF32 p v
+    product; the division last."""
     BH, L, D = q.shape
     S, R, T = cattn.tiling(L, D)
-    out = torch.full_like(q, float("nan"))
-    scale = 1.0 / np.sqrt(D)
-    for bx in range(-(-BH // S)):
-        sl = slice(bx * S, min(BH, bx * S + S))
-        for by in range(-(-L // R)):
-            rows = slice(by * R, min(L, by * R + R))
-            qb = q[sl, rows]
-            m = torch.full(qb.shape[:2], -float("inf"))
-            for j0 in range(0, L, T):
-                kt = k[sl, j0:j0 + T]
-                m = torch.maximum(m, (qb @ kt.transpose(1, 2) * scale).amax(-1))
-            acc, l = torch.zeros_like(qb), torch.zeros(qb.shape[:2])
-            for j0 in range(0, L, T):
-                e = torch.exp(qb @ k[sl, j0:j0 + T].transpose(1, 2) * scale - m[..., None])
-                l = l + e.sum(-1)
-                acc = acc + e @ v[sl, j0:j0 + T]
-            out[sl, rows] = acc / l[..., None]
-    return out
+    owner = torch.zeros(BH, L, dtype=torch.int64)
+    row_blocks = -(-L // R)
+    for b in range(-(-BH // S) * row_blocks):   # a slice's row blocks adjacent
+        for w in range(cattn.BLOCK_ROWS // cattn.WARP_ROWS):
+            s = b // row_blocks * S + w // (R // cattn.WARP_ROWS)
+            r0 = b % row_blocks * R + w % (R // cattn.WARP_ROWS) * cattn.WARP_ROWS
+            if s < BH and r0 < L:
+                owner[s, r0:r0 + cattn.WARP_ROWS] += 1
+    assert bool((owner == 1).all())
+    # q prescaled by log2(e) / sqrt(D) as it is staged; the exps are exp2
+    q = q * torch.tensor(np.log2(np.e) / np.sqrt(D), dtype=torch.float32)
+    m = torch.full((BH, L, 1), -float("inf"))
+    l = torch.zeros(BH, L, 1)
+    acc = torch.zeros_like(q)
+    kc = cattn.key_chunk(cattn.padded_dim(D))
+    for j0, c0 in ((j0, c0) for j0 in range(0, L, T) for c0 in range(j0, min(j0 + T, L), kc)):
+        kt, vt = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
+        s = _mm3(q, kt.transpose(1, 2), round_a=True)      # q rounded, k truncated
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        m = m_new
+        p = torch.exp2(s - m)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm3(p, vt, round_a=False)     # p truncated, v rounded
+    return acc / l
 
 
-@pytest.mark.parametrize("shape", [(9, 49, 8), (17, 16, 8), (5, 64, 8), (2, 256, 8),
-                                   (3, 300, 64), (4, 100, 32), (3, 20, 2)])
+WALK_SHAPES = [(9, 49, 8), (17, 16, 8), (5, 64, 8), (2, 256, 8), (3, 300, 64), (4, 100, 32),
+               (3, 20, 2), (6, 256, 12), (2, 100, 128), (7, 2, 8), (2, 1500, 8)]
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES)
 def test_kernel_tiling_walk_matches_reference(shape):
     BH, L, D = shape
     S, R, T = cattn.tiling(L, D)
-    assert S * R <= cattn.ROWS_PER_SLICE and 2 * S * T * D <= cattn.TILE_FLOATS
-    assert S * R >= min(cattn.MIN_THREADS, L) and 1 <= T <= L
+    dp = cattn.padded_dim(D)
+    assert S * R == cattn.BLOCK_ROWS and R % cattn.WARP_ROWS == 0
+    assert T % 8 == 0 and (T >= L or T % cattn.key_chunk(dp) == 0)
+    assert cattn.covers(L, D) and cattn.smem_bytes(L, D) <= cattn.SMEM_LIMIT
     q, k, v = map(torch.from_numpy, _qkv(BH + L, shape))
     close(_walk_kernel(q, k, v), tattn.attention_reference(q, k, v), **TOL)
 
 
+def test_tf32_split_rounds_to_nearest():
+    """The split's rounding: big to nearest, ties away from zero; big and
+    small as the tensor core reads it within 2^-22 of x."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]
+    y = torch.from_numpy(normal(4, (1000,)))
+    big = _tf32(y)
+    assert bool(((y - big - _trunc_tf32(y - big)).abs() <= 2.0 ** -22 * y.abs()).all())
+
+
 def test_main_path_tilings():
-    """flowpp-img32x1's three lengths (D = 8): one tile of keys each, the
-    whole slice staged; 256, 128 and 128 threads per block."""
+    """flowpp-img32x1's three lengths (D = 8): 64 query rows a block and the
+    whole slice staged at once at L = 256 (walked in 4 chunks of 64 keys)
+    and L = 64, four slices of one warp at L = 16; D = 12 (base_filters =
+    48) stages 128 keys at a time, double-buffered, and D = 128 32."""
     assert {L: cattn.tiling(L, 8) for L in (256, 64, 16)} == {
-        256: (1, 256, 256), 64: (2, 64, 64), 16: (8, 16, 16)}
+        256: (1, 64, 256), 64: (1, 64, 64), 16: (4, 16, 16)}
+    assert cattn.tiling(256, 12) == (1, 64, 128) and cattn.padded_dim(12) == 16
+    assert cattn.tiling(64, 128) == (1, 64, 32) and cattn.tiling(20, 8) == (2, 32, 24)
+    assert {L: cattn.smem_bytes(L, 8) for L in (256, 64, 16)} == {
+        256: 4 * 12 * (64 + 2 * 256), 64: 4 * 12 * (64 + 2 * 64), 16: 4 * 12 * (64 + 2 * 64)}
+    assert not cattn.covers(16, 129) and not cattn.covers(0, 8)
 
 
 def test_cpu_tensors_take_the_plain_version():

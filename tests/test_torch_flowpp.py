@@ -8,7 +8,9 @@
   ``fused_flowpp_reference`` against the Pallas kernel in interpret mode
   (forward atol 3e-5, inverse 5e-4 on x and 5e-3 on the log-det, as
   tests/test_pallas.py), and the kernel's own weight layout walked the way
-  the CUDA kernel walks it;
+  the CUDA kernel walks it, with its lane-group split (the LayerNorm and
+  log-sum-exp reductions as 8 lanes' partials in the butterfly order) held
+  at the card's tolerances;
 * the whole slice at full depth (32 couplings, F = 32, K = 8, D = 2): the
   port's EvalProgram against nf_tpu's ``eval_program``, forward atol 1e-4,
   inverse 1e-3 on x (rtol 1e-4) and 5e-3 on the log-det.
@@ -282,9 +284,144 @@ def test_kernel_layout_matches_reference(F, K):
         close(got[1] + sign * const_ld, want[1], ATOL, 1e-6)
 
 
+def _butterfly(partials, op):
+    """The kernel's reduction over a sample's lanes: partials (B, G) combined
+    with the lane xor 1, then 2, then 4; every lane ends with the same
+    value (each step is commutative), returned as lane 0's."""
+    for m in (1, 2, 4):
+        partials = op(partials, partials[:, torch.arange(tff.LANES) ^ m])
+    return partials[:, 0]
+
+
+def _lane_partials(t, valid):
+    """(B, N) values of N = n G features or components, lane j holding
+    j + i G: each lane's partial sum over its valid ones, in i order."""
+    G = tff.LANES
+    t = torch.where(valid, t, torch.zeros_like(t)).view(t.shape[0], -1, G)
+    acc = torch.zeros(t.shape[0], G)
+    for i in range(t.shape[1]):
+        acc = acc + t[:, i]
+    return acc
+
+
+def _lane_max(t, valid):
+    G = tff.LANES
+    t = torch.where(valid, t, torch.full_like(t, -float("inf")))
+    return t.view(t.shape[0], -1, G).amax(1)
+
+
+def _walk_lane_groups(kw, spec, x, inverse):
+    """csrc/fused_flowpp.cu's lane-group split in PyTorch: each dense layer
+    by output feature (a whole dot product per output), the LayerNorm
+    statistics, the head's log-softmax and the mixture's three
+    log-sum-exps as lane partials reduced in the butterfly order, the
+    Newton trips taken per sample with its early exit."""
+    from nf_tpu_torch.bijectors.mixlogcdf import N_ITERS, SPAN, TINY, XTOL
+
+    lay = tff.Layout(kw.fp, kw.kp)
+    fp, kp, hp, F, K = kw.fp, kw.kp, lay.hp, spec.filters, spec.n_mixtures
+    elu, sig = torch.nn.functional.elu, torch.sigmoid
+    feat = (torch.arange(fp) < F)[None].expand(x.shape[0], fp)
+    comp = (torch.arange(kp) < K)[None].expand(x.shape[0], kp)
+
+    def ln(h, g, b):
+        mean = _butterfly(_lane_partials(h, feat), torch.add)[:, None] / F
+        d = h - mean
+        var = _butterfly(_lane_partials(d * d, feat), torch.add)[:, None] / F
+        return d * torch.rsqrt(var + tff.LN_EPS) * g + b
+
+    def lse(t):
+        m = _butterfly(_lane_max(t, comp), torch.maximum)[:, None]
+        return m[:, 0] + torch.log(_butterfly(_lane_partials(torch.exp(t - m), comp), torch.add))
+
+    def parts(xk, logpi, mu, s):
+        z = (xk[:, None] - mu) * torch.exp(-s)
+        t = torch.log1p(torch.exp(-z.abs()))
+        return (lse(logpi + (torch.clamp(z, max=0.0) - t)),
+                lse(logpi + (-torch.clamp(z, min=0.0) - t)),
+                lse(logpi + (z - s - 2.0 * (torch.clamp(z, min=0.0) + t))))
+
+    def newton(t, logpi, mu, s):
+        xk = torch.zeros_like(t)
+        lo, hi = torch.full_like(t, -SPAN), torch.full_like(t, SPAN)
+        dxold = torch.full_like(t, 2.0 * SPAN)
+        active = torch.ones_like(t, dtype=torch.bool)
+        for _ in range(N_ITERS):
+            u, v, lpdf = parts(xk, logpi, mu, s)
+            f = (u - v) - t
+            lo = torch.where(f < 0, xk, lo)
+            hi = torch.where(f >= 0, xk, hi)
+            df = torch.clamp(torch.exp(lpdf - u - v), min=TINY)
+            dx = f / df
+            xn = xk - dx
+            bis = ((xn <= lo) | (xn >= hi) | (torch.abs(2.0 * f) > torch.abs(dxold * df))
+                   | ~torch.isfinite(xn))
+            active = active & ~((torch.abs(dx) <= XTOL) | ((hi - lo) <= XTOL))
+            xk = torch.where(active, torch.where(bis, (lo + hi) * 0.5, xn), xk)
+            dxold = torch.where(active, torch.where(bis, (hi - lo) * 0.5, dx), dxold)
+        u, v, lpdf = parts(xk, logpi, mu, s)
+        return xk, lpdf - u - v
+
+    x = x.clone()
+    ld = torch.zeros(x.shape[0])
+    order = range(spec.n_repeats)
+    for c in (reversed(order) if inverse else order):
+        p, w = c % 2, kw.w[c]
+        pre = (kw.prei if inverse else kw.pre)[c]
+        if not inverse:
+            x = (x - pre[:, 0]) * pre[:, 1]
+        vec = w[lay.vec:lay.vec + 8 * fp].view(8, fp)
+        h = x[:, 1 - p, None] * vec[0] + vec[1]
+        u = torch.cat([elu(h), elu(-h)], 1) @ w[:2 * fp * fp].view(fp, 2 * fp).T + vec[2]
+        h = ln(h + elu(u) * sig(elu(-u)), vec[3], vec[4])
+        A = h @ w[lay.wq:lay.wo].view(fp, fp).T + vec[5]
+        y = A @ w[lay.wo:lay.wh].view(2 * fp, fp).T + w[lay.bo:lay.bh]
+        h = ln(h + y[:, :fp] * sig(y[:, fp:]), vec[6], vec[7])
+        raw = h @ w[lay.wh:lay.vec].view(hp, fp).T + w[lay.bh:lay.size]
+        a = torch.tanh(raw[:, 0]) * kw.gb[c, 0] + kw.gb[c, 1]
+        lp = raw[:, 2:2 + kp]
+        logpi = torch.where(comp, lp - lse(lp)[:, None], torch.full_like(lp, -float("inf")))
+        mu, s = raw[:, 2 + kp:2 + 2 * kp], raw[:, 2 + 2 * kp:2 + 3 * kp]
+        x = x.clone()
+        if inverse:
+            z, ldm = newton((x[:, p] - raw[:, 1]) * torch.exp(-a), logpi, mu, s)
+            x[:, p] = z
+            ld = ld - a - ldm
+            x = x * pre[:, 1] + pre[:, 0]
+        else:
+            u_, v_, lpdf = parts(x[:, p], logpi, mu, s)
+            x[:, p] = (u_ - v_) * torch.exp(a) + raw[:, 1]
+            ld = ld + (lpdf - u_ - v_) + a
+    return x, ld
+
+
+@pytest.mark.parametrize("F,K", [(8, 4), (8, 8), (20, 4), (32, 8), (128, 4), (128, 8),
+                                 (32, 12)])
+def test_lane_group_walk_matches_reference(F, K):
+    """The lane-group split at FP = 8, 32 and 128 (and KP = 32 at K = 12)
+    against the plain version, at the card's tolerances: z 1e-4, log-det
+    1e-3; inverse x 1e-2, log-det 5e-3."""
+    tmodel = torch_model("flow++", 2, 4, F, _both(F, K=K, seed=2)[1], mixtures=K)
+    spec = tff.extract_flowpp_spec(tmodel.bijector, tmodel.dims)
+    packed, const_ld = tff.pack_flowpp(tmodel.bijector, spec)
+    kw = tff.kernel_weights(spec, packed)
+    assert kw.fp % tff.LANES == 0 and kw.kp % tff.LANES == 0
+    x = torch.from_numpy(normal(21, (33, 2), 1.5))
+    z, ldz = tff.fused_flowpp_reference(packed, const_ld, x, "forward")
+    got = _walk_lane_groups(kw, spec, x, False)
+    close(got[0], z, 1e-4, 1e-4)
+    close(got[1] + const_ld, ldz, 1e-3)
+    want = tff.fused_flowpp_reference(packed, const_ld, z, "inverse")
+    got = _walk_lane_groups(kw, spec, z, True)
+    close(got[0], want[0], 1e-2)
+    close(got[1] - const_ld, want[1], 5e-3)
+
+
 def test_kernel_tilings():
     """The (FP, KP) tilings the kernel is built for, and which of them
-    stage their weights in shared memory, as csrc/fused_flowpp.cu lists."""
+    stage their weights in shared memory, as csrc/fused_flowpp.cu lists:
+    32 samples' rows of 3 FP + 4 floats and two coupling blocks with every
+    matrix row padded by 4 floats."""
     table = {(fp, kp): tff.staged(fp, kp) for fp in tff.WIDTHS for kp in tff.MIXTURES}
     assert table == {(8, 8): True, (8, 32): True, (16, 8): True, (16, 32): True,
                      (32, 8): True, (32, 32): True, (64, 8): True, (64, 32): False,
@@ -292,6 +429,7 @@ def test_kernel_tilings():
     for (fp, kp), st in table.items():
         assert tff.smem_bytes(fp, kp, st) <= tff.SMEM_LIMIT
     assert tff.Layout(32, 8).size % 4 == 0 and tff.Layout(8, 32).size % 4 == 0
+    assert tff.smem_bytes(32, 8, True) == 4 * (32 * 100 + 2 * (6364 + 4 * (4 * 32 + 28)))
 
 
 def test_wrapper_takes_plain_version_on_cpu():
