@@ -17,10 +17,11 @@ Phases, each of which exits non-zero when it fails:
        ResFlow (LipSwish betas also drawn from U(0.5, 1.5)): 'unbias'
          D = 2, 32 blocks, F = 32, B = 8192, the forward (fwd_ld) and
          the inverse (solve_ld) of its latent; the same with 'exact' for
-         the solve alone; a ragged D = 3, n = 4, F = 64, B = 1000 and the
-         widest tiling, D = 2, n = 4, F = 128, B = 1000, for all three
-         variants; with each solve's trip count per block and the probes'
-         series lengths printed;
+         the solve alone; a ragged D = 3, n = 4, F = 64, B = 1000, D = 2,
+         n = 4, F = 128, B = 1000 and the widest tiling, D = 2, n = 4,
+         F = 256, B = 1000 (fragments streamed), for all three variants;
+         with each solve's trip count per block and the probes' series
+         lengths printed;
      forward z atol/rtol 1e-4, logdet atol 1e-3 (f32 sums in another
      order, compounded through 32 couplings); the Flow++ inverse runs on
      the forward's latent of the same data, as tests/test_pallas.py
@@ -31,7 +32,7 @@ Phases, each of which exits non-zero when it fails:
      on an H100, where the plain version's own round trip x -> z -> x
      misses x by as much; the line "plain round trip" prints it); the
      ResFlow inverse x and logdet atol 1e-3 (the kernel stops each fixed
-     point per 32-sample tile, the plain version on the whole batch);
+     point per 16-sample tile, the plain version on the whole batch);
   4. the main path, for "realnvp", "glow", "flow++" and "resflow" in turn:
      build_model(name, (2,), "2d") on the card -> init(generator) ->
      (Glow / Flow++: ActNorm moved off identity by the seed) ->
@@ -105,7 +106,9 @@ Phases, each of which exits non-zero when it fails:
      kernels line with each kernel's bounds (bound_ms with every
      multiply-add at the f32 FFMA rate, bound_tc_ms with them on the tensor
      cores in 3xTF32 at 165 TFLOP/s) and its share of the bound of the units
-     it runs its products on, which fails the run above 1;
+     it runs its products on, which fails the run above 1; the ResFlow
+     entries also give their launch's blocks, the blocks one SM holds and
+     the warps on the least loaded SM, which fails the run below 8;
   8. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -207,8 +210,9 @@ KERNEL_SOURCES = {
     "mix_log_cdf_inverse": ("nf_tpu_torch/csrc/mixlogcdf.cu",
                             "nf_tpu/ops/pallas/mixlogcdf.py:51"),
 }
-# kernels whose multiply-adds run on the tensor cores (3xTF32)
-TENSOR_CORE_KERNELS = {"attention_fwd"}
+# kernels whose F x F or attention products run on the tensor cores (3xTF32)
+TENSOR_CORE_KERNELS = {"attention_fwd", "fused_resflow_fwd_ld", "fused_resflow_solve_ld",
+                       "fused_resflow_solve"}
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
@@ -217,7 +221,8 @@ MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
 RESFLOW_CASES = [("unbias", 2, 32, 32, BATCH, ("forward", "inverse")),
                  ("exact", 2, 32, 32, BATCH, ("solve",)),
                  ("unbias", 3, 4, 64, 1000, ("forward", "inverse", "solve")),
-                 ("unbias", 2, 4, 128, 1000, ("forward", "inverse", "solve"))]
+                 ("unbias", 2, 4, 128, 1000, ("forward", "inverse", "solve")),
+                 ("unbias", 2, 4, 256, 1000, ("forward", "inverse", "solve"))]
 RESFLOW_NAMES = {"forward": "fused_resflow_fwd_ld", "inverse": "fused_resflow_solve_ld",
                  "solve": "fused_resflow_solve"}
 
@@ -473,7 +478,7 @@ def resflow_work(spec, packed, B, direction, n_terms=None, trips=None):
       multiply-adds and D bias adds.  The forward evaluates g once; the
       solve `it` times, `it` the block's trip count on the whole batch
       (``trips``, replayed by the plain version: what nf_tpu's kernel runs
-      with its one tile of 8192 samples; this kernel's 32- or 64-sample
+      with its one tile of 8192 samples; this kernel's 16-sample
       tiles stop no later), plus the hidden layers once more for the masks
       (solve_ld); each solve trip also takes 3D operations for the
       residual test and D for x = z - g;
@@ -504,6 +509,36 @@ def resflow_work(spec, packed, B, direction, n_terms=None, trips=None):
     return {"flop": 2 * mac + elem, "mac_flop": 2 * mac, "elem": elem,
             "transcendental": trans, "bytes": 4 * (reads + weights),
             "g_evaluations": evals, "series_products": products}
+
+
+def resflow_pairing(probes):
+    """How the series kernels split the probes over a group's two warps
+    (fused_resflow.probe_pairs): the probes per warp, the 8-column terms
+    a block runs (its busier warp's), and the mean over the two warps."""
+    from nf_tpu_torch.ops.cuda.fused_resflow import probe_pairs
+
+    if probes is None:
+        return {}
+    nt = [int(n) for n in probes[1]]
+    a, d, b, c = probe_pairs(nt)
+    return {"probe_pairs": [[a, d], [b, c]],
+            "block_terms": max(nt[a] + nt[d], nt[b] + nt[c]),
+            "mean_warp_terms": sum(nt) / 2}
+
+
+def resflow_occupancy(rf, kw, direction):
+    """The main path's launch of a ResFlow kernel variant on this card: its
+    blocks at B = BATCH, how many one SM holds at once (occupancy API), and
+    the warps that leaves on the least loaded SM when the blocks are dealt
+    evenly over the SMs, as one wave is; the run fails below 8."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-BATCH // rf.SAMPLES)
+    per_sm = rf.blocks_per_sm(kw.fp, kw.dp, direction)
+    least = rf.WARPS * min(per_sm, blocks // sms)
+    check(least >= 8, f"resflow {direction}: {least} warps on the least loaded SM "
+                      f"({blocks} blocks, {per_sm} per SM)")
+    return {"grid_blocks": blocks, "grid_blocks_per_sm": per_sm, "sms": sms,
+            "min_warps_per_sm": least, "one_wave": blocks <= per_sm * sms}
 
 
 def bound_of(work, sfu_per_s, tensor_cores=False):
@@ -1399,7 +1434,9 @@ def main():
                     blocks=st.spec.n_repeats, filters=st.spec.filters,
                     estimator=st.spec.estimator, g_evaluations=work["g_evaluations"],
                     series_products=work["series_products"],
-                    solve_trips_per_block=trips[::-1] if trips else None))
+                    solve_trips_per_block=trips[::-1] if trips else None,
+                    **resflow_pairing(pr),
+                    **resflow_occupancy(rf, st.kernel, direction)))
             desc = (f"resflow 2d, {spec.n_repeats} blocks, F={spec.filters}, "
                     f"logdet={spec.estimator}")
         else:

@@ -29,10 +29,11 @@ Host side, once per stack:
   by array; ``an_const = sum(an_s)`` is ActNorm's constant log-det;
 * ``PackedResFlow`` keeps that and, for a stack on the card, the kernel's
   own layout (``kernel_weights``: one contiguous block per residual block,
-  zero-padded to the kernel's width FP and dimension DP).  The kernel
-  covers F <= 128 and D <= 8 (``covers``): a block's weights then fit its
-  shared memory.  A wider stack on the card raises NotImplementedError;
-  on the CPU the plain versions run it.
+  zero-padded to the kernel's width FP and dimension DP, with W2 and W2t
+  split for 3xTF32 and laid out in mma fragment order).  The kernel
+  covers F <= 256 and D <= 8 (``covers``); from F = 128 it streams the
+  fragments instead of staging them.  A wider stack on the card raises
+  NotImplementedError; on the CPU the plain versions run it.
 
 The probes are arguments (``ops/estimators.py``): V (S, B, D) and the
 series lengths n_terms (S,).  ``fused_resflow`` is the wrapper: for CPU
@@ -42,17 +43,18 @@ tensors it runs the plain PyTorch versions
 raises, and counts the launch in ``LAUNCHES``.
 
 Stopping: the plain versions stop the fixed point on the whole batch, as
-the chain does; the kernel stops per block, a tile of ``tile()`` samples.  Both stop
-only where max|x - prev| < ftol, so they agree within the fixed point's
-tolerance, not bitwise.
+the chain does; the kernel stops per block, a tile of ``SAMPLES``
+samples.  Both stop only where max|x - prev| < ftol, so they agree
+within the fixed point's tolerance, not bitwise.
 
 Bound (H100 SXM): per sample and block one g evaluation is D F + F^2 + F D
 multiply-adds (1,152 at D = 2, F = 32), and each live series term one
-J^T product of the same size; at the zoo's probes that is about 41
-products per sample and block forward, ~45 inverse (the solve's few
-evaluations added), 2.5e10 flop per direction at B = 8192, n = 32: f32
-operations bound both directions (0.37 ms at 67 TFLOP/s), far above the
-weights' and the data's bytes.
+J^T product of the same size; at the port's probes that is 42 products
+per sample and block forward, ~47 inverse (the solve's few evaluations
+added), 2.5e10 flop per direction at B = 8192, n = 32: operations bound
+both directions (0.4 ms with every multiply-add at the 67 TFLOP/s FFMA
+rate, 0.16 ms with the F x F products on the tensor cores in 3xTF32),
+far above the weights' and the data's bytes.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ from ..estimators import N_EXACT, N_SAMPLES, Probes, draw_unbias_probes  # noqa:
 from . import _build
 
 SMEM_LIMIT = 232448        # dynamic shared memory one Hopper block may use
-WIDTHS = (8, 16, 32, 64, 128)  # the kernel's padded hidden widths FP
+WIDTHS = (16, 32, 64, 128, 256)  # the kernel's padded hidden widths FP
 DIMS = (2, 4, 8)                # and padded data dimensions DP
 
 # launches of each kernel variant, counted by the wrapper where it launches
@@ -301,6 +303,11 @@ def fused_resflow_fwd_logdet_reference(spec: ResFlowSpec, packed, x, probes: Pro
 # --------------------------------------------------------------------------
 # the kernel's layout and its wrapper
 # --------------------------------------------------------------------------
+SAMPLES = 16        # samples per kernel block: two groups of 8 (one mma's n)
+WARPS = 4           # warps per block: two per group
+SCRATCH_STRIDE = SAMPLES + 8   # row stride of the [feature][sample] scratch
+
+
 def covers(spec: ResFlowSpec) -> bool:
     """Whether the kernel has a tiling for the stack's F and D."""
     return spec.filters <= WIDTHS[-1] and spec.dim <= DIMS[-1]
@@ -318,30 +325,26 @@ def padded_dim(dim: int) -> int:
 class Layout:
     """Offsets (floats) inside one residual block's weight block; the
     kernel's ``Layout`` computes the same.  Zero-padded to FP and DP:
-      w2t [FP][FP]   a2 = w2t h1 (rows: outputs)
-      w2  [FP][FP]   w2t^T: the J^T product's rows, up to FP = 64 (two
-                     double-buffered copies do not fit at FP = 128, where
-                     the product reads w2t's columns)
-      w1t [FP][DP], b1 [FP], b2 [FP], w3t [DP][FP], b3 [DP],
-      an_s [DP], an_b [DP], beta [2], padded to a multiple of 4"""
+      w1t [FP][DP], b1 [FP], b2 [FP], w3t [DP][FP], b3 [DP], an_s [DP],
+      an_b [DP], beta [2], padded to a multiple of 4 (``small``); then
+      w2  [KS][MT][2][32][4]   W2 = w2t^T (the J^T product) in mma A-fragment
+                               order, big and small parts (``fragments``)
+      w2t [KS][MT][2][32][4]   w2t (g's hidden layer), the same
+    with MT = FP / 16 m-tiles and KS = FP / 8 k-steps.  Up to FP = 64 the
+    kernel stages the whole block in shared memory; from FP = 128
+    (``streamed``) only the small tensors, and each warp streams the
+    fragments it multiplies, ``chunk_tiles`` m-tiles of one k-step at a
+    time, through a two-slot ring of its own."""
     fp: int
     dp: int
 
     @property
-    def has_w2(self) -> bool:
-        return self.fp <= 64
-
-    @property
-    def w2(self) -> int:
-        return self.fp * self.fp
-
-    @property
     def w1t(self) -> int:
-        return (2 if self.has_w2 else 1) * self.fp * self.fp
+        return 0
 
     @property
     def b1(self) -> int:
-        return self.w1t + self.fp * self.dp
+        return self.fp * self.dp
 
     @property
     def b2(self) -> int:
@@ -368,27 +371,88 @@ class Layout:
         return self.an_b + self.dp
 
     @property
-    def size(self) -> int:
+    def small(self) -> int:
         return (self.beta + 2 + 3) // 4 * 4
 
+    @property
+    def w2(self) -> int:
+        return self.small
 
-def columns(fp: int, direction: str) -> int:
-    """Samples each kernel thread owns (of its warp's probe): two where the
-    series runs and both columns fit in registers (FP <= 32), else one; the
-    kernel's ``columns`` computes the same."""
-    return 2 if direction != "solve" and fp <= 32 else 1
+    @property
+    def w2t(self) -> int:
+        return self.w2 + 2 * self.fp * self.fp
+
+    @property
+    def size(self) -> int:
+        return self.w2t + 2 * self.fp * self.fp
+
+    @property
+    def streamed(self) -> bool:
+        return self.fp >= 128
+
+    @property
+    def staged(self) -> int:
+        return self.small if self.streamed else self.size
+
+    @property
+    def chunk_tiles(self) -> int:
+        return min(self.fp // 16, 8)
+
+    @property
+    def ring(self) -> int:
+        """Floats of one warp's fragment ring (two slots)."""
+        return 2 * self.chunk_tiles * 256 if self.streamed else 0
 
 
-def tile(fp: int, direction: str) -> int:
-    """Samples per kernel block: 32 lanes times ``columns``."""
-    return 32 * columns(fp, direction)
-
-
-def smem_bytes(fp: int, dp: int, cols: int) -> int:
+def smem_bytes(fp: int, dp: int) -> int:
     """Dynamic shared memory of one block; the kernel computes the same:
-    two weight blocks (double-buffered), h1 / d1 / h2 / d2 for the tile's
-    32 * cols samples, and one series value per (probe, sample)."""
-    return 4 * (2 * Layout(fp, dp).size + (4 * fp + N_SAMPLES) * 32 * cols)
+    two staged weight blocks (double-buffered), the warps' fragment rings,
+    h1 / d1 / d2 for the tile's samples, the series per (probe, sample) and
+    the two partial g per (sample, dimension)."""
+    lay = Layout(fp, dp)
+    return 4 * (2 * lay.staged + WARPS * lay.ring + 3 * fp * SCRATCH_STRIDE
+                + N_SAMPLES * SAMPLES + 2 * SAMPLES * dp)
+
+
+def fragment_index(fp: int):
+    """(rows, cols), each (KS, MT, 32, 4): the matrix entry that lane l of
+    an m16n8k8 TF32 A fragment holds in register r, for k-step ks and
+    m-tile mt: r = 0 (16 mt + g, 8 ks + t), 1 (+ 8, same), 2 (same, + 4),
+    3 (+ 8, + 4), with g = l // 4 and t = l % 4."""
+    ks = torch.arange(fp // 8)[:, None, None, None]
+    mt = torch.arange(fp // 16)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    r = torch.arange(4)[None, None, None, :]
+    rows = 16 * mt + lane // 4 + 8 * (r % 2)
+    cols = 8 * ks + lane % 4 + 4 * (r // 2)
+    shape = (fp // 8, fp // 16, 32, 4)
+    return rows.expand(shape), cols.expand(shape)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 on its bits (13 low mantissa bits cleared, to
+    nearest, ties away from zero), as csrc/attention.cu rounds."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def fragments(mat: torch.Tensor) -> torch.Tensor:
+    """(n, FP, FP) matrices (rows: outputs) -> (n, KS, MT, 2, 32, 4): the
+    kernel's A fragments of each, big = the TF32 rounding, small = x - big
+    (exact in f32)."""
+    rows, cols = fragment_index(mat.shape[-1])
+    a = mat[:, rows, cols]
+    big = tf32_round(a.contiguous())
+    return torch.stack([big, a - big], dim=3)
+
+
+def probe_pairs(n_terms) -> List[int]:
+    """The probes of the kernel's two warps per group, [a, d, b, c] with
+    a >= b >= c >= d their series lengths (ties by probe index): warp 0
+    runs a and d, warp 1 b and c, so a block runs max(a + d, b + c)
+    8-column terms in its busier warp, against a mean of (a+b+c+d) / 2."""
+    nt = [int(n) for n in n_terms]
+    a, b, c, d = sorted(range(len(nt)), key=lambda s: (-nt[s], s))
+    return [a, d, b, c]
 
 
 @dataclass(frozen=True)
@@ -403,14 +467,12 @@ def kernel_weights(spec: ResFlowSpec, packed) -> KernelWeights:
     n, D, F = spec.n_repeats, spec.dim, spec.filters
     fp, dp = padded_width(F), padded_dim(D)
     lay = Layout(fp, dp)
-    w = torch.zeros(n, lay.size, dtype=torch.float32, device=packed["w2t"].device)
+    dev = packed["w2t"].device
+    w = torch.zeros(n, lay.size, dtype=torch.float32, device=dev)
 
     def block(off, rows, cols):
         return w[:, off:off + rows * cols].view(n, rows, cols)
 
-    block(0, fp, fp)[:, :F, :F] = packed["w2t"]
-    if lay.has_w2:
-        block(lay.w2, fp, fp)[:, :F, :F] = packed["w2"]
     block(lay.w1t, fp, dp)[:, :F, :D] = packed["w1t"]
     block(lay.b1, 1, fp)[:, 0, :F] = packed["b1"][:, :, 0]
     block(lay.b2, 1, fp)[:, 0, :F] = packed["b2"][:, :, 0]
@@ -419,6 +481,10 @@ def kernel_weights(spec: ResFlowSpec, packed) -> KernelWeights:
     block(lay.an_s, 1, dp)[:, 0, :D] = packed["an_s"][:, :, 0]
     block(lay.an_b, 1, dp)[:, 0, :D] = packed["an_b"][:, :, 0]
     block(lay.beta, 1, 2)[:, 0] = packed["beta"]
+    w2t = torch.zeros(n, fp, fp, dtype=torch.float32, device=dev)
+    w2t[:, :F, :F] = packed["w2t"]
+    w[:, lay.w2:lay.w2t] = fragments(w2t.transpose(1, 2)).reshape(n, -1)
+    w[:, lay.w2t:lay.size] = fragments(w2t).reshape(n, -1)
     return KernelWeights(fp=fp, dp=dp, w=w)
 
 
@@ -450,9 +516,25 @@ def _kernel_fn():
     fn = _build.load("fused_resflow").nf_fused_resflow
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [ctypes.POINTER(i)] + [i] * 7 + [f, i, f, f, p]
+        fn.argtypes = [p] * 5 + [ctypes.POINTER(i)] * 2 + [i] * 7 + [f, i, f, f, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm(fp: int, dp: int, direction: str) -> int:
+    """Blocks of the kernel variant that one SM of the current card holds
+    at once (the CUDA occupancy API, with the kernel's threads and shared
+    memory).  A batch of B launches ceil(B / SAMPLES) blocks."""
+    variant, _ = _variant(direction)
+    fn = _build.load("fused_resflow").nf_fused_resflow_blocks_per_sm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(fp, dp, variant, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_resflow: occupancy query failed: CUDA error {err}")
+    return out.value
 
 
 def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
@@ -490,10 +572,11 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
         return (y, ld) if logdet else y
     sign = 1.0 if direction == "forward" else -1.0
     nt = (ctypes.c_int * N_SAMPLES)(*n_terms)
+    pairs = (ctypes.c_int * N_SAMPLES)(*probe_pairs(n_terms))
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), ld.data_ptr() if logdet else None,
-                 kw.w.data_ptr(), V.data_ptr() if logdet else None, nt,
+                 kw.w.data_ptr(), V.data_ptr() if logdet else None, nt, pairs,
                  B, spec.n_repeats, spec.dim, spec.filters, kw.fp, kw.dp, spec.n_iters,
                  spec.ftol, variant, sign, -sign * stack.an_const,
                  torch.cuda.current_stream().cuda_stream)

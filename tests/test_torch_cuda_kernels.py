@@ -7,7 +7,7 @@ Tolerances as chip_smoke.py: z atol/rtol 1e-4, logdet atol 1e-3; the
 Flow++ inverse x atol 1e-3, logdet atol 5e-3 (two Newton solves meet the
 same root only within XTOL, compounded through the couplings); the ResFlow
 inverse x and logdet atol 1e-3 (the kernel stops each fixed point per tile
-of 32 samples, the plain version on the whole batch).  The coupling
+of 16 samples, the plain version on the whole batch).  The coupling
 kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 (up to 1536 terms summed in another order), dgain and dbias rtol 1e-4
 (B x N terms).  Attention: out atol / rtol 1e-5 against the plain version
@@ -92,7 +92,8 @@ def test_fused_flowpp_kernel_matches_plain(cuda, layers, F, K, B):
 
 @pytest.mark.parametrize("D,layers,F,B", [(2, 4, 8, 300), (2, 6, 32, 1024), (3, 4, 20, 777),
                                           (3, 4, 64, 1000), (8, 2, 64, 100), (5, 3, 16, 33),
-                                          (2, 3, 128, 300), (8, 2, 100, 70)])
+                                          (2, 3, 128, 300), (8, 2, 100, 70),
+                                          (2, 3, 256, 300), (8, 2, 200, 45)])
 def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
     from nf_tpu_torch.nets.spectral import LipSwish
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
@@ -120,9 +121,22 @@ def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
     torch.testing.assert_close(xs, xr, atol=1e-3, rtol=0)
 
 
+def test_resflow_main_path_launch_puts_8_warps_on_every_sm(cuda):
+    """B = 8192, F = 32, D = 2: every variant's blocks fit the card in one
+    wave, dealt evenly at least two to an SM (8 warps)."""
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-8192 // rf.SAMPLES)
+    for direction in ("forward", "inverse", "solve"):
+        per_sm = rf.blocks_per_sm(32, 2, direction)
+        assert blocks <= per_sm * sms
+        assert rf.WARPS * min(per_sm, blocks // sms) >= 8
+
+
 def test_resflow_past_the_kernels_tilings_raises(cuda):
-    with pytest.raises(NotImplementedError, match="F = 256"):
-        _program(2, 2, 256, 0, cuda, "resflow")
+    with pytest.raises(NotImplementedError, match="F = 512"):
+        _program(2, 2, 512, 0, cuda, "resflow")
 
 
 @pytest.mark.parametrize("name,fwd,inv", [

@@ -8,7 +8,12 @@
   tolerances of tests/test_pallas.py, forward z 1e-5 and log-det 1e-4,
   inverse x 5e-4 and log-det 1e-3 (the fixed point stops within ftol);
 * the kernel's own weight layout, walked in PyTorch the way the CUDA
-  kernel walks it, against the plain versions at padded widths;
+  kernel walks it (both F x F products from the block's fragment arrays
+  in 3xTF32, emulated bit for bit: big rounded to TF32 on the host, the
+  column side truncated, the small parts truncated as the tensor core
+  reads them, in k-steps of 8), against the plain versions at padded
+  widths up to F = 256, 2e-5, and at F = 256 against the Pallas kernels
+  in interpret mode; the fragment layout and the probes' pairing;
 * the wrapper: the plain versions for CPU tensors, no launch counted.
 """
 import jax
@@ -57,7 +62,7 @@ def test_spec_rejects_past_the_kernels_limits():
     """A stack wider than the kernel's tilings matches as in nf_tpu; the
     plain versions run it on the CPU, and off the CPU both the packing and
     the wrapper raise NotImplementedError, with no launch counted."""
-    for D, F in ((2, 256), (9, 8)):
+    for D, F in ((2, 512), (9, 8)):
         jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=2)
         assert jspec is not None and tspec is not None and tspec.filters == jspec.filters
         assert not tfr.covers(tspec)
@@ -74,7 +79,7 @@ def test_spec_rejects_past_the_kernels_limits():
             with pytest.raises(NotImplementedError):
                 tfr.fused_resflow(stack, x.to("meta"), direction, probes)
         assert tfr.LAUNCHES == before
-    widest = torch_model("resflow", 8, 2, 128)
+    widest = torch_model("resflow", 8, 2, 256)
     assert tfr.covers(tfr.extract_resflow_spec(widest.bijector, widest.dims))
 
 
@@ -89,7 +94,7 @@ def test_pack_resflow_matches(D, F):
         close(tpacked[key], arr, 1e-6)
 
 
-@pytest.mark.parametrize("D,F", [(2, 8), (2, 32), (3, 32)])
+@pytest.mark.parametrize("D,F", [(2, 8), (2, 32), (3, 32), (2, 256)])
 def test_plain_versions_match_pallas_interpret(D, F):
     jmodel, var, jspec, tmodel, tspec = _both(D, F, seed=D + F)
     packed = tfr.pack_resflow(tmodel.bijector, tspec)
@@ -115,11 +120,46 @@ def test_plain_versions_match_pallas_interpret(D, F):
     assert len(trips) == tspec.n_repeats and all(1 <= t < tspec.n_iters for t in trips)
 
 
+def _trunc_tf32(x):
+    """What a tensor core reads of an f32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _unfragment(frags, fp):
+    """The kernel's A fragments (KS, MT, 2, 32, 4) back to the (big, small)
+    (FP, FP) matrices they hold."""
+    rows, cols = tfr.fragment_index(fp)
+    big, small = torch.zeros(fp, fp), torch.zeros(fp, fp)
+    big[rows, cols] = frags[:, :, 0]
+    small[rows, cols] = frags[:, :, 1]
+    return big, small
+
+
+def _mm3_ktiled(b, a_big, a_small):
+    """b @ A^T as the kernel's mma.sync chain computes it: per k-step of 8
+    features, A's big part (rounded on the host) and small part, b
+    truncated to TF32 (big) with the rest truncated again as the tensor
+    core reads it (small); small products first, accumulated in f32."""
+    bb = _trunc_tf32(b)
+    bs = _trunc_tf32(b - bb)
+    a_small = _trunc_tf32(a_small)
+    acc = torch.zeros(b.shape[:-1] + (a_big.shape[0],))
+    for k0 in range(0, a_big.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        acc = acc + bs[..., ks] @ a_big[:, ks].T
+        acc = acc + bb[..., ks] @ a_small[:, ks].T
+        acc = acc + bb[..., ks] @ a_big[:, ks].T
+    return acc
+
+
 def _walk_kernel_layout(kw, spec, x, direction, probes=None):
     """The CUDA kernel's walk in PyTorch, reading ``KernelWeights``' one
-    block per residual block at the padded width FP and dimension DP."""
+    block per residual block at the padded width FP and dimension DP: both
+    F x F products (W2t h1 in g, W2 t in the series) from the block's
+    fragment arrays in 3xTF32, walked in k-steps of 8."""
     lay = tfr.Layout(kw.fp, kw.dp)
     fp, dp, D = kw.fp, kw.dp, spec.dim
+    frag = (fp // 8, fp // 16, 2, 32, 4)
     B = x.shape[0]
     xp = torch.zeros(B, dp)
     xp[:, :D] = x
@@ -131,15 +171,15 @@ def _walk_kernel_layout(kw, spec, x, direction, probes=None):
     order = range(spec.n_repeats)
     for j in (reversed(order) if direction != "forward" else order):
         w = kw.w[j]
-        w2t = w[:fp * fp].view(fp, fp)
-        w2 = w[lay.w2:lay.w1t].view(fp, fp) if lay.has_w2 else w2t.T
         w1t, w3t = w[lay.w1t:lay.b1].view(fp, dp), w[lay.w3t:lay.b3].view(dp, fp)
         b1, b2, b3 = w[lay.b1:lay.b2], w[lay.b2:lay.w3t], w[lay.b3:lay.an_s]
         an_s, an_b, beta = w[lay.an_s:lay.an_b], w[lay.an_b:lay.beta], w[lay.beta:lay.beta + 2]
+        w2 = _unfragment(w[lay.w2:lay.w2t].view(frag), fp)
+        w2t = _unfragment(w[lay.w2t:lay.size].view(frag), fp)
 
         def hidden(xx):
             h1, d1 = tfr._lipswish(xx @ w1t.T + b1, beta[0])
-            h2, d2 = tfr._lipswish(h1 @ w2t.T + b2, beta[1])
+            h2, d2 = tfr._lipswish(_mm3_ktiled(h1, *w2t) + b2, beta[1])
             return h2, d1, d2
 
         def g(xx):
@@ -157,8 +197,13 @@ def _walk_kernel_layout(kw, spec, x, direction, probes=None):
             _, d1, d2 = hidden(xp)
             wv, ser = Vp, torch.zeros(4, B)
             for k in range(1, int(max(probes[1])) + 1):
-                t = (wv @ w3t) * d2
-                wv = ((t @ w2.T) * d1) @ w1t
+                if fp * dp <= 64:   # the kernel's kRegW: the masks in the weights
+                    t = (wv[:, :, :, None] * (w3t[None, :, :] * d2[:, None, :])).sum(2)
+                    u = _mm3_ktiled(t, *w2)
+                    wv = (u[:, :, :, None] * (w1t[None] * d1[:, :, None])).sum(2)
+                else:
+                    t = (wv @ w3t) * d2
+                    wv = (_mm3_ktiled(t, *w2) * d1) @ w1t
                 live = torch.tensor([float(k <= int(n)) for n in probes[1]])
                 coef = (1.0 if k % 2 else -1.0) * 2.0 ** max(0, k - 9) / k
                 ser = ser + (live * coef)[:, None] * (wv * Vp).sum(2)
@@ -167,7 +212,7 @@ def _walk_kernel_layout(kw, spec, x, direction, probes=None):
     return xp[:, :D], acc
 
 
-@pytest.mark.parametrize("D,F", [(3, 20), (2, 8), (5, 40), (2, 100)])
+@pytest.mark.parametrize("D,F", [(3, 20), (2, 8), (5, 40), (2, 100), (2, 256), (8, 200)])
 def test_kernel_layout_matches_plain_versions(D, F):
     tmodel = torch_model("resflow", D, 3, F)
     tmodel.init(torch.Generator().manual_seed(D * F))
@@ -197,22 +242,87 @@ def test_kernel_layout_matches_plain_versions(D, F):
     close(wx, tfr.fused_resflow_solve_reference(spec, packed, z), 2e-5)
 
 
+def test_kernel_walk_matches_pallas_interpret():
+    """The kernel's walk against nf_tpu's Pallas kernels in interpret mode
+    on the same probes, at F = 256 (streamed fragments): forward z 1e-5 and
+    log-det 1e-4, inverse x 5e-4 and log-det 1e-3, as
+    test_plain_versions_match_pallas_interpret holds the plain versions."""
+    D, F = 2, 256
+    jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=2, seed=7)
+    packed = tfr.pack_resflow(tmodel.bijector, tspec)
+    kw = tfr.kernel_weights(tspec, packed)
+    probes = nf_unbias_probes(64, D)
+    x = normal(31, (64, D), 1.5)
+    const = packed["an_const"]
+    jz, jld = jfr.fused_resflow_forward(jmodel.bijector, jspec, var, x, interpret=True)
+    wz, wacc = _walk_kernel_layout(kw, tspec, _t(x), "forward", probes)
+    close(wz, jz, 1e-5)
+    close(wacc - const, jld, 1e-4)
+    jx, jldi = jfr.fused_resflow_inverse(jmodel.bijector, jspec, var, np.asarray(jz),
+                                         interpret=True)
+    wx, wacc = _walk_kernel_layout(kw, tspec, _t(jz), "inverse", probes)
+    close(wx, jx, 5e-4)
+    close(const - wacc, jldi, 1e-3)
+
+
+def test_fragments_split_w2_for_3xtf32():
+    """kernel_weights' fragment arrays hold W2 = w2t^T (the series) and
+    w2t (g) at their (row, column) as fragment_index places them, big
+    rounded to TF32 and big + small = the weight exactly."""
+    tmodel = torch_model("resflow", 2, 2, 24)
+    tmodel.init(torch.Generator().manual_seed(5))
+    spec = tfr.extract_resflow_spec(tmodel.bijector, tmodel.dims)
+    packed = tfr.pack_resflow(tmodel.bijector, spec)
+    kw = tfr.kernel_weights(spec, packed)
+    lay, fp = tfr.Layout(kw.fp, kw.dp), kw.fp
+    frag = (fp // 8, fp // 16, 2, 32, 4)
+    for j in range(spec.n_repeats):
+        want = torch.zeros(fp, fp)
+        want[:24, :24] = packed["w2t"][j]
+        for off, end, mat in ((lay.w2, lay.w2t, want.T), (lay.w2t, lay.size, want)):
+            big, small = _unfragment(kw.w[j, off:end].view(frag), fp)
+            assert torch.equal(big + small, mat)
+            assert torch.equal(big, tfr.tf32_round(mat.contiguous()))
+            assert bool((small.abs() <= 2.0 ** -11 * mat.abs()).all())
+    rows, cols = tfr.fragment_index(32)
+    assert (rows[1, 1, 13].tolist(), cols[1, 1, 13].tolist()) == ([19, 27, 19, 27],
+                                                                 [9, 9, 13, 13])
+
+
+def test_probe_pairs_balance_the_block():
+    """The two warps of a group take the probes {a, d} and {b, c} (a >= b
+    >= c >= d), the longer first: a block runs max(a + d, b + c) terms."""
+    assert tfr.probe_pairs([10, 14, 9, 9]) == [1, 3, 0, 2]
+    assert tfr.probe_pairs([3, 3, 3, 3]) == [0, 3, 1, 2]
+    assert tfr.probe_pairs([1, 2, 40, 5]) == [2, 0, 3, 1]
+    for nt in ([10, 14, 9, 9], [10, 9, 12, 9], [40, 9, 9, 9]):
+        a, d, b, c = tfr.probe_pairs(nt)
+        assert nt[a] >= nt[d] and nt[b] >= nt[c] and sorted([a, b, c, d]) == [0, 1, 2, 3]
+        assert max(nt[a] + nt[d], nt[b] + nt[c]) <= (sum(nt) + max(nt)) // 2
+
+
 def test_kernel_tilings():
     """The (FP, DP) tilings the kernel is built for, as
-    csrc/fused_resflow.cu lists them, and its columns per thread: all fit
-    one block's shared memory."""
+    csrc/fused_resflow.cu lists them: all fit one block's shared memory;
+    up to FP = 64 the whole weight block is staged, from FP = 128 only its
+    small tensors and the fragments stream through each warp's ring."""
+    assert tfr.WIDTHS == (16, 32, 64, 128, 256) and tfr.DIMS == (2, 4, 8)
     for fp in tfr.WIDTHS:
         for dp in tfr.DIMS:
-            assert tfr.Layout(fp, dp).size % 4 == 0
-            for direction in ("forward", "inverse", "solve"):
-                cols = tfr.columns(fp, direction)
-                assert cols == (2 if direction != "solve" and fp <= 32 else 1)
-                assert tfr.tile(fp, direction) == 32 * cols
-                assert tfr.smem_bytes(fp, dp, cols) <= tfr.SMEM_LIMIT
-    assert tfr.Layout(32, 2).size == 2 * 32 * 32 + 2 * 32 + 2 * 32 + 2 * 32 + 3 * 2 + 2
-    assert tfr.smem_bytes(32, 2, 2) == 4 * (2 * 2248 + 4 * 32 * 64 + 4 * 64)
-    # no transposed copy of w2t at FP = 128
-    assert tfr.Layout(128, 2).size == 128 * 128 + 2 * 128 + 2 * 128 + 2 * 128 + 3 * 2 + 2
+            lay = tfr.Layout(fp, dp)
+            assert lay.size % 4 == 0 and lay.small % 4 == 0
+            assert lay.size == lay.small + 4 * fp * fp
+            assert lay.staged == (lay.small if fp >= 128 else lay.size)
+            assert tfr.smem_bytes(fp, dp) <= tfr.SMEM_LIMIT
+    assert tfr.Layout(32, 2).small == 2 * 32 * 2 + 2 * 32 + 3 * 2 + 2
+    assert tfr.Layout(32, 2).size == 200 + 4 * 32 * 32
+    # the main path's block (F = 32, D = 2): four fit one SM's 228 KB
+    assert tfr.smem_bytes(32, 2) == 4 * (2 * 4296 + 3 * 32 * 24 + 4 * 16 + 2 * 16 * 2)
+    assert 4 * (tfr.smem_bytes(32, 2) + 1024) <= 228 * 1024
+    # F = 256: a ring of two 8-m-tile chunks per warp
+    assert tfr.Layout(256, 8).ring == 2 * 8 * 256
+    assert tfr.smem_bytes(256, 8) == 4 * (2 * 4636 + 4 * 4096 + 3 * 256 * 24 + 64 + 256)
+    assert tfr.SAMPLES == 16 and tfr.WARPS == 4
 
 
 def test_wrapper_takes_plain_versions_on_cpu():
