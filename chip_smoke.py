@@ -11,7 +11,9 @@ Phases, each of which exits non-zero when it fails:
      weights, ActNorm parameters and running statistics moved off
      identity by a seed:
        RealNVP and Glow fused stack: D = 2, 32 couplings, F = 32,
-         B = 8192, and a ragged D = 3, n = 4, F = 64, B = 1000;
+         B = 8192, and a ragged D = 3, n = 4, F = 64, B = 1000 (the
+         tensor-core kernel), and D = 2, n = 4, F = 128, B = 1000 (the
+         FFMA kernel that wider stacks keep);
        Flow++: 32 couplings, F = 32, K = 8, B = 8192, and a ragged
          n = 4, F = 64, K = 4, B = 1000;
        ResFlow (LipSwish betas also drawn from U(0.5, 1.5)): 'unbias'
@@ -46,7 +48,10 @@ Phases, each of which exits non-zero when it fails:
      the coupling kernels (forward, inverse, backward) at (1024, 512) and a
      ragged (1000, 384), gain 0.7 and bias -0.1: y and x atol/rtol 1e-5,
      the row log-dets atol 1e-4 (up to 512 terms summed in another order),
-     gz0 and graw atol/rtol 1e-5, dgain and dbias rtol 1e-4 (B x N terms);
+     gz0 and graw atol/rtol 1e-5, dgain and dbias rtol 1e-4 (B x N terms),
+     and each coupling kernel's kernels per call at (1024, 512), counted
+     as the kernel nodes of a CUDA graph of 20 calls (one, or the run
+     fails);
      attention_fwd at (4096, L, 8), L = 256, 64, 16 (flowpp-img32x1's
      calls), (4096, 256, 12) (base_filters = 48), a ragged (1000, 49, 8),
      (64, 100, 32), (64, 1500, 8), (64, 100, 128) and (4, 16, 6): out
@@ -88,27 +93,41 @@ Phases, each of which exits non-zero when it fails:
      inverse of its own output within 1e-3 of the CPU's and of its input;
      then mix_log_cdf_inverse through its entry point at (1024, 512,
      K = 8), one launch, the round trip within 1e-3;
-  7. time each kernel (CUDA events, warm L2 as in a serving loop; the
-     coupling kernels by their own device time in a profiler window over
-     8 input sets cycled, 67 MB, past the 50 MB L2; attention and the
-     mixture inverse, their plain versions and SDPA by calls captured in a
-     CUDA graph, warm), its plain version
-     and, per model, the serving rate fwd_inv_samples_per_s = 8192 /
-     (t_fwd + t_inv), bench.py's definition; print one main_path line per
-     model, the ResFlow 'exact' program's wall time per direction and its
-     device idle share; for the image model eval_fwd_inv_samples_per_s =
-     1024 / (t_fwd + t_inv) and train_samples_per_s = K B / t_chunk
+  7. time each kernel (CUDA events over back-to-back launches, warm L2 as
+     in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
+     and by their profiler records; the coupling kernels by their own
+     device time per launch, the mean over a profiler window's records,
+     over 8 input sets cycled, 67 MB, past the 50 MB L2; attention and the
+     mixture inverse, their plain versions, the coupling kernels' plain
+     versions and SDPA by calls captured in a CUDA graph, warm), its plain
+     version and, per model, the serving rate fwd_inv_samples_per_s =
+     8192 / (t_fwd + t_inv), bench.py's definition; print one main_path
+     line per model, its device idle share from its kernels' launches
+     (the wrappers' counts) times their ms over the wall time (RealNVP and
+     Glow also with the host's own cost per EvalProgram call and per
+     kernel-wrapper call, timed up to the last call's return before a
+     synchronize), the ResFlow 'exact' program's wall time per direction
+     and its device idle share (profiler records, with the share of the
+     solve launches the profiler kept); for the image
+     model eval_fwd_inv_samples_per_s = 1024 / (t_fwd + t_inv) and
+     train_samples_per_s = K B / t_chunk
      (bench.py:269, :327), each with its device idle share and the
      coupling kernels' share of device time; for flowpp-img32x1
      eval_fwd_inv_samples_per_s with its device idle share and the
-     attention kernels' share of device time; attention's entry summed
+     attention kernels' share of device time (these from profiler
+     records, each with the share of the kernel's launches the profiler
+     kept a record of); attention's entry summed
      over a pass's 161 calls, beside SDPA's time (library_ms); then the
      kernels line with each kernel's bounds (bound_ms with every
      multiply-add at the f32 FFMA rate, bound_tc_ms with them on the tensor
      cores in 3xTF32 at 165 TFLOP/s) and its share of the bound of the units
      it runs its products on, which fails the run above 1; the ResFlow
      entries also give their launch's blocks, the blocks one SM holds and
-     the warps on the least loaded SM, which fails the run below 8;
+     the warps on the least loaded SM, which fails the run below 8; the
+     RealNVP and Glow entries their kernel variant, the blocks one SM
+     holds and the bytes of weights copied from L2 into shared memory per
+     direction; the coupling kernels their kernels per call (counted in
+     phase 3);
   8. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -187,11 +206,13 @@ MIX_ROUND_TRIP_ATOL = 1e-3
 MIX_ITERS = 20
 
 KERNEL_SOURCES = {
-    "fused_stack_fwd": ("nf_tpu_torch/csrc/fused_stack.cu", "nf_tpu/ops/pallas/fused_stack.py:397"),
-    "fused_stack_inv": ("nf_tpu_torch/csrc/fused_stack.cu", "nf_tpu/ops/pallas/fused_stack.py:422"),
-    "fused_stack_glow_fwd": ("nf_tpu_torch/csrc/fused_stack.cu",
+    "fused_stack_fwd": ("nf_tpu_torch/csrc/fused_stack_mma.cu",
+                        "nf_tpu/ops/pallas/fused_stack.py:397"),
+    "fused_stack_inv": ("nf_tpu_torch/csrc/fused_stack_mma.cu",
+                        "nf_tpu/ops/pallas/fused_stack.py:422"),
+    "fused_stack_glow_fwd": ("nf_tpu_torch/csrc/fused_stack_mma.cu",
                              "nf_tpu/ops/pallas/fused_stack.py:397"),
-    "fused_stack_glow_inv": ("nf_tpu_torch/csrc/fused_stack.cu",
+    "fused_stack_glow_inv": ("nf_tpu_torch/csrc/fused_stack_mma.cu",
                              "nf_tpu/ops/pallas/fused_stack.py:422"),
     "fused_flowpp_fwd": ("nf_tpu_torch/csrc/fused_flowpp.cu",
                          "nf_tpu/ops/pallas/fused_flowpp.py:312"),
@@ -212,7 +233,8 @@ KERNEL_SOURCES = {
 }
 # kernels whose F x F or attention products run on the tensor cores (3xTF32)
 TENSOR_CORE_KERNELS = {"attention_fwd", "fused_resflow_fwd_ld", "fused_resflow_solve_ld",
-                       "fused_resflow_solve"}
+                       "fused_resflow_solve", "fused_stack_fwd", "fused_stack_inv",
+                       "fused_stack_glow_fwd", "fused_stack_glow_inv"}
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
@@ -286,6 +308,21 @@ def device_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def enqueue_ms(fn, iters, warmup=3):
+    """The host's own cost per call: ``iters`` calls timed on the host clock
+    up to the last one's return, before the synchronize, so the card's time
+    does not count as long as the launch queue does not fill."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 def wall_ms(fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
@@ -297,17 +334,20 @@ def wall_ms(fn, iters, warmup=3):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_window(fn, iters, warmup=True, cpu=True):
+def profile_window(fn, iters, modules, warmup=True, cpu=True):
     """torch.profiler (CPU and CUDA activity, or CUDA alone) over ``iters``
     calls after one warm-up: (the window's wall time in us, {kernel name:
-    its own device time in us}).  User annotations (``Optimizer.step#...``)
-    are left out: their device ranges span kernels counted on their own."""
+    its own device time in us}, {kernel name: records kept}, the launches
+    the wrappers of ``modules`` counted in the window).  User annotations
+    (``Optimizer.step#...``) are left out: their device ranges span kernels
+    counted on their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
         fn()
     torch.cuda.synchronize()
+    reset_all(modules)
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -315,19 +355,45 @@ def profile_window(fn, iters, warmup=True, cpu=True):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return wall_us, {e.key: e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)}
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return (wall_us, {e.key: e.self_device_time_total for e in events},
+            {e.key: e.count for e in events},
+            sum(n for m in modules for n in m.LAUNCHES.values()))
 
 
-def device_busy(fn, iters):
-    """Share of a window of ``iters`` calls in which the card runs a
-    kernel: the kernels' own device time over the window's wall time.  The
-    profiler adds host cost, so the idle share it gives is an upper bound.
-    None when the trace holds no device time."""
-    wall_us, kernels = profile_window(fn, iters)
+def device_busy(fn, iters, modules, mine):
+    """(share of a profiler window of ``iters`` calls in which the card
+    runs a kernel: the kernel records' device time over the window's wall
+    time; the share of the launches of ``modules``' kernels, named by
+    ``mine``, that the profiler kept a record of).  The profiler adds host
+    cost and may drop records (see kernel_ms), so the idle share it gives
+    is an upper bound.  The share is None when the trace holds no device
+    time."""
+    wall_us, kernels, records, launched = profile_window(fn, iters, modules)
     busy_us = sum(kernels.values())
-    return busy_us / wall_us if busy_us > 0 else None
+    kept = sum(n for k, n in records.items() if any(m in k for m in mine))
+    return (busy_us / wall_us if busy_us > 0 else None), kept / max(launched, 1)
+
+
+def launch_busy(fn, iters, modules, launches_of, ms_of):
+    """Share of a window of ``iters`` calls in which the card runs the
+    port's kernels, without the profiler: each kernel's launches in the
+    window (the wrappers' counts) times its ms on the kernels line, over
+    the window's wall time.  The run fails if a kernel launched there has
+    no ms.  Other device work is not counted, so the idle share is an
+    upper bound."""
+    fn()
+    torch.cuda.synchronize()
+    reset_all(modules)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms_ = (time.perf_counter() - t0) * 1e3
+    launched = {k: n for k, n in launches_of().items() if n}
+    check(set(launched) <= set(ms_of), f"no kernel ms for {sorted(set(launched) - set(ms_of))}")
+    return sum(n * ms_of[k] for k, n in launched.items()) / wall_ms_
 
 
 def graph_ms(fn, iters):
@@ -351,12 +417,63 @@ def graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters):
-    """Device time per call of ``fn``: the kernels' own time in a profiler
-    window (CUPTI), so a call's host cost, longer than a few-microsecond
-    kernel, does not count."""
-    _, kernels = profile_window(fn, iters)
-    return sum(kernels.values()) / iters / 1e3
+def kernel_ms(fn, iters, name):
+    """Device time of one launch of the kernel whose name holds ``name``:
+    the mean over the records a profiler window (CPU and CUDA activity) of
+    ``iters`` calls kept.  Late in a long process the profiler on the
+    H100's host keeps only some records (as few as a quarter of 20 short
+    launches), so this reads a mean, never a sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    check(bool(times), f"no {name} kernel in the profiler window")
+    return sum(times) / len(times) / 1e3
+
+
+def graph_nodes(fn, calls):
+    """The node types of ``calls`` calls of ``fn`` captured in one CUDA
+    graph, read from the graph with the driver API (cuGraphGetNodes,
+    cuGraphNodeGetType; 0 is a kernel node), so no profiler is involved.
+    ``fn`` first runs once on the capture stream, so state it keeps per
+    stream (the coupling backward's ticket) exists before the capture."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        types.append(kind.value)
+    graph.reset()
+    return types
+
+
+def kernels_per_call(fn, calls):
+    """Kernels ``fn`` launches per call: the kernel nodes of ``calls``
+    calls captured in one CUDA graph (graph_nodes)."""
+    return graph_nodes(fn, calls).count(0) / calls
 
 
 def stack_work(stack, batch):
@@ -585,7 +702,24 @@ def max_diff(a, b):
 
 
 def check_coupling_kernels(tc, device, errs):
-    """The three coupling kernels against their plain versions."""
+    """The three coupling kernels against their plain versions, and their
+    kernels per call at the main path's shape, counted in a CUDA graph:
+    {name: kernels per call}; the run fails unless each call is one kernel
+    and its wrapper counted its own kernel's launch at every call."""
+    z0, t, raw, gain, bias, gy, gld = coupling_inputs(
+        IMG_BATCH, 512, torch.Generator(device=device).manual_seed(SEED + 2), device)
+    per_call = {}
+    for name, kname, call in (
+            ("coupling_fwd", "coupling_kernel", lambda: tc.launch(z0, t, raw, gain, bias, False)),
+            ("coupling_inv", "coupling_kernel", lambda: tc.launch(z0, t, raw, gain, bias, True)),
+            ("coupling_bwd", "coupling_bwd_kernel",
+             lambda: tc.launch_bwd(z0, raw, gain, bias, gy, gld))):
+        reset_all((tc,))
+        per_call[name] = kernels_per_call(call, 20)
+        print(f"{name}: {per_call[name]} kernels per call, {tc.LAUNCHES[name]} of 21 calls "
+              f"launching {kname}")
+        check(per_call[name] == 1 and tc.LAUNCHES[name] == 21,
+              f"{name}: {per_call[name]} kernels per call, not one")
     g = torch.Generator(device=device).manual_seed(SEED)
     for B, N in COUPLING_CASES:
         z0, t, raw, gain, bias, gy, gld = coupling_inputs(B, N, g, device)
@@ -616,6 +750,7 @@ def check_coupling_kernels(tc, device, errs):
         errs["coupling_bwd"] = max(errs["coupling_bwd"], max_diff(gz0, gz0r),
                                    max_diff(graw, grawr), max_diff(dgain, dgainr),
                                    max_diff(dbias, dbiasr))
+    return per_call
 
 
 def counted_call(what, fn, want, counters, launches_of, totals):
@@ -749,29 +884,34 @@ def image_main_path(device, counters, launches_of):
                 parity=parity, n_params=n_params)
 
 
-COUPLING_KERNELS = ("coupling_kernel", "coupling_bwd_kernel", "reduce_partials_kernel")
+COUPLING_KERNELS = ("coupling_kernel", "coupling_bwd_kernel")
 
 
-def device_breakdown(wall_us, kernels, calls, mine=COUPLING_KERNELS, label="coupling"):
+def device_breakdown(wall_us, kernels, records, launched, calls, mine=COUPLING_KERNELS,
+                     label="coupling"):
     """A profile window's device idle share, the named kernels' share of its
-    device time, and its six longest kernels in ms per call."""
+    device time and the share of their launches (the wrappers' counts) the
+    profiler kept a record of, and its six longest kernels in ms per
+    call."""
     total = sum(kernels.values())
     ours = sum(v for k, v in kernels.items() if any(n in k for n in mine))
+    kept = sum(n for k, n in records.items() if any(m in k for m in mine))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {"device_idle_share": 1.0 - total / wall_us,
             "device_ms_per_call": total / calls / 1e3,
             f"{label}_device_share": ours / total,
+            f"{label}_records_kept": kept / max(launched, 1),
             "top_kernels_ms_per_call": [[k[:100], v / calls / 1e3] for k, v in top]}
 
 
-def image_timing(img, smi):
+def image_timing(img, smi, tc):
     """The image model's serving and training rates, idle shares, the
     coupling kernels' share of device time and the longest kernels."""
     prog, trainer, x, z = img["prog"], img["trainer"], img["x"], img["z"]
     t_fwd = wall_ms(lambda: prog.forward(x), IMG_ITERS)
     t_inv = wall_ms(lambda: prog.inverse(z), IMG_ITERS)
     eval_profile = device_breakdown(
-        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1), 1)
+        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1, (tc,)), 1)
     state = {"ts": img["ts"]}
 
     def chunk():
@@ -784,7 +924,8 @@ def image_timing(img, smi):
     torch.cuda.synchronize()
     t_chunk = (time.perf_counter() - t0) * 1e3 / IMG_TRAIN_TIMED
     train_profile = device_breakdown(
-        *profile_window(lambda: trainer.train_step(state["ts"], img["chunk"][0]), 1), 1)
+        *profile_window(lambda: trainer.train_step(state["ts"], img["chunk"][0]), 1, (tc,)),
+        1)
     K, B = IMG_TRAIN_CHUNK, IMG_BATCH
     line = {
         "model": f"realnvp-img32x1: {'x'.join(map(str, IMG_DIMS))} image, "
@@ -801,9 +942,10 @@ def image_timing(img, smi):
     print(json.dumps({"main_path": line}))
 
 
-def coupling_entries(tc, launches, errs, sfu_per_s, device):
+def coupling_entries(tc, launches, errs, sfu_per_s, device, per_call):
     """The three coupling kernels' entries on the kernels line, timed at
-    the main path's shape (1024, 512) over input sets cycled past L2."""
+    the main path's shape (1024, 512) over input sets cycled past L2, with
+    their kernels per call from check_coupling_kernels."""
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     sets = [coupling_inputs(IMG_BATCH, 512, g, device) for _ in range(COUPLING_SETS)]
     calls = {
@@ -817,17 +959,45 @@ def coupling_entries(tc, launches, errs, sfu_per_s, device):
     entries = []
     for name, (kernel, plain) in calls.items():
         cycle = itertools.cycle(sets)
+        kname = "coupling_bwd_kernel" if name == "coupling_bwd" else "coupling_kernel"
         entries.append(kernel_entry(
             name, launches, errs, coupling_work(IMG_BATCH, 512, name == "coupling_bwd"),
-            sfu_per_s, kernel_device_ms(lambda: kernel(next(cycle)), COUPLING_ITERS),
-            kernel_device_ms(lambda: plain(next(cycle)), COUPLING_ITERS),
+            sfu_per_s, kernel_ms(lambda: kernel(next(cycle)), COUPLING_ITERS, kname),
+            graph_ms(lambda: plain(next(cycle)), COUPLING_ITERS),
             shape=[IMG_BATCH, 512],
             event_ms=device_ms(lambda: kernel(next(cycle)), COUPLING_ITERS),
-            timing="ms and plain_ms: the kernels' own device time per call (profiler); "
-                   "event_ms: CUDA events over back-to-back calls, host cost included",
+            timing="ms: the kernel's own device time per launch (profiler, the mean over "
+                   "its records); plain_ms: device time per call, 200 calls in one CUDA "
+                   "graph between CUDA events; event_ms: CUDA events over back-to-back "
+                   "calls, host cost included",
             library_note="no single PyTorch call computes the coupling transform",
-            calls_per_pass=IMG_COUPLINGS))
+            calls_per_pass=IMG_COUPLINGS, kernels_per_call=per_call[name]))
     return entries
+
+
+def stack_entry(fs, name, stack, inp, inv, plain_ms, launches, errs, sfu_per_s):
+    """A RealNVP / Glow fused-stack kernel's entry at the main path's shape:
+    ms by CUDA events over 200 back-to-back launches (as every earlier
+    run timed it), graph_ms over 200 launches in one CUDA graph (no host
+    cost), profiler_ms the mean of its profiler records; its variant, and
+    for the tensor-core kernel the blocks an SM holds and the weight bytes
+    copied from L2 into shared memory per direction."""
+    spec, kw = stack.spec, stack.kernel
+    call = lambda: fs.launch(stack, inp, inv)  # noqa: E731
+    extra = {"kernel_variant": stack.variant, "graph_ms": graph_ms(call, 200),
+             "profiler_ms": kernel_ms(call, 200, "fused_stack"),
+             "timing": "ms: CUDA events over 200 back-to-back launches; graph_ms: 200 "
+                       "launches in one CUDA graph between CUDA events; profiler_ms: the "
+                       "mean of the kernel's profiler records over 200 launches"}
+    if stack.variant == "mma":
+        extra.update(
+            blocks=-(-BATCH // fs.MMA_SAMPLES), block_warps=fs.MMA_WARPS + 1,
+            blocks_per_sm=fs.mma_blocks_per_sm(kw, spec.has_mix, inv),
+            l2_to_sm_weight_bytes=fs.weight_bytes_to_sm(kw, spec.n_repeats, BATCH),
+            smem_bytes=kw.layout.smem_bytes)
+    return kernel_entry(name, launches, errs, stack_work(stack, BATCH), sfu_per_s,
+                        device_ms(call, 200), plain_ms, couplings=spec.n_repeats,
+                        filters=spec.filters, **extra)
 
 
 def kernel_entry(name, launches, errs, work, sfu_per_s, ms, plain_ms, **extra):
@@ -1073,7 +1243,7 @@ def mixlogcdf_main_path(device, counters, launches_of):
     return inputs, totals
 
 
-def flowpp_image_timing(fp, smi):
+def flowpp_image_timing(fp, smi, ca):
     """flowpp-img32x1's serving rate, device idle share and the attention
     kernels' share of device time."""
     prog, x, z = fp["prog"], fp["x"], fp["z"]
@@ -1083,8 +1253,8 @@ def flowpp_image_timing(fp, smi):
     t1 = time.perf_counter()
     # one pair, CUDA activity only: a pair is about 200,000 ATen ops
     profile = device_breakdown(
-        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1, warmup=False, cpu=False),
-        1, mine=("attention_fwd_kernel",), label="attention")
+        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1, (ca,), warmup=False,
+                        cpu=False), 1, mine=("attention_fwd_kernel",), label="attention")
     print(f"flowpp-img32x1 timing: wall {t1 - t0:.1f} s, profiled pair "
           f"{time.perf_counter() - t1:.1f} s")
     print(json.dumps({"main_path": {
@@ -1229,7 +1399,9 @@ def main():
     # ---- 3. kernels against their plain versions
     errs = {k: 0.0 for k in KERNEL_SOURCES}
     cases = [("realnvp", 2, 32, 32, BATCH, 8), ("realnvp", 3, 4, 64, 1000, 8),
+             ("realnvp", 2, 4, 128, 1000, 8),
              ("glow", 2, 32, 32, BATCH, 8), ("glow", 3, 4, 64, 1000, 8),
+             ("glow", 2, 4, 128, 1000, 8),
              ("flow++", 2, 32, 32, BATCH, 8), ("flow++", 2, 4, 64, 1000, 4)]
     for model_name, D, layers, F, B, K in cases:
         _, prog, g = perturbed_program(model_name, D, layers, F, dev, SEED + D, K)
@@ -1250,7 +1422,8 @@ def main():
                 inp = yr
             ey = float((y - yr).abs().max())
             eld = float((ld - ldr).abs().max())
-            print(f"check {name} D={D} n={layers} F={F}{f' K={K}' if flowpp else ''} B={B}: "
+            print(f"check {name} D={D} n={layers} F={F}{f' K={K}' if flowpp else ''} B={B}"
+                  f"{'' if flowpp else f' ({stack.variant})'}: "
                   f"max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
             check(torch.isfinite(y).all() and torch.isfinite(ld).all(),
                   f"{name}: non-finite output")
@@ -1302,7 +1475,7 @@ def main():
                 check(ey <= RESFLOW_INV_ATOL, f"{name} D={D}: x off by {ey}")
                 check(eld <= RESFLOW_INV_ATOL, f"{name} D={D}: logdet off by {eld}")
             errs[name] = max(errs[name], ey, eld)
-    check_coupling_kernels(tc, dev, errs)
+    coupling_per_call = check_coupling_kernels(tc, dev, errs)
     check_attention_kernel(ca, ta, dev, errs)
     check_mixlogcdf_kernel(cm, mlc, dev, errs)
 
@@ -1446,32 +1619,51 @@ def main():
             for name, inv, inp in ((MODELS[model_name][0], False, x),
                                    (MODELS[model_name][1], True, zin)):
                 direction = "inverse" if inv else "forward"
-                work = flowpp_work(stack, inp, inv) if flowpp else stack_work(stack, BATCH)
-                extra = {}
-                if flowpp:
-                    extra = dict(mixtures=spec.n_mixtures,
-                                 mixture_evaluations=work["mixture_evaluations"],
-                                 warp_mixture_evaluations=work["warp_mixture_evaluations"],
-                                 block_mixture_evaluations=work["block_mixture_evaluations"])
+                plain_ms = device_ms(lambda: reference(stack.packed, stack.const_ld, inp,
+                                                       direction), PLAIN_ITERS)
+                if not flowpp:
+                    kernels.append(stack_entry(fs, name, stack, inp, inv, plain_ms, launches,
+                                               errs, sfu_per_s))
+                    continue
+                work = flowpp_work(stack, inp, inv)
                 kernels.append(kernel_entry(
                     name, launches, errs, work, sfu_per_s,
-                    device_ms(lambda: mod.launch(stack, inp, inv), 200),
-                    device_ms(lambda: reference(stack.packed, stack.const_ld, inp, direction),
-                              PLAIN_ITERS),
-                    couplings=spec.n_repeats, filters=spec.filters, **extra))
+                    device_ms(lambda: mod.launch(stack, inp, inv), 200), plain_ms,
+                    couplings=spec.n_repeats, filters=spec.filters, mixtures=spec.n_mixtures,
+                    mixture_evaluations=work["mixture_evaluations"],
+                    warp_mixture_evaluations=work["warp_mixture_evaluations"],
+                    block_mixture_evaluations=work["block_mixture_evaluations"]))
             desc = (f"{model_name} 2d, {spec.n_repeats} couplings, F={spec.filters}"
                     + (f", K={spec.n_mixtures}" if flowpp else ""))
         t_fwd = wall_ms(lambda: prog.forward(x), 200)
         t_inv = wall_ms(lambda: prog.inverse(zin), 200)
-        busy = device_busy(lambda: (prog.forward(x), prog.inverse(zin)), 50)
+        busy = launch_busy(lambda: (prog.forward(x), prog.inverse(zin)), 50, counters,
+                           launches_of, {e["name"]: e["ms"] for e in kernels})
+        host = {}
+        if model_name in ("realnvp", "glow"):
+            k_fwd, k_inv = (e["ms"] for e in kernels[-2:])
+            host = {"kernel_forward_ms": k_fwd, "kernel_inverse_ms": k_inv,
+                    "wall_less_kernel_ms": [t_fwd - k_fwd, t_inv - k_inv],
+                    "host_enqueue_ms": [enqueue_ms(lambda: prog.forward(x), 100),
+                                        enqueue_ms(lambda: prog.inverse(zin), 100)],
+                    "launch_enqueue_ms": [
+                        enqueue_ms(lambda: fs.launch(stack, x, False), 100),
+                        enqueue_ms(lambda: fs.launch(stack, zin, True), 100)],
+                    "host_note": "host_enqueue_ms: the host's own cost per EvalProgram "
+                                 "call (100 calls, no synchronize); launch_enqueue_ms the "
+                                 "same for the kernel wrapper alone; the card waits on the "
+                                 "host where these exceed the kernel's ms"}
         print(json.dumps({"main_path": {
             "model": desc, "batch": BATCH,
             "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
             "fwd_inv_samples_per_s": BATCH / ((t_fwd + t_inv) / 1e3),
-            "device_idle_share": None if busy is None else 1.0 - busy,
+            "device_idle_share": 1.0 - busy,
+            "idle_note": "1 - the kernels' launches in 50 fwd+inv pairs times their ms, "
+                         "over the pairs' wall time (no profiler)", **host,
             "card": smi}}))
         if model_name == "resflow":
-            busy = device_busy(lambda: (exact.forward(x), exact.inverse(z_ex)), EXACT_ITERS // 3)
+            busy, kept = device_busy(lambda: (exact.forward(x), exact.inverse(z_ex)),
+                                     EXACT_ITERS // 3, (rf,), ("fused_resflow",))
             print(json.dumps({"resflow_exact": {
                 "model": f"resflow 2d, {exact.stack.spec.n_repeats} blocks, logdet=exact",
                 "batch": BATCH,
@@ -1479,13 +1671,13 @@ def main():
                 "eval_program_inverse_ms": wall_ms(lambda: exact.inverse(z_ex), EXACT_ITERS),
                 "calls": EXACT_ITERS,
                 "device_idle_share": None if busy is None else 1.0 - busy,
-                "card": smi}}))
+                "solve_records_kept": kept, "card": smi}}))
     t_img = time.perf_counter()
-    image_timing(img, smi)
-    kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev)
+    image_timing(img, smi, tc)
+    kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev, coupling_per_call)
     print(f"image timing took {time.perf_counter() - t_img:.1f} s")
     t_img = time.perf_counter()
-    flowpp_image_timing(fp, smi)
+    flowpp_image_timing(fp, smi, ca)
     kernels.append(attention_entry(ca, ta, launches, errs, sfu_per_s, dev))
     kernels.append(mixlogcdf_entry(cm, mlc, launches, errs, sfu_per_s, mix_main))
     print(f"image Flow++ timing took {time.perf_counter() - t_img:.1f} s; the run "

@@ -31,7 +31,11 @@ XLA compiles there).  Beside them, their plain PyTorch versions
 
 gain and bias stay on the device: the kernels read them from device
 memory, so a call never synchronizes.  ``LAUNCHES`` counts each wrapper's
-launches where it launches.
+launches where it launches.  The backward is one launch: its last block
+folds the rows' partial sums into dgain and dbias in a fixed order
+(``FOLD_THREADS`` threads, rows strided, then a butterfly per warp and the
+warps in order), found by an atomic ticket that ``_ticket`` keeps zeroed
+per device and stream.
 
 Bound (H100 SXM): 16 bytes per element for the forward and the inverse
 (three reads, one write), 20 for the backward (three reads, two writes)
@@ -48,6 +52,12 @@ from . import _build
 
 LAUNCHES = {"coupling_fwd": 0, "coupling_inv": 0, "coupling_bwd": 0}
 LANES = 128   # nf_tpu's gate: the flattened half's width is a multiple of this
+# csrc/coupling.cu: a block is ROWS_PER_BLOCK warps, one row each; the
+# last block folds the partials with its FOLD_THREADS threads
+ROWS_PER_BLOCK = 4
+FOLD_THREADS = 32 * ROWS_PER_BLOCK
+
+_tickets = {}
 
 
 def reset_launches() -> None:
@@ -140,8 +150,19 @@ def launch(a, t, raw_s, gain, bias, inverse: bool):
     return out, ld
 
 
+def _ticket(device, stream):
+    """The backward's ticket (one int32, zero between calls) for this device
+    and stream: calls on one stream run in order, so they share it safely;
+    zeroed once, at its first use."""
+    key = (device, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[key]
+
+
 def launch_bwd(z0, raw_s, gain, bias, gy, gld):
-    """The backward kernel: (gz0, graw, dgain, dbias); gt is gy itself."""
+    """The backward kernel, one launch: (gz0, graw, dgain, dbias); gt is gy
+    itself."""
     _check("coupling_bwd", (z0, raw_s, gy), (gain, bias))
     B, N = z0.shape
     if gld.device != z0.device or gld.dtype != torch.float32 or gld.shape != (B,) \
@@ -154,10 +175,12 @@ def launch_bwd(z0, raw_s, gain, bias, gy, gld):
     dgain = torch.empty_like(gain)
     dbias = torch.empty_like(bias)
     with torch.cuda.device(z0.device):
-        err = _fn("nf_coupling_bwd", 11, 2)(
+        stream = torch.cuda.current_stream().cuda_stream
+        ticket = _ticket(z0.device, stream)
+        err = _fn("nf_coupling_bwd", 12, 2)(
             gy.data_ptr(), gld.data_ptr(), z0.data_ptr(), raw_s.data_ptr(), gain.data_ptr(),
             bias.data_ptr(), gz0.data_ptr(), graw.data_ptr(), partial.data_ptr(),
-            dgain.data_ptr(), dbias.data_ptr(), B, N, torch.cuda.current_stream().cuda_stream)
+            ticket.data_ptr(), dgain.data_ptr(), dbias.data_ptr(), B, N, stream)
     _raise_on(err, "coupling_bwd")
     LAUNCHES["coupling_bwd"] += 1
     return gz0, graw, dgain, dbias

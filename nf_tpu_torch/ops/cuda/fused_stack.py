@@ -1,10 +1,16 @@
 """Whole-stack fused eval kernel for RealNVP / Glow density flows, on Hopper.
 
-Counterpart of ``nf_tpu/ops/pallas/fused_stack.py``; the CUDA kernel in
-``nf_tpu_torch/csrc/fused_stack.cu`` replaces its Pallas kernels
-``_make_kernels`` -> ``fwd_kernel`` / ``inv_kernel`` in both variants:
-RealNVP (flow-BatchNorm norms, no mix) and Glow (ActNorm norms and the
-PLU 1x1 mix).  The eval-mode forward or inverse of
+Counterpart of ``nf_tpu/ops/pallas/fused_stack.py``; two CUDA kernels
+replace its Pallas kernels ``_make_kernels`` -> ``fwd_kernel`` /
+``inv_kernel`` in both variants, RealNVP (flow-BatchNorm norms, no mix)
+and Glow (ActNorm norms and the PLU 1x1 mix):
+``nf_tpu_torch/csrc/fused_stack_mma.cu`` runs the conditioner's F x F
+layers on the tensor cores (``mma.sync`` in 3xTF32) for padded widths up
+to 64 and data dimensions up to 8, which includes the headline (D = 2,
+F = 32);
+``nf_tpu_torch/csrc/fused_stack.cu`` runs them on the FFMA units for the
+rest.  ``kernel_variant`` chooses by shape.  The eval-mode forward or
+inverse of
 
     n x [ channel-affine norm -> (PLU 1x1 mix)? -> affine coupling(MLP) ]
 
@@ -17,7 +23,10 @@ runs as ONE launch per direction.  Host side, once per stack:
   and lays the weights out per parity exactly as ``nf_tpu`` does, so the
   two can be compared array by array;
 * ``PackedStack`` keeps that and, for a stack on the card, the kernel's
-  own layout (per coupling, k-major, padded to the kernel's width).
+  own layout (``kernel_weights``): for the tensor-core kernel a header per
+  coupling and direction and the F x F layers' B fragments, their input
+  rows permuted and split for 3xTF32 (``MmaLayout``, ``mma_weights``);
+  for the FFMA kernel per coupling, k-major, padded (``ffma_weights``).
 
 ``fused_stack`` is the wrapper: for CPU tensors it runs
 ``fused_stack_reference``, the plain PyTorch version of the same math; for
@@ -27,9 +36,10 @@ CUDA tensors it launches the kernel or raises, and counts the launch in
 Bound (H100 SXM): per sample and coupling the conditioner does
 ``in*F + 4*F*F + 2*out*F`` multiply-adds (4,192 at D = 2, F = 32) and
 about 22*F elementwise operations; the weights are read once (about 0.6 MB
-at n = 32) and x / y / logdet are a few bytes per sample, so the kernel is
-bound by f32 operations on the CUDA cores, not by memory.  The Glow mix
-adds 2*D*D flop per sample and coupling.
+at n = 32) and x / y / logdet are a few bytes per sample, so operations
+bound the kernels, not memory: the F x F products on the tensor cores in
+3xTF32, the rest on the CUDA cores.  The Glow mix adds 2*D*D flop per
+sample and coupling.
 """
 from __future__ import annotations
 
@@ -52,12 +62,20 @@ from . import _build
 # b0 | rb0: A1 B1 b1 A2 B2 b2 | rb1: A1 B1 b1 A2 B2 b2 | head: Ah Bh
 _N_VEC = 15
 
-# Kernel tiling per padded width FP: (S samples per block, TS samples per
-# thread).  Each thread owns a TS x 4 (samples x features) tile of every
+# FFMA kernel tiling per padded width FP: (S samples per block, TS samples
+# per thread).  Each thread owns a TS x 4 (samples x features) tile of every
 # conditioner layer, so a block has (S / TS) * (FP / 4) threads.
 TILES = {8: (256, 4), 16: (128, 4), 32: (64, 2), 64: (64, 4),
          128: (32, 4), 256: (32, 4)}
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
+
+# The tensor-core kernel: padded widths and data dimensions it covers, and
+# its blocks of MMA_WARPS consumer warps of 16 samples (one warpgroup) and
+# one producer warp.
+MMA_WIDTHS = (8, 16, 32, 64)
+MMA_DIMS = (2, 8)
+MMA_WARPS = 4
+MMA_SAMPLES = 16 * MMA_WARPS
 
 # launches of each kernel variant, counted by the wrapper where it launches:
 # fused_stack_* for RealNVP (no mix), fused_stack_glow_* for Glow (mix)
@@ -89,8 +107,83 @@ def padded_width(filters: int) -> int:
     return min(fp for fp in TILES if fp >= filters)
 
 
+def kernel_variant(dim: int, filters: int) -> str:
+    """The kernel a (D = dim, F = filters) stack runs on the card, by shape
+    alone: 'mma' (tensor cores) up to a padded width of 64 and D <= 8,
+    'ffma' past either."""
+    fits = padded_width(filters) <= max(MMA_WIDTHS) and dim <= max(MMA_DIMS)
+    return "mma" if fits else "ffma"
+
+
+def mma_dim(dim: int) -> int:
+    """The tensor-core kernel's padded data dimension for D = dim."""
+    return min(dp for dp in MMA_DIMS if dp >= dim)
+
+
+@dataclass(frozen=True)
+class MmaLayout:
+    """The tensor-core kernel's weight layout at padded width ``fp`` and
+    data dimension ``dp``; csrc/fused_stack_mma.cu's Header, Layer and
+    smem_bytes mirror it.  A
+    coupling's header, in floats: vec [15][fp] | w0 [half][fp] | wh
+    [2 half][fp] (t rows, then s rows from half) | bh [2 half] | gb [2] |
+    pre [dp][2] | mix [dp][dp], padded to 4, half = dp / 2.  A layer, its
+    input rows permuted (``input_permutation``): the B fragments
+    [fp/8][fp/8][32][4] (big, big, small, small; ``b_fragment_index``)."""
+    fp: int
+    dp: int
+
+    @property
+    def half(self) -> int:
+        return self.dp // 2
+
+    @property
+    def w0(self) -> int:
+        return _N_VEC * self.fp
+
+    @property
+    def wh(self) -> int:
+        return self.w0 + self.half * self.fp
+
+    @property
+    def bh(self) -> int:
+        return self.wh + 2 * self.half * self.fp
+
+    @property
+    def gb(self) -> int:
+        return self.bh + 2 * self.half
+
+    @property
+    def pre(self) -> int:
+        return self.gb + 2
+
+    @property
+    def mix(self) -> int:
+        return self.pre + 2 * self.dp
+
+    @property
+    def header(self) -> int:
+        return (self.mix + self.dp * self.dp + 3) // 4 * 4
+
+    @property
+    def layer(self) -> int:
+        return (self.fp // 8) ** 2 * 32 * 4
+
+    @property
+    def stages(self) -> int:
+        """Layer slots in the block's weight ring."""
+        return 8 if self.fp <= 32 else 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block: 256 bytes of mbarriers, the
+        ring and two header slots."""
+        return 256 + 4 * (self.stages * self.layer + 2 * self.header)
+
+
 def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False) -> int:
-    """Dynamic shared memory of one block; the kernel computes the same."""
+    """Dynamic shared memory of one FFMA kernel block; the kernel computes
+    the same."""
     sp = samples + 4
     chunk = fp if fp * fp <= 4096 else 4096 // fp
     half = (dim + 1) // 2
@@ -183,7 +276,7 @@ def extract_stack_spec(chain, dims) -> Optional[StackSpec]:
     if F > max(TILES):
         return None
     fp = padded_width(F)
-    if smem_bytes(fp, TILES[fp][0], D, has_mix) > SMEM_LIMIT:
+    if kernel_variant(D, F) == "ffma" and smem_bytes(fp, TILES[fp][0], D, has_mix) > SMEM_LIMIT:
         return None
     return StackSpec(n_repeats=n, dim=D, filters=F, has_mix=has_mix,
                      norm_kind=norm_kind, halves=(halves[0], halves[1]))
@@ -365,15 +458,112 @@ def fused_stack_reference(packed, const_ld, x, direction: str):
 
 
 # --------------------------------------------------------------------------
-# the kernel's layout and its wrapper
+# the kernels' layouts and their wrapper
 # --------------------------------------------------------------------------
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 on its bits (13 low mantissa bits cleared, to
+    nearest, ties away from zero), as csrc/fused_stack_mma.cu rounds."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def input_permutation(fp: int) -> torch.Tensor:
+    """(fp,): the input feature at each row position of the tensor-core
+    kernel's layers.  Within each group of 8, position t takes feature
+    8 j + 2 t and position t + 4 feature 8 j + 2 t + 1, the two features a
+    lane holds of a C fragment's n-tile j, so that fragment is the next
+    layer's A fragment as it stands."""
+    p = torch.arange(fp)
+    q = p % 8
+    return p - q + torch.where(q < 4, 2 * q, 2 * (q - 4) + 1)
+
+
+def b_fragment_index(fp: int):
+    """(outs, ins), each (fp/8, fp/8, 32, 2): the weight W[out, in] that lane
+    l holds in register r of an m16n8k8 TF32 B fragment of k-step ks and
+    n-tile nt, the rows (k) permuted by ``input_permutation``: r = 0 is
+    k-position 8 ks + t, r = 1 is 8 ks + t + 4, both of column (out)
+    8 nt + g, with g = l // 4 and t = l % 4."""
+    ks = torch.arange(fp // 8)[:, None, None, None]
+    nt = torch.arange(fp // 8)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    r = torch.arange(2)[None, None, None, :]
+    shape = (fp // 8, fp // 8, 32, 2)
+    outs = (8 * nt + lane // 4).expand(shape)
+    ins = input_permutation(fp)[(8 * ks + lane % 4 + 4 * r).expand(shape)]
+    return outs, ins
+
+
 @dataclass(frozen=True)
-class KernelWeights:
-    """Weights per coupling c = 2*j + parity, zero-padded to width fp:
-    pre / prei (n, D, 2), w0t (n, in_max, fp) k-major, vec (n, 15, fp),
-    wrt (n, 4, fp, fp) k-major, wh (n, 2*out_max, fp) with the t rows
-    first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2), and
-    for Glow mix / mixi (n, D, D) row-major (out, in), else None."""
+class MmaWeights:
+    """The tensor-core kernel's weights: ``hdr`` (2, n, header) the
+    forward's and the inverse's header per coupling c (pre: (shift, scale)
+    / (shift, 1/scale); mix: W / W^-1), ``frag`` (n, 4, layer) the four
+    F x F layers' B fragments; ``pointers`` the launch's (hdr, frag)
+    addresses per direction, taken once (the host's cost per call is close
+    to the headline kernel's time)."""
+    layout: MmaLayout
+    hdr: torch.Tensor
+    frag: torch.Tensor
+    pointers: Tuple[Tuple[int, int], Tuple[int, int]]
+
+    @property
+    def fp(self) -> int:
+        return self.layout.fp
+
+
+@torch.no_grad()
+def mma_weights(spec: StackSpec, packed) -> MmaWeights:
+    n, D, F = spec.n_repeats, spec.dim, spec.filters
+    lay = MmaLayout(padded_width(F), mma_dim(D))
+    fp, dp, half = lay.fp, lay.dp, lay.half
+    if fp not in MMA_WIDTHS:
+        raise ValueError(f"fused_stack_mma has no tiling for padded width {fp}")
+    kw = dict(dtype=torch.float32, device=packed[0]["gb"].device)
+    vec = torch.zeros(n, _N_VEC, fp, **kw)
+    w0 = torch.zeros(n, half, fp, **kw)
+    wh = torch.zeros(n, 2 * half, fp, **kw)
+    bh = torch.zeros(n, 2 * half, **kw)
+    gb = torch.zeros(n, 2, **kw)
+    pre = torch.zeros(2, n, dp, 2, **kw)
+    mix = torch.zeros(2, n, dp, dp, **kw)
+    dense = torch.zeros(n, 4, fp, fp, **kw)      # (out, in)
+    for parity in range(2):
+        P = packed[parity]
+        c = slice(parity, n, 2)
+        oc, ic = spec.halves[parity]
+        vec[c, :, :F] = P["VEC"].transpose(1, 2)
+        w0[c, :ic, :F] = P["W0"].transpose(1, 2)
+        wh[c, :oc, :F] = P["Wh"][:, :oc]
+        wh[c, half:half + oc, :F] = P["Wh"][:, oc:]
+        bh[c, :oc] = P["bh"][:, :oc, 0]
+        bh[c, half:half + oc] = P["bh"][:, oc:, 0]
+        gb[c] = P["gb"]
+        pre[0, c, :D] = P["pre"]
+        pre[1, c, :D] = P["prei"]
+        if spec.has_mix:
+            mix[0, c, :D, :D] = P["mix"]
+            mix[1, c, :D, :D] = P["mixi"]
+        dense[c, :, :F, :F] = P["WR"]
+    pad = torch.zeros(n, lay.header - lay.mix - dp * dp, **kw)
+    hdr = torch.stack([torch.cat([vec.flatten(1), w0.flatten(1), wh.flatten(1), bh, gb,
+                                  pre[d].flatten(1), mix[d].flatten(1), pad], dim=1)
+                       for d in range(2)])
+    outs, ins = b_fragment_index(fp)
+    b = dense[:, :, outs, ins]                   # (n, 4, fp/8, fp/8, 32, 2)
+    big = tf32_round(b)
+    b = torch.cat([big, b - big], dim=-1)         # b0 big, b1 big, b0 small, b1 small
+    hdr, frag = hdr.contiguous(), b.reshape(n, 4, -1).contiguous()
+    pointers = tuple((hdr[d].data_ptr(), frag.data_ptr()) for d in range(2))
+    return MmaWeights(lay, hdr, frag, pointers)
+
+
+@dataclass(frozen=True)
+class FfmaWeights:
+    """The FFMA kernel's weights per coupling c = 2*j + parity, zero-padded
+    to width fp: pre / prei (n, D, 2), w0t (n, in_max, fp) k-major, vec
+    (n, 15, fp), wrt (n, 4, fp, fp) k-major, wh (n, 2*out_max, fp) with the
+    t rows first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2),
+    and for Glow mix / mixi (n, D, D) row-major (out, in), else None."""
     fp: int
     pre: torch.Tensor
     prei: torch.Tensor
@@ -388,7 +578,7 @@ class KernelWeights:
 
 
 @torch.no_grad()
-def kernel_weights(spec: StackSpec, packed) -> KernelWeights:
+def ffma_weights(spec: StackSpec, packed) -> FfmaWeights:
     n, D, F = spec.n_repeats, spec.dim, spec.filters
     fp = padded_width(F)
     half = (D + 1) // 2                   # in_max == out_max
@@ -419,7 +609,14 @@ def kernel_weights(spec: StackSpec, packed) -> KernelWeights:
         if spec.has_mix:
             out["mix"][c] = P["mix"]
             out["mixi"][c] = P["mixi"]
-    return KernelWeights(fp=fp, **out)
+    return FfmaWeights(fp=fp, **out)
+
+
+def kernel_weights(spec: StackSpec, packed):
+    """The weights in the layout of the kernel ``kernel_variant`` picks."""
+    if kernel_variant(spec.dim, spec.filters) == "mma":
+        return mma_weights(spec, packed)
+    return ffma_weights(spec, packed)
 
 
 class PackedStack:
@@ -431,12 +628,13 @@ class PackedStack:
         self.packed = packed
         self.const_ld = const_ld
         self.device = const_ld.device
+        self.variant = kernel_variant(spec.dim, spec.filters)
         self.kernel = (kernel_weights(spec, packed)
                        if const_ld.device.type == "cuda" else None)
         self.ld_const = float(const_ld) if self.kernel is not None else None
 
 
-def _kernel_fn():
+def _ffma_fn():
     fn = _build.load("fused_stack").nf_fused_stack
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -445,12 +643,46 @@ def _kernel_fn():
     return fn
 
 
+def _mma_fn():
+    fn = _build.load("fused_stack_mma").nf_fused_stack_mma
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 5 + [i] * 7 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mma_blocks_per_sm(kw: MmaWeights, has_mix: bool, inverse: bool) -> int:
+    """Blocks of the tensor-core kernel's tiling that one SM of the current
+    card holds at once (the CUDA occupancy API, with the kernel's threads
+    and shared memory).  A batch of B launches ceil(B / MMA_SAMPLES)."""
+    fn = _build.load("fused_stack_mma").nf_fused_stack_mma_blocks_per_sm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    lay = kw.layout
+    out = ctypes.c_int(0)
+    err = fn(lay.fp, lay.dp, int(inverse), int(has_mix), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_stack_mma: occupancy query failed: CUDA error {err}")
+    return out.value
+
+
+def weight_bytes_to_sm(kw: MmaWeights, n: int, batch: int) -> int:
+    """Bytes the tensor-core kernel copies from L2 into its blocks' shared
+    memory in one direction at ``batch`` samples: every block reads every
+    coupling's header and four layers once."""
+    blocks = -(-batch // MMA_SAMPLES)
+    return blocks * n * 4 * (kw.layout.header + 4 * kw.layout.layer)
+
+
 def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
     """Launch the CUDA kernel on ``x`` (B, D): returns (y, logdet (B,))."""
     kw, spec = stack.kernel, stack.spec
     if not x.is_cuda:
         raise ValueError(f"fused_stack kernel needs a CUDA tensor, got {x.device}")
-    if kw is None or kw.gb.device != x.device:
+    held = None if kw is None else (kw.hdr if isinstance(kw, MmaWeights) else kw.gb).device
+    if held != x.device:
         raise ValueError(f"fused_stack: weights on {stack.device}, x on {x.device}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != spec.dim \
             or not x.is_contiguous():
@@ -458,21 +690,27 @@ def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
                          f"(B, {spec.dim}) tensor, got {x.dtype} {tuple(x.shape)}")
     B = x.shape[0]
     y = torch.empty_like(x)
-    ld = torch.empty(B, dtype=torch.float32, device=x.device)
+    ld = x.new_empty(B)
     if B == 0:
         return y, ld
-    S, TS = TILES[kw.fp]
-    mix = kw.mixi if inverse else kw.mix
-    fn = _kernel_fn()
+    ld_const = -stack.ld_const if inverse else stack.ld_const
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), ld.data_ptr(),
-                 (kw.prei if inverse else kw.pre).data_ptr(),
-                 0 if mix is None else mix.data_ptr(), kw.w0t.data_ptr(),
-                 kw.vec.data_ptr(), kw.wrt.data_ptr(), kw.wh.data_ptr(),
-                 kw.bh.data_ptr(), kw.gb.data_ptr(),
-                 B, spec.dim, spec.n_repeats, kw.fp, S, TS, int(inverse),
-                 int(spec.has_mix), -stack.ld_const if inverse else stack.ld_const,
-                 torch.cuda.current_stream().cuda_stream)
+        if isinstance(kw, MmaWeights):
+            lay = kw.layout
+            err = _mma_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr(), *kw.pointers[inverse],
+                            B, spec.dim, spec.n_repeats, lay.fp, lay.dp, int(inverse),
+                            int(spec.has_mix), ld_const, stream)
+        else:
+            S, TS = TILES[kw.fp]
+            mix = kw.mixi if inverse else kw.mix
+            err = _ffma_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr(),
+                             (kw.prei if inverse else kw.pre).data_ptr(),
+                             0 if mix is None else mix.data_ptr(), kw.w0t.data_ptr(),
+                             kw.vec.data_ptr(), kw.wrt.data_ptr(), kw.wh.data_ptr(),
+                             kw.bh.data_ptr(), kw.gb.data_ptr(),
+                             B, spec.dim, spec.n_repeats, kw.fp, S, TS, int(inverse),
+                             int(spec.has_mix), ld_const, stream)
     if err != 0:
         raise RuntimeError(f"fused_stack {'inverse' if inverse else 'forward'} "
                            f"kernel failed to launch: CUDA error {err}")

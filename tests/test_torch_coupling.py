@@ -5,7 +5,9 @@ The plain forward and inverse against nf_tpu's Pallas kernels in interpret
 mode, as tests/test_pallas.py runs them, atol 1e-5 (log-dets 1e-4: 256
 terms summed in another order).  The analytic backward (``CouplingFwd``'s
 CPU path) against nf_tpu's ``_cf_bwd`` and against ``torch.autograd`` of
-the plain forward, atol / rtol 1e-4 as tests/test_pallas.py.
+the plain forward, atol / rtol 1e-4 as tests/test_pallas.py.  The
+backward kernel's fold of dgain and dbias, walked in its order in f32,
+against the plain backward at rtol 1e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -109,3 +111,62 @@ def test_wrappers_raise_instead_of_running_the_plain_version():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             _build.load("coupling")
+
+
+def _butterfly(v):
+    """Lane 0 of an xor-butterfly sum over the last dimension (32 lanes):
+    v += v[lane ^ o] for o = 16, 8, 4, 2, 1, as warp_sum does."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def _fold_walk(z0, raw, gain, bias, gy, gld):
+    """dgain and dbias as csrc/coupling.cu's one-launch backward sums them,
+    in f32: per row, lane l adds its float4 steps i = l, l + 32, ... as
+    (x + y) + (z + w), then the warp's butterfly gives the row's partial;
+    the last block's FOLD_THREADS threads add rows k, k + FOLD_THREADS, ...
+    in order, each warp adds its lanes by a butterfly, and the warps are
+    added in order."""
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    th = torch.tanh(raw)
+    es = torch.exp(th * gain + bias)
+    ds = gy * z0 * es + gld[:, None]
+    B, N = ds.shape
+
+    def row_partials(v):
+        q = v.view(B, N // 4, 4)
+        steps = (q[..., 0] + q[..., 1]) + (q[..., 2] + q[..., 3])
+        lanes = torch.zeros(B, 32)
+        for i in range(N // 4):
+            lanes[:, i % 32] += steps[:, i]
+        return _butterfly(lanes)
+
+    def fold(p):
+        T = tc.FOLD_THREADS
+        rows = torch.nn.functional.pad(p, (0, -B % T)).view(-1, T)
+        acc = torch.zeros(T)
+        for r in range(rows.shape[0]):
+            acc = acc + rows[r]
+        total = torch.zeros(())
+        for w in _butterfly(acc.view(T // 32, 32)):
+            total = total + w
+        return total
+
+    assert ds.dtype == torch.float32
+    return fold(row_partials(ds * th)), fold(row_partials(ds))
+
+
+@pytest.mark.parametrize("B,N", [(1024, 512), (1000, 384), (77, 1536)])
+def test_backward_fold_order_matches_plain(B, N):
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    z0, _, raw, gain, bias = _t(*_inputs(B, N, seed=B))
+    gy, gld = _t(normal(B + 5, (B, N)), normal(B + 6, (B,)))
+    dgain, dbias = _fold_walk(z0, raw, gain, bias, gy, gld)
+    want = tc.coupling_bwd_reference(z0, raw, gain, bias, gy, gld)
+    close(dgain.reshape(1), want[3], 0.0, 1e-5)
+    close(dbias.reshape(1), want[4], 0.0, 1e-5)
+    assert tc.FOLD_THREADS == 32 * tc.ROWS_PER_BLOCK

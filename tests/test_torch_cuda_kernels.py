@@ -10,9 +10,10 @@ inverse x and logdet atol 1e-3 (the kernel stops each fixed point per tile
 of 16 samples, the plain version on the whole batch).  The coupling
 kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 (up to 1536 terms summed in another order), dgain and dbias rtol 1e-4
-(B x N terms).  Attention: out atol / rtol 1e-5 against the plain version
-(and PyTorch's SDPA) at D = 2 to 128 and L = 2 to 1500, its gradient
-through the Function 1e-5; D = 129 raises.  The
+(B x N terms), the backward one launch and the same bits on every run.
+Attention: out atol / rtol 1e-5 against the plain version (and
+PyTorch's SDPA) at D = 2 to 128 and L = 2 to 1500, its gradient through
+the Function 1e-5; D = 129 raises.  The
 mixture-CDF inverse: x atol / rtol 1e-4 against the plain version and
 1e-3 against the x that made y, the log-det atol 1e-3 (up to 1500 terms
 in another order), as nf_tpu's tests/test_pallas.py holds its kernel.
@@ -57,12 +58,18 @@ def _program(D, layers, F, seed, device, name="realnvp", K=8, logdet="unbias"):
 @pytest.mark.parametrize("name", ["realnvp", "glow"])
 @pytest.mark.parametrize("D,layers,F,B", [(2, 4, 8, 300), (2, 4, 32, 1024),
                                           (3, 4, 32, 777), (3, 4, 64, 1000),
-                                          (5, 2, 128, 100), (2, 2, 256, 70)])
+                                          (5, 2, 128, 100), (2, 2, 256, 70),
+                                          (2, 32, 32, 8192)])
 def test_fused_stack_kernel_matches_plain(cuda, name, D, layers, F, B):
+    """Every case runs the kernel its shape picks (the tensor-core kernel up
+    to F = 64, the FFMA kernel past it); (2, 32, 32, 8192) is the
+    headline."""
     from nf_tpu_torch.ops.cuda import fused_stack as fs
 
     prog, g = _program(D, layers, F, 0, cuda, name)
     assert prog.stack.spec.has_mix == (name == "glow")
+    assert prog.stack.variant == fs.kernel_variant(D, F)
+    assert isinstance(prog.stack.kernel, fs.MmaWeights if F <= 64 else fs.FfmaWeights)
     x = torch.randn(B, D, generator=g, device=cuda)
     for direction in ("forward", "inverse"):
         y, ld = fs.fused_stack(prog.stack, x, direction)
@@ -71,6 +78,19 @@ def test_fused_stack_kernel_matches_plain(cuda, name, D, layers, F, B):
                                            x, direction)
         torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+
+
+def test_fused_stack_headline_fills_the_card(cuda):
+    """B = 8192, F = 32, D = 2: 128 blocks of 4 consumer warps, all
+    resident at once (one wave)."""
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("realnvp", "glow"):
+        prog, _ = _program(2, 4, 32, 0, cuda, name)
+        for inverse in (False, True):
+            per_sm = fs.mma_blocks_per_sm(prog.stack.kernel, name == "glow", inverse)
+            assert per_sm >= 1 and -(-8192 // fs.MMA_SAMPLES) <= per_sm * sms
 
 
 @pytest.mark.parametrize("layers,F,K,B", [(4, 8, 4, 300), (4, 32, 8, 1024),
@@ -212,6 +232,24 @@ def test_coupling_backward_is_deterministic(cuda):
     for _ in range(3):
         for a, b in zip(first, tc.launch_bwd(z0, raw, gain, bias, gy, gld)):
             assert torch.equal(a, b)
+
+
+def test_coupling_backward_is_one_launch(cuda):
+    """launch_bwd runs exactly one kernel per call, including the fold of
+    dgain and dbias: 5 calls captured in a CUDA graph are 5 kernel nodes
+    (chip_smoke.kernels_per_call), and the wrapper counted its own kernel
+    at each."""
+    from chip_smoke import kernels_per_call
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z0, raw, gy = (torch.randn(1024, 512, generator=g, device=cuda) for _ in range(3))
+    gld = torch.randn(1024, generator=g, device=cuda)
+    gain, bias = torch.tensor([0.7], device=cuda), torch.tensor([-0.1], device=cuda)
+    calls = 5
+    tc.reset_launches()
+    assert kernels_per_call(lambda: tc.launch_bwd(z0, raw, gain, bias, gy, gld), calls) == 1
+    assert tc.LAUNCHES["coupling_bwd"] == calls + 1
 
 
 def test_coupling_autograd_on_the_card_matches_the_cpu(cuda):

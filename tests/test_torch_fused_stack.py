@@ -3,13 +3,18 @@
 * ``pack_stack``: every packed array and the constant log-det, atol 1e-6;
 * ``fused_stack_reference`` (the kernel's plain version) against the
   Pallas kernel in interpret mode, atol 2e-5 as tests/test_pallas.py;
-* the kernel's own weight layout (``kernel_weights``), walked the way the
-  CUDA kernel walks it, against the plain version.
+* the tensor-core kernel's weight layout (``kernel_weights``: headers and
+  B fragments with permuted input rows), walked the way the CUDA kernel
+  walks it, 3xTF32 split and quad reductions included, against the plain
+  version at 2e-5, RealNVP and Glow; the FFMA kernel's layout the same
+  way at the shapes it keeps (F = 128, D = 9);
+* the shape dispatch between the two kernels and their shared-memory
+  budgets.
 """
 import numpy as np
 import pytest
 import torch
-from _torch_parity import close, jax_realnvp, normal, torch_realnvp
+from _torch_parity import close, jax_model, jax_realnvp, normal, torch_model, torch_realnvp
 
 from nf_tpu.ops.pallas import fused_stack as jfs
 from nf_tpu_torch.ops.cuda import fused_stack as tfs
@@ -74,8 +79,128 @@ def test_reference_matches_pallas_interpret(D, F):
     close(ldi, jldi, 2e-5)
 
 
+def _trunc(x):
+    """x as the tensor core reads an f32 operand: 13 low mantissa bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _decode_layer(kw, c, layer):
+    """Layer ``layer`` of coupling c as the kernel multiplies it, from its B
+    fragments: (big, small) (fp, fp) [k-position, out], small as the tensor
+    core reads it."""
+    lay = kw.layout
+    fp, T = lay.fp, lay.fp // 8
+    f = kw.frag[c, layer].view(T, T, 32, 4)
+    big, small = f[..., :2], f[..., 2:]
+    ks = torch.arange(T)[:, None, None, None]
+    nt = torch.arange(T)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    r = torch.arange(2)[None, None, None, :]
+    shape = (T, T, 32, 2)
+    kpos = (8 * ks + lane % 4 + 4 * r).expand(shape)
+    out = (8 * nt + lane // 4).expand(shape)
+    Bb, Bs = torch.zeros(fp, fp), torch.zeros(fp, fp)
+    Bb[kpos, out] = big
+    Bs[kpos, out] = _trunc(small)
+    return Bb, Bs
+
+
+def _mma_3xtf32(u, Bb, Bs, perm):
+    """u (B, fp) in feature order times the decoded layer, as the kernel
+    forms it: A = u at the permuted positions, truncated to big + small per
+    k-step of 8, the small products first, each m16n8k8 product added to
+    the f32 accumulator."""
+    a = u[:, perm]
+    ab = _trunc(a)
+    asm = _trunc(a - ab)
+    acc = torch.zeros(u.shape[0], Bb.shape[1])
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        for lhs, rhs in ((ab, Bs), (asm, Bb), (ab, Bb)):
+            acc = acc + (lhs[:, k].double() @ rhs[k].double()).float()
+    return acc
+
+
+def _head(u, wh):
+    """raw = u wh^T in the kernel's order: lane t's partial dot product
+    over its features 8 j + 2 t, 8 j + 2 t + 1 (j ascending), then the
+    quad's sum (p0 + p1) + (p2 + p3)."""
+    fp = u.shape[1]
+    parts = []
+    for t in range(4):
+        p = torch.zeros(u.shape[0], wh.shape[0])
+        for j in range(fp // 8):
+            for e in range(2):
+                f = 8 * j + 2 * t + e
+                p = p + u[:, f:f + 1] * wh[:, f]
+        parts.append(p)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
 def _walk_kernel_layout(kw, spec, const_ld, x, inverse):
-    """The CUDA kernel's loop in PyTorch, reading ``KernelWeights`` at the
+    """The tensor-core kernel's walk in PyTorch, reading only
+    ``MmaWeights``: this direction's header per coupling at the layout's
+    offsets, the four layers decoded from their B fragments and multiplied
+    in 3xTF32, the head summed over the quad; couplings c = 0..n-1
+    (reversed for the inverse), parity c % 2, x padded to dp."""
+    lay = kw.layout
+    fp, dp, half = lay.fp, lay.dp, lay.half
+    n = spec.n_repeats
+    B, D = x.shape
+    perm = tfs.input_permutation(fp)
+    xs = torch.zeros(B, dp)
+    xs[:, :D] = x
+    ld = torch.zeros(B)
+    hdr = kw.hdr[int(inverse)]
+    for s in range(n):
+        c = n - 1 - s if inverse else s
+        P = c % 2
+        n_out = (D + 1 - P) // 2
+        h = hdr[c]
+        vec = h[:lay.w0].view(15, fp)
+        w0 = h[lay.w0:lay.wh].view(half, fp)
+        wh = h[lay.wh:lay.bh].view(2 * half, fp)
+        bh = h[lay.bh:lay.gb]
+        gain, cbias = h[lay.gb], h[lay.gb + 1]
+        pre = h[lay.pre:lay.mix].view(dp, 2)
+        mix = h[lay.mix:lay.mix + dp * dp].view(dp, dp)
+        if not inverse:
+            xs = (xs - pre[:, 0]) * pre[:, 1]
+            if spec.has_mix:
+                xs = xs @ mix.T
+        hh = vec[0].expand(B, fp)
+        for k in range(half):
+            hh = hh + xs[:, 2 * k + 1 - P, None] * w0[k]
+        for r in range(2):
+            o = 1 + 6 * r
+            u = torch.relu(hh * vec[o] + vec[o + 1])
+            acc = _mma_3xtf32(u, *_decode_layer(kw, c, 2 * r), perm) + vec[o + 2]
+            u = torch.relu(acc * vec[o + 3] + vec[o + 4])
+            acc = _mma_3xtf32(u, *_decode_layer(kw, c, 2 * r + 1), perm) + vec[o + 5]
+            hh = hh + acc
+        raw = _head(torch.relu(hh * vec[13] + vec[14]), wh) + bh
+        xs = xs.clone()
+        lsum = torch.zeros(B)
+        for k in range(n_out):
+            sv = torch.tanh(raw[:, half + k]) * gain + cbias
+            row = 2 * k + P
+            if inverse:
+                xs[:, row] = (xs[:, row] - raw[:, k]) * torch.exp(-sv)
+            else:
+                xs[:, row] = xs[:, row] * torch.exp(sv) + raw[:, k]
+            lsum = lsum + sv
+        ld = ld - lsum if inverse else ld + lsum
+        if inverse:
+            if spec.has_mix:
+                xs = xs @ mix.T
+            xs = xs * pre[:, 1] + pre[:, 0]
+    assert torch.all(xs[:, D:] == 0)     # padded dimensions stay exactly 0
+    return xs[:, :D], ld + (-const_ld if inverse else const_ld)
+
+
+def _walk_ffma_layout(kw, spec, const_ld, x, inverse):
+    """The FFMA kernel's loop in PyTorch, reading ``FfmaWeights`` at the
     padded width: couplings c = 0..n-1 (reversed for the inverse), parity
     c % 2, t rows first and s rows from ``half`` in the head."""
     B, D = x.shape
@@ -110,13 +235,22 @@ def _walk_kernel_layout(kw, spec, const_ld, x, inverse):
     return x, ld + (-const_ld if inverse else const_ld)
 
 
-@pytest.mark.parametrize("D,F", [(2, 8), (3, 20), (5, 32)])
-def test_kernel_layout_matches_reference(D, F):
-    tmodel = torch_realnvp(D, 4, F, jax_realnvp(D, 4, F, seed=1)[1])
+def _packed(name, D, F):
+    tmodel = torch_model(name, D, 4, F, jax_model(name, D, 4, F, seed=1)[1])
     spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
-    packed, const_ld = tfs.pack_stack(tmodel.bijector, spec)
+    assert spec is not None and spec.has_mix == (name == "glow")
+    return (spec, *tfs.pack_stack(tmodel.bijector, spec))
+
+
+@pytest.mark.parametrize("name", ["realnvp", "glow"])
+@pytest.mark.parametrize("D,F", [(2, 8), (3, 20), (5, 32), (2, 64)])
+def test_kernel_layout_matches_reference(name, D, F):
+    spec, packed, const_ld = _packed(name, D, F)
     kw = tfs.kernel_weights(spec, packed)
-    assert kw.fp == tfs.padded_width(F) and kw.fp >= F
+    assert isinstance(kw, tfs.MmaWeights)
+    assert kw.fp == tfs.padded_width(F) and kw.fp >= F and kw.layout.dp >= D
+    assert kw.hdr.shape == (2, spec.n_repeats, kw.layout.header)
+    assert kw.frag.shape == (spec.n_repeats, 4, kw.layout.layer)
     x = torch.from_numpy(normal(20 + D, (33, D)))
     for direction in ("forward", "inverse"):
         want = tfs.fused_stack_reference(packed, const_ld, x, direction)
@@ -125,12 +259,63 @@ def test_kernel_layout_matches_reference(D, F):
         close(got[1], want[1], 2e-5)
 
 
+def test_input_permutation_makes_c_fragments_a_fragments():
+    """Lane (g, t) holds features 8 j + 2 t and 8 j + 2 t + 1 of an output
+    n-tile j; an A fragment reads k-positions t and t + 4 of k-step j: the
+    permutation maps those positions to those features."""
+    for fp in tfs.MMA_WIDTHS:
+        perm = tfs.input_permutation(fp)
+        assert sorted(perm.tolist()) == list(range(fp))
+        for j in range(fp // 8):
+            for t in range(4):
+                assert int(perm[8 * j + t]) == 8 * j + 2 * t
+                assert int(perm[8 * j + t + 4]) == 8 * j + 2 * t + 1
+        # the fragments hold every weight once
+        outs, ins = tfs.b_fragment_index(fp)
+        assert len(set((outs * fp + ins).flatten().tolist())) == fp * fp
+
+
+@pytest.mark.parametrize("D,F", [(2, 128), (9, 16)])
+def test_ffma_layout_matches_reference(D, F):
+    """Stacks past the tensor-core kernel (padded width 128, or D > 8)
+    keep the FFMA kernel and its layout."""
+    spec, packed, const_ld = _packed("realnvp", D, F)
+    assert tfs.kernel_variant(D, F) == "ffma"
+    kw = tfs.kernel_weights(spec, packed)
+    assert isinstance(kw, tfs.FfmaWeights) and kw.fp == tfs.padded_width(F)
+    x = torch.from_numpy(normal(30 + D, (21, D)))
+    for direction in ("forward", "inverse"):
+        want = tfs.fused_stack_reference(packed, const_ld, x, direction)
+        got = _walk_ffma_layout(kw, spec, const_ld, x, direction == "inverse")
+        close(got[0], want[0], 2e-5)
+        close(got[1], want[1], 2e-5)
+
+
+def test_kernel_variant_follows_the_shape():
+    """The tensor-core kernel up to a padded width of 64 and D <= 8, the
+    FFMA kernel past either; the card tests' cases and the headline."""
+    want = {(2, 32): "mma", (2, 8): "mma", (3, 20): "mma", (3, 64): "mma", (5, 64): "mma",
+            (8, 64): "mma", (2, 65): "ffma", (5, 128): "ffma", (2, 256): "ffma",
+            (9, 8): "ffma", (12, 32): "ffma"}
+    assert {k: tfs.kernel_variant(*k) for k in want} == want
+    assert [tfs.mma_dim(D) for D in (1, 2, 3, 5, 8)] == [2, 2, 8, 8, 8]
+    for name in ("realnvp", "glow"):
+        model = torch_model(name, 2, 2, 8)
+        stack = model.eval_program().stack
+        assert stack.variant == "mma" and stack.kernel is None   # CPU: no kernel layout
+
+
 def test_smem_budget_covers_headline_and_wide_stacks():
-    # the headline stack and the widest accepted conditioner fit one block
-    for fp, (S, _) in tfs.TILES.items():
-        assert tfs.smem_bytes(fp, S, 3) <= tfs.SMEM_LIMIT
-    fp = tfs.padded_width(32)
-    assert tfs.smem_bytes(fp, tfs.TILES[fp][0], 2) < 48 * 1024
+    # every tensor-core tiling fits one block; the headline's block is the
+    # ring of 8 layer slots (8 KB each), two headers and the mbarriers
+    for fp in tfs.MMA_WIDTHS:
+        for dp in tfs.MMA_DIMS:
+            assert tfs.MmaLayout(fp, dp).smem_bytes <= tfs.SMEM_LIMIT
+    head = tfs.MmaLayout(32, 2)
+    assert head.smem_bytes == 256 + 4 * (8 * 2048 + 2 * 588) == 70496
+    # the FFMA kernel's tiles for the widths past the tensor-core kernel
+    for fp in (128, 256):
+        assert tfs.smem_bytes(fp, tfs.TILES[fp][0], 3) <= tfs.SMEM_LIMIT
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -154,9 +154,10 @@ def test_reference_matches_pallas_interpret(D, F):
 
 
 def _walk_kernel_layout(kw, spec, const_ld, x, inverse):
-    """The CUDA kernel's loop in PyTorch, reading ``KernelWeights`` at the
+    """The FFMA kernel's loop in PyTorch, reading ``FfmaWeights`` at the
     padded width, with the mix applied per sample after the norm (forward)
-    and before the un-norm (inverse)."""
+    and before the un-norm (inverse); the tensor-core kernel's layout is
+    walked in tests/test_torch_fused_stack.py."""
     B, D = x.shape
     half = (D + 1) // 2
     x = x.clone()
@@ -195,7 +196,7 @@ def test_kernel_layout_matches_reference(D, F):
     tmodel = torch_model("glow", D, 4, F, jax_model("glow", D, 4, F, seed=1)[1])
     spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
     packed, const_ld = tfs.pack_stack(tmodel.bijector, spec)
-    kw = tfs.kernel_weights(spec, packed)
+    kw = tfs.ffma_weights(spec, packed)
     assert kw.mix.shape == kw.mixi.shape == (spec.n_repeats, D, D)
     x = torch.from_numpy(normal(20 + D, (33, D)))
     for direction in ("forward", "inverse"):
