@@ -116,8 +116,8 @@ def mix_log_cdf_inverse(y, logpi, mu, s):
     """Inverse of y = MixLogisticCDF(x): (x, per-sample logdet (B,)).
 
     ``y`` is (B, ...) and the mixture tensors (..., K), ``nf_tpu``'s
-    layout.  The plain Newton on a CPU tensor; on a CUDA tensor the kernel
-    (or an error where it does not cover the shape)."""
+    layout.  The plain Newton on a CPU tensor; on a CUDA tensor the kernel,
+    which takes any K."""
     if y.device.type == "cpu":
         return mix_log_cdf_inverse_reference(y, logpi, mu, s)
     B, K = y.shape[0], logpi.shape[-1]

@@ -104,6 +104,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int kProbes = 4;
@@ -604,6 +606,253 @@ __global__ void __launch_bounds__(kT, FP <= 32 ? 4 : 1) fused_resflow_kernel(con
   }
 }
 
+// ---- the solve: a warp per 8 samples, no block barriers
+//
+// fused_resflow_solve_kernel computes what variant 0 (solve) computes, for
+// FP <= 64.  Each consumer warp owns 8 samples (one mma's N) for the whole
+// walk; the weights arrive through a ring of residual-block slots that a
+// producer warp fills with bulk copies (csrc/bulk_ring.cuh).
+
+constexpr int kSolveBarBytes = 128;  // the ring's mbarriers, ahead of the ring
+
+// ring slots: residual blocks in flight
+__host__ __device__ constexpr int solve_slots(int fp) { return fp <= 32 ? 4 : 2; }
+
+// one residual block's slot: its small tensors at Layout's offsets, then
+// the W2t fragments (W2 is the series' and stays in device memory)
+template <int FP, int DP>
+struct SolveSlot {
+  using L = Layout<FP, DP>;
+  static constexpr int kW2t = L::kSmall;
+  static constexpr int kSize = L::kSmall + 2 * FP * FP;
+};
+
+template <int FP, int DP>
+constexpr int solve_smem_bytes() {
+  return kSolveBarBytes + 4 * solve_slots(FP) * SolveSlot<FP, DP>::kSize;
+}
+
+struct SolveParams {
+  const float* x;  // (B, D) z
+  float* y;        // (B, D) x
+  const float* w;  // (n, Layout::kSize) the weight blocks, as the series kernels read them
+  int B, n, D, n_iters;
+  float ftol;
+};
+
+// LipSwish h = a s / 1.1, s = sigmoid(beta a), in the arithmetic form ARITH:
+// 0 accurate expf and IEEE divisions; 1 the same with / 1.1 as a multiply by
+// the f32 constant 1 / 1.1; 2 also __expf and __fdividef
+template <int ARITH>
+__device__ __forceinline__ float lipswish_h(float a, float beta) {
+  if constexpr (ARITH == 0) {
+    return a * sigmoid(beta * a) / 1.1f;
+  } else if constexpr (ARITH == 1) {
+    return a * sigmoid(beta * a) * (1.f / 1.1f);
+  } else {
+    return a * __fdividef(1.f, 1.f + __expf(-(beta * a))) * (1.f / 1.1f);
+  }
+}
+
+// g at this lane's sample x (sample g of the warp): gout[d] for every d,
+// the same on the quad's four lanes.  wc is the residual block's slot.
+//  h1 is formed in the B layout: lane 4 g + t computes features 8 ks + t
+//  and 8 ks + t + 4 of its sample, split for 3xTF32.  W2t h1 runs on
+//  mma.sync over all m-tiles (independent accumulator chains).  h2 and the
+//  W3t fold stay in the C layout (rows 16 mt + g, + 8; columns 2 t, 2 t + 1),
+//  reduced over the 8 row lanes by xor shuffles that scatter the two
+//  columns, then gathered back to sample g.
+template <int FP, int DP, int ARITH>
+__device__ __forceinline__ void warp_g(const float* wc, const float (&x)[DP], float (&gout)[DP],
+                                       int lane) {
+  using L = Layout<FP, DP>;
+  constexpr int MT = L::kMT, KS = L::kKS;
+  const int g = lane >> 2, t = lane & 3;
+  const float beta_a = wc[L::kBeta], beta_b = wc[L::kBeta + 1];
+  const float* frags = wc + SolveSlot<FP, DP>::kW2t + 4 * lane;
+  float acc[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[mt][r] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t bb[2], bs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = 8 * ks + t + 4 * h;
+      float a = 0.f;
+#pragma unroll
+      for (int d = 0; d < DP; ++d) a = fmaf(wc[L::kW1t + f * DP + d], x[d], a);
+      split(lipswish_h<ARITH>(a + wc[L::kB1 + f], beta_a), bb[h], bs[h]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma3(acc[mt], frags + (ks * MT + mt) * 256, bb, bs);
+  }
+  float gp[2][DP];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int d = 0; d < DP; ++d) gp[c][d] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // (row, column) = (16 mt + g | + 8, 2 t | 2 t + 1)
+      const int o = 16 * mt + g + 8 * (r >> 1), c = r & 1;
+      const float h = lipswish_h<ARITH>(acc[mt][r] + wc[L::kB2 + o], beta_b);
+#pragma unroll
+      for (int d = 0; d < DP; ++d) gp[c][d] = fmaf(wc[L::kW3t + d * FP + o], h, gp[c][d]);
+    }
+  // the xor-4 step keeps column 2 t + (g & 1) and sends the other; after the
+  // xor-8 and xor-16 steps lane 4 g + t holds that column's sum, so sample g
+  // is on lane 4 (g & 1) + (g >> 1)
+  const int odd = g & 1, src = 4 * odd + (g >> 1);
+#pragma unroll
+  for (int d = 0; d < DP; ++d) {
+    const float keep = odd ? gp[1][d] : gp[0][d];
+    const float send = odd ? gp[0][d] : gp[1][d];
+    float r = keep + __shfl_xor_sync(kFull, send, 4);
+    r += __shfl_xor_sync(kFull, r, 8);
+    r += __shfl_xor_sync(kFull, r, 16);
+    gout[d] = __shfl_sync(kFull, r, src) + wc[L::kB3 + d];
+  }
+}
+
+// WARPS consumer warps and one producer warp per block.  Stopping is per
+// warp: a warp's 8 samples leave a residual block's fixed point when
+// it == n_iters or max|x - prev| < ftol over its valid samples.  nf_tpu
+// stops per batch tile and its chain on the whole batch; all stop only
+// where max|x - prev| < ftol.
+template <int FP, int DP, int WARPS, int ARITH>
+__global__ void __launch_bounds__(32 * (WARPS + 1))
+    fused_resflow_solve_kernel(const SolveParams prm) {
+  using L = Layout<FP, DP>;
+  using SL = SolveSlot<FP, DP>;
+  constexpr int S = solve_slots(FP);
+  extern __shared__ __align__(16) float smem[];  // the series kernels' declaration
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  float* ring = smem + kSolveBarBytes / 4;
+  static_assert(2 * S * 8 <= kSolveBarBytes, "the barriers outgrow their room");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = prm.n;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], WARPS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {
+    // the producer: residual block n - 1 - s into slot s % S, once the
+    // consumers have released the slot
+    if (lane == 0) {
+      for (int s = 0; s < n; ++s) {
+        const int slot = s % S;
+        const float* src = prm.w + (size_t)(n - 1 - s) * L::kSize;
+        float* dst = ring + slot * SL::kSize;
+        bar_wait(&empty[slot], ((s / S) & 1) ^ 1);
+        bar_expect(&full[slot], 4 * SL::kSize);
+        bulk_load(dst, src, 4 * L::kSmall, &full[slot]);
+        bulk_load(dst + SL::kW2t, src + L::kW2t, 8 * FP * FP, &full[slot]);
+      }
+    }
+    return;
+  }
+
+  const int sample = (blockIdx.x * WARPS + warp) * 8 + (lane >> 2);
+  const bool valid = sample < prm.B;
+  const int D = prm.D;
+  float x[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) x[d] = (valid && d < D) ? prm.x[(size_t)sample * D + d] : 0.f;
+
+  for (int s = 0; s < n; ++s) {
+    const int slot = s % S;
+    bar_wait(&full[slot], (s / S) & 1);
+    const float* wc = ring + slot * SL::kSize;
+    float z[DP], prev[DP], gv[DP];
+#pragma unroll
+    for (int d = 0; d < DP; ++d) z[d] = prev[d] = x[d];
+    warp_g<FP, DP, ARITH>(wc, z, gv, lane);
+#pragma unroll
+    for (int d = 0; d < DP; ++d) x[d] = z[d] - gv[d];
+    for (int it = 1; it < prm.n_iters; ++it) {
+      bool moving = false;
+#pragma unroll
+      for (int d = 0; d < DP; ++d) moving |= valid && fabsf(x[d] - prev[d]) >= prm.ftol;
+      if (!__any_sync(kFull, moving)) break;
+#pragma unroll
+      for (int d = 0; d < DP; ++d) prev[d] = x[d];
+      warp_g<FP, DP, ARITH>(wc, x, gv, lane);
+#pragma unroll
+      for (int d = 0; d < DP; ++d) x[d] = z[d] - gv[d];
+    }
+    // ActNorm inverse
+#pragma unroll
+    for (int d = 0; d < DP; ++d) x[d] = x[d] * expf(wc[L::kAnS + d]) + wc[L::kAnB + d];
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[slot]);
+  }
+
+  if ((lane & 3) == 0 && valid) {
+#pragma unroll
+    for (int d = 0; d < DP; ++d)
+      if (d < D) prm.y[(size_t)sample * D + d] = x[d];
+  }
+}
+
+template <int FP, int DP, int WARPS, int ARITH>
+cudaError_t launch_solve(const SolveParams& prm, cudaStream_t stream, int* blocks_per_sm) {
+  constexpr int smem = solve_smem_bytes<FP, DP>();
+  constexpr int threads = 32 * (WARPS + 1);
+  auto kernel = fused_resflow_solve_kernel<FP, DP, WARPS, ARITH>;
+  static bool opted_in = false;  // above 48 KB a block needs the opt-in
+  if (!opted_in) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+  kernel<<<(prm.B + 8 * WARPS - 1) / (8 * WARPS), threads, smem, stream>>>(prm);
+  return cudaGetLastError();
+}
+
+constexpr int kSolveWarps = 4;  // consumer warps per block
+constexpr int kSolveArith = 0;  // LipSwish's arithmetic form (lipswish_h)
+
+cudaError_t dispatch_solve(const SolveParams& prm, int fp, int dp, int warps, int arith,
+                           cudaStream_t stream, int* blocks_per_sm) {
+#define NF_SOLVE(FP_, DP_, W_, A_)                                \
+  if (fp == FP_ && dp == DP_ && warps == W_ && arith == A_) \
+    return launch_solve<FP_, DP_, W_, A_>(prm, stream, blocks_per_sm);
+#define NF_SOLVE_TILING(FP_, DP_) NF_SOLVE(FP_, DP_, kSolveWarps, kSolveArith)
+  NF_SOLVE_TILING(16, 2)
+  NF_SOLVE_TILING(16, 4)
+  NF_SOLVE_TILING(16, 8)
+  NF_SOLVE_TILING(32, 2)
+  NF_SOLVE_TILING(32, 4)
+  NF_SOLVE_TILING(32, 8)
+  NF_SOLVE_TILING(64, 2)
+  NF_SOLVE_TILING(64, 4)
+  NF_SOLVE_TILING(64, 8)
+  // the main path's tiling in the other block sizes and arithmetic forms,
+  // measured against the above
+  NF_SOLVE(32, 2, 4, 1)
+  NF_SOLVE(32, 2, 4, 2)
+  NF_SOLVE(32, 2, 8, 0)
+  NF_SOLVE(32, 2, 8, 1)
+  NF_SOLVE(32, 2, 8, 2)
+#undef NF_SOLVE_TILING
+#undef NF_SOLVE
+  return cudaErrorInvalidValue;
+}
+
 // Launches the variant on `stream`, or with blocks_per_sm set only
 // reports how many of its blocks one SM holds at once.
 template <int FP, int DP, bool SOLVE, bool LOGDET>
@@ -704,4 +953,28 @@ extern "C" int nf_fused_resflow(const void* x, void* y, void* ld, const void* w,
 extern "C" int nf_fused_resflow_blocks_per_sm(int fp, int dp, int variant, int* blocks_per_sm) {
   if (blocks_per_sm == nullptr) return (int)cudaErrorInvalidValue;
   return (int)dispatch(Params{}, fp, dp, variant, nullptr, blocks_per_sm);
+}
+
+// Plain C entry point of the warp-per-8-samples solve: z (B, D) -> x (B, D)
+// on `stream`, returning the cudaError_t of the launch.  (fp, dp) one of
+// its tilings (FP <= 64); warps the consumer warps per block and arith the
+// LipSwish form (lipswish_h): the main tiling takes kSolveWarps and
+// kSolveArith, FP = 32, DP = 2 also the other measured forms.
+extern "C" int nf_fused_resflow_solve(const void* x, void* y, const void* w, int B, int n, int D,
+                                      int F, int fp, int dp, int n_iters, float ftol, int warps,
+                                      int arith, void* stream) {
+  if (B < 1 || D < 1 || D > dp || F < 1 || F > fp || n < 1 || n_iters < 1)
+    return (int)cudaErrorInvalidValue;
+  const SolveParams prm{static_cast<const float*>(x), static_cast<float*>(y),
+                        static_cast<const float*>(w), B, n, D, n_iters, ftol};
+  return (int)dispatch_solve(prm, fp, dp, warps, arith, static_cast<cudaStream_t>(stream),
+                             nullptr);
+}
+
+// Blocks of the solve kernel's (fp, dp, warps, arith) tiling that one SM
+// holds at once, into *blocks_per_sm.
+extern "C" int nf_fused_resflow_solve_blocks_per_sm(int fp, int dp, int warps, int arith,
+                                                    int* blocks_per_sm) {
+  if (blocks_per_sm == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_solve(SolveParams{}, fp, dp, warps, arith, nullptr, blocks_per_sm);
 }

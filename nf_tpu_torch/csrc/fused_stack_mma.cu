@@ -47,9 +47,10 @@
 //    live in registers from the first load to the last store.
 //  * The weights stream through a ring of layer slots that the block's
 //    four consumer warps share, filled by one producer warp with 1-D bulk
-//    TMA copies (cp.async.bulk) that complete on a full mbarrier per slot;
-//    consumer warps wait on full barriers and release empty ones, so warps
-//    never meet at a block barrier.  Up to FP = 32 the ring holds two
+//    TMA copies (cp.async.bulk; csrc/bulk_ring.cuh) that complete on a
+//    full mbarrier per slot; consumer warps wait on full barriers and
+//    release empty ones, so warps never meet at a block barrier.  Up to
+//    FP = 32 the ring holds two
 //    couplings' layers and a step waits for its four at its start and
 //    releases them at its end (no barrier instruction then orders the
 //    loads inside a step, which measured faster on an H100 than a wait and
@@ -84,6 +85,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "bulk_ring.cuh"
 
 namespace {
 
@@ -135,59 +138,6 @@ __host__ __device__ constexpr int ring_stages(int fp) { return fp <= 32 ? 8 : 4;
 template <int FP, int DP>
 constexpr int smem_bytes() {
   return kBarBytes + 4 * (ring_stages(FP) * Layer<FP>::kSize + 2 * Header<FP, DP>::kSize);
-}
-
-// ---- mbarriers and bulk copies
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(shared_addr(bar)) : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed; a
-// wait that outlasts 2^26 polls (over a second, against a kernel of well
-// under a millisecond) traps, so a lost arrival fails the launch instead
-// of hanging the card
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = shared_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// one arrival that also announces `bytes` of bulk copies to come
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// global -> shared, `bytes` a multiple of 16, both ends 16-byte aligned;
-// completes on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(shared_addr(dst)),
-      "l"(src), "r"(bytes), "r"(shared_addr(bar))
-      : "memory");
 }
 
 // ---- 3xTF32 on mma.sync
@@ -471,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_mma_kernel(const Para
       bar_init(&hfull[i], 1);
       bar_init(&hempty[i], kWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 

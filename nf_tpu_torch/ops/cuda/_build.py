@@ -3,11 +3,11 @@
 Each ``nf_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/nf_tpu_torch/lib<name>-<hash>.so`` at the repository root, on first
-use.  The hash covers the source and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is.  ``build`` starts one
-``nvcc`` per source that needs it, all at once, and waits for all of them.
-The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-kept beside each library as ``.log``.
+use.  The hash covers the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source builds anew and an unchanged one is loaded
+as it is.  ``build`` starts one ``nvcc`` per source that needs it, all at
+once, and waits for all of them.  The compiler's output (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside each library as ``.log``.
 """
 from __future__ import annotations
 
@@ -55,7 +55,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -537,11 +537,77 @@ def blocks_per_sm(fp: int, dp: int, direction: str) -> int:
     return out.value
 
 
+# the solve kernel (``fused_resflow_solve_kernel``): a warp per 8 samples,
+# the weights through a ring of residual-block slots filled by a producer
+# warp; for the padded widths SOLVE_WIDTHS.  Wider stacks run variant 0.
+SOLVE_WIDTHS = (16, 32, 64)
+SOLVE_WARPS = 4     # consumer warps per block, and one producer warp
+SOLVE_ARITH = 0     # LipSwish's arithmetic form (the kernel's lipswish_h)
+SOLVE_BARRIER_BYTES = 128
+
+
+def solve_kernel(fp: int) -> str:
+    """Which kernel runs the solve at padded width FP: 'warp' (the
+    warp-per-8-samples kernel) or 'tile' (variant 0, 16-sample tiles)."""
+    return "warp" if fp in SOLVE_WIDTHS else "tile"
+
+
+def solve_slots(fp: int) -> int:
+    """Residual blocks in flight in the solve kernel's ring."""
+    return 4 if fp <= 32 else 2
+
+
+def solve_slot_floats(fp: int, dp: int) -> int:
+    """One ring slot: the block's small tensors, then its W2t fragments."""
+    return Layout(fp, dp).small + 2 * fp * fp
+
+
+def solve_smem_bytes(fp: int, dp: int) -> int:
+    return SOLVE_BARRIER_BYTES + 4 * solve_slots(fp) * solve_slot_floats(fp, dp)
+
+
+def solve_blocks(B: int, warps: int = SOLVE_WARPS) -> int:
+    return -(-B // (8 * warps))
+
+
+def solve_weight_bytes_to_sm(kw: KernelWeights, n: int, B: int,
+                             warps: int = SOLVE_WARPS) -> int:
+    """Bytes the solve kernel's producer warps copy from L2 into shared
+    memory per call: every block reads every residual block's slot."""
+    return solve_blocks(B, warps) * n * 4 * solve_slot_floats(kw.fp, kw.dp)
+
+
+def solve_blocks_per_sm(fp: int, dp: int, warps: int = SOLVE_WARPS,
+                        arith: int = SOLVE_ARITH) -> int:
+    """Blocks of the solve kernel that one SM of the current card holds at
+    once (the CUDA occupancy API)."""
+    fn = _build.load("fused_resflow").nf_fused_resflow_solve_blocks_per_sm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(fp, dp, warps, arith, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_resflow: occupancy query failed: CUDA error {err}")
+    return out.value
+
+
+def _solve_fn():
+    fn = _build.load("fused_resflow").nf_fused_resflow_solve
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
-           probes: Optional[Probes] = None):
+           probes: Optional[Probes] = None, solve_form=None):
     """Launch the CUDA kernel on ``x`` (B, D).  ``direction`` 'forward'
     (fwd_ld) or 'inverse' (solve_ld) returns (y, logdet (B,)) and needs
-    ``probes``; 'solve' returns x."""
+    ``probes``; 'solve' returns x, from the kernel ``solve_kernel`` picks.
+    ``solve_form`` (warps, arith) picks another measured form of the
+    warp-per-8-samples kernel, or 'tile' variant 0."""
     variant, counter = _variant(direction)
     kw, spec = stack.kernel, stack.spec
     if not covers(spec):
@@ -570,6 +636,16 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
     ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
     if B == 0:
         return (y, ld) if logdet else y
+    if direction == "solve" and solve_form != "tile" and solve_kernel(kw.fp) == "warp":
+        warps, arith = solve_form or (SOLVE_WARPS, SOLVE_ARITH)
+        with torch.cuda.device(x.device):
+            err = _solve_fn()(x.data_ptr(), y.data_ptr(), kw.w.data_ptr(), B, spec.n_repeats,
+                              spec.dim, spec.filters, kw.fp, kw.dp, spec.n_iters, spec.ftol,
+                              warps, arith, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused_resflow solve kernel failed to launch: CUDA error {err}")
+        LAUNCHES[counter] += 1
+        return y
     sign = 1.0 if direction == "forward" else -1.0
     nt = (ctypes.c_int * N_SAMPLES)(*n_terms)
     pairs = (ctypes.c_int * N_SAMPLES)(*probe_pairs(n_terms))

@@ -5,10 +5,23 @@
 ``mix_log_cdf_inverse_pallas``): per element of y (B, N) it solves
 ``MixLogisticCDF(x; logpi, mu, s) = y`` with ``bijectors/mixlogcdf.py``'s
 bracket-safeguarded Newton (same constants, the converged-freeze as an
-early exit) and writes the per-row log-det ``-sum_N log pdf(x)``.  The
-mixture tensors keep ``nf_tpu``'s own (B, N, K) layout: on Hopper the K
-parameters of one element are contiguous, so the TPU's (B, K, N) sublane
-transpose is not copied.
+early exit) and writes the per-row log-det ``-sum_N log pdf(x)``, for any
+number of components K.  The mixture tensors keep ``nf_tpu``'s own
+(B, N, K) layout: on Hopper the K parameters of one element are
+contiguous, so the TPU's (B, K, N) sublane transpose is not copied.
+
+The kernel's schedule, kept here where the CPU tests walk it:
+
+* ``component_chunks``: the components in chunks of ``COMPONENT_CHUNK``, in
+  k order; up to one chunk (``resident``) a lane keeps its element's
+  mixture in registers through the Newton trips;
+* ``rows_per_block``: a block of ``WARPS`` warps takes that many
+  consecutive rows as one run of elements, chosen so the grid is about one
+  wave of the card; ``warp_parts``: each warp's contiguous part of its
+  block's run;
+* lane refill: a lane whose element is done takes the next element of its
+  warp's part at the next trip; ``part_trips`` counts the trips a part
+  takes from its elements' Newton evaluations.
 
 ``MixLogCdfInverse`` is the ``torch.autograd.Function``: its forward
 launches the kernel; its backward raises, as ``nf_tpu``'s kernel has no
@@ -17,19 +30,25 @@ VJP.  The plain version is ``bijectors/mixlogcdf.py``'s
 dispatcher.  ``LAUNCHES`` counts the wrapper's launches where it launches.
 
 Bound (H100 SXM): 4 (2 + 3K) bytes per element against about (K + 1)
-transcendentals and 11K + 20 f32 operations per Newton evaluation, 4 to 8
+transcendentals and 11K + 20 f32 operations per Newton evaluation, 4 to 5
 evaluations per element on typical data (chip_smoke.py counts them).
 """
 from __future__ import annotations
 
 import ctypes
+import heapq
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 LAUNCHES = {"mix_log_cdf_inverse": 0}
-MIXTURES = (8, 32)   # the kernel's padded mixture counts KP
+WARPS = 8             # warps per block
+CHUNK = 2048          # elements of a block's run held in shared memory
+COMPONENT_CHUNK = 8   # components a lane holds in registers at once
+
+_info: Dict[Tuple[int, bool], Tuple[int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -37,13 +56,84 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def padded_mixtures(K: int) -> int:
-    """The kernel's KP for K components; NotImplementedError past the
-    largest."""
-    for kp in MIXTURES:
-        if K <= kp:
-            return kp
-    raise NotImplementedError(f"the mixture-inverse kernel covers K <= {MIXTURES[-1]}, got K = {K}")
+def component_chunks(K: int) -> List[Tuple[int, int]]:
+    """The kernel's walk over K components: [k0, k1) chunks in k order."""
+    return [(k0, min(K, k0 + COMPONENT_CHUNK)) for k0 in range(0, K, COMPONENT_CHUNK)]
+
+
+def resident(K: int) -> bool:
+    """Whether a lane keeps its element's mixture in registers (one chunk)."""
+    return K <= COMPONENT_CHUNK
+
+
+def rows_per_block(B: int, N: int, resident_blocks: int) -> int:
+    """Rows a block takes: enough that the grid fits ``resident_blocks``
+    (the blocks the card holds at once) where the run fits ``CHUNK``."""
+    most = max(1, CHUNK // N)
+    return max(1, min(most, -(-B // resident_blocks)))
+
+
+def warp_parts(B: int, N: int, rows: int) -> List[Tuple[int, int]]:
+    """Each warp's [start, end) of the flattened (B, N) elements, block by
+    block and, within a block's run (pieces of CHUNK elements for rows
+    longer than that), warp by warp."""
+    parts = []
+    for row0 in range(0, B, rows):
+        base, total = row0 * N, min(rows, B - row0) * N
+        for c0 in range(0, total, CHUNK):
+            length = min(CHUNK, total - c0)
+            part = -(-length // WARPS)
+            for w in range(WARPS):
+                lo = min(length, w * part)
+                parts.append((base + c0 + lo, base + c0 + min(length, lo + part)))
+    return parts
+
+
+def part_trips(evaluations: Sequence[int]) -> int:
+    """Trips a warp takes over its part, elements handed out in order to the
+    lanes as they come free (lanes free at the same trip in lane order),
+    each lane running its element's Newton evaluations back to back."""
+    free = [(0, lane) for lane in range(32)]
+    end = 0
+    for n in evaluations:
+        t, lane = heapq.heappop(free)
+        heapq.heappush(free, (t + int(n), lane))
+        end = max(end, t + int(n))
+    return end
+
+
+def warp_evaluations(evaluations: torch.Tensor, rows: int) -> int:
+    """Lane slots the kernel's warps run on these per-element Newton
+    evaluation counts (B, N): 32 per trip of every warp."""
+    B, N = evaluations.shape
+    flat = evaluations.reshape(-1).tolist()
+    return 32 * sum(part_trips(flat[a:b]) for a, b in warp_parts(B, N, rows))
+
+
+def kernel_info(K: int, device=None) -> Tuple[int, int]:
+    """(registers per thread, blocks per SM) of the kernel K components
+    take, from the CUDA runtime."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    key = (index, resident(K))
+    if key not in _info:
+        fn = _build.load("mixlogcdf").nf_mix_log_cdf_inverse_info
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+        regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(K, ctypes.byref(regs), ctypes.byref(per_sm))
+        if err != 0:
+            raise RuntimeError(f"mix_log_cdf_inverse: kernel query failed: CUDA error {err}")
+        _info[key] = (regs.value, per_sm.value)
+    return _info[key]
+
+
+def launch_rows(y: torch.Tensor, K: int) -> int:
+    """The rows per block of a launch on y (B, N) on its card."""
+    B, N = y.shape
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    return rows_per_block(B, N, kernel_info(K, y.device)[1] * sms)
 
 
 def _fn():
@@ -64,7 +154,6 @@ def launch(y, logpi, mu, s):
                          f"tensors, got {tuple(y.shape)} and {tuple(logpi.shape)}")
     B, N = y.shape
     K = logpi.shape[2]
-    kp = padded_mixtures(K)
     for t, want in ((y, (B, N)), (logpi, (B, N, K)), (mu, (B, N, K)), (s, (B, N, K))):
         if (t.device != y.device or t.dtype != torch.float32 or tuple(t.shape) != want
                 or not t.is_contiguous()):
@@ -74,9 +163,12 @@ def launch(y, logpi, mu, s):
     ld = torch.empty(B, dtype=torch.float32, device=y.device)
     if B == 0:
         return x, ld
+    if N == 0 or K == 0:
+        raise ValueError(f"the mixture-inverse kernel takes N, K >= 1, got N = {N}, K = {K}")
+    rows = launch_rows(y, K)
     with torch.cuda.device(y.device):
         err = _fn()(y.data_ptr(), logpi.data_ptr(), mu.data_ptr(), s.data_ptr(),
-                    x.data_ptr(), ld.data_ptr(), B, N, K, kp,
+                    x.data_ptr(), ld.data_ptr(), B, N, K, rows,
                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mix_log_cdf_inverse kernel failed to launch: CUDA error {err}")

@@ -6,8 +6,9 @@ kernel to run).  On a machine with one:
 Tolerances as chip_smoke.py: z atol/rtol 1e-4, logdet atol 1e-3; the
 Flow++ inverse x atol 1e-3, logdet atol 5e-3 (two Newton solves meet the
 same root only within XTOL, compounded through the couplings); the ResFlow
-inverse x and logdet atol 1e-3 (the kernel stops each fixed point per tile
-of 16 samples, the plain version on the whole batch).  The coupling
+inverse x and logdet atol 1e-3 (the kernels stop each fixed point per tile
+of 16 samples, the solve up to F = 64 per warp of 8, the plain version on
+the whole batch).  The coupling
 kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 (up to 1536 terms summed in another order), dgain and dbias rtol 1e-4
 (B x N terms), the backward one launch and the same bits on every run.
@@ -16,7 +17,9 @@ PyTorch's SDPA) at D = 2 to 128 and L = 2 to 1500, its gradient through
 the Function 1e-5; D = 129 raises.  The
 mixture-CDF inverse: x atol / rtol 1e-4 against the plain version and
 1e-3 against the x that made y, the log-det atol 1e-3 (up to 1500 terms
-in another order), as nf_tpu's tests/test_pallas.py holds its kernel.
+in another order), as nf_tpu's tests/test_pallas.py holds its kernel, at
+K = 1 to 64 and rows of up to 2100 elements; two launches give the same
+bits.
 """
 import pytest
 import torch
@@ -113,8 +116,11 @@ def test_fused_flowpp_kernel_matches_plain(cuda, layers, F, K, B):
 @pytest.mark.parametrize("D,layers,F,B", [(2, 4, 8, 300), (2, 6, 32, 1024), (3, 4, 20, 777),
                                           (3, 4, 64, 1000), (8, 2, 64, 100), (5, 3, 16, 33),
                                           (2, 3, 128, 300), (8, 2, 100, 70),
-                                          (2, 3, 256, 300), (8, 2, 200, 45)])
+                                          (2, 3, 256, 300), (8, 2, 200, 45),
+                                          (2, 4, 32, 8192)])
 def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
+    """The solve runs the warp-per-8-samples kernel up to F = 64 and
+    variant 0 (16-sample tiles) at F = 128 and 256."""
     from nf_tpu_torch.nets.spectral import LipSwish
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
 
@@ -125,6 +131,7 @@ def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
                 m.beta.copy_(0.5 + torch.rand(1, generator=g, device=cuda))
     prog = prog.model.eval_program()
     st = prog.stack
+    assert rf.solve_kernel(st.kernel.fp) == ("warp" if F <= 64 else "tile")
     x = torch.randn(B, D, generator=g, device=cuda)
     probes = rf.draw_unbias_probes(B, D, g)
     z, ld = rf.fused_resflow(st, x, "forward", probes)
@@ -142,16 +149,20 @@ def test_fused_resflow_kernel_matches_plain(cuda, D, layers, F, B):
 
 
 def test_resflow_main_path_launch_puts_8_warps_on_every_sm(cuda):
-    """B = 8192, F = 32, D = 2: every variant's blocks fit the card in one
-    wave, dealt evenly at least two to an SM (8 warps)."""
+    """B = 8192, F = 32, D = 2: the series kernels' blocks fit the card in
+    one wave, dealt evenly at least two to an SM (8 warps); the solve
+    kernel's 256 blocks (a warp per 8 samples) fit in one wave with at least
+    one block on every SM."""
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-8192 // rf.SAMPLES)
-    for direction in ("forward", "inverse", "solve"):
+    for direction in ("forward", "inverse"):
         per_sm = rf.blocks_per_sm(32, 2, direction)
         assert blocks <= per_sm * sms
         assert rf.WARPS * min(per_sm, blocks // sms) >= 8
+    blocks = rf.solve_blocks(8192)
+    assert sms <= blocks <= rf.solve_blocks_per_sm(32, 2) * sms
 
 
 def test_resflow_past_the_kernels_tilings_raises(cuda):
@@ -356,7 +367,8 @@ def test_attention_gradient_through_the_function(cuda):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("B,N,K", [(1024, 512, 8), (1000, 300, 5), (7, 64, 32), (3, 1500, 12)])
+@pytest.mark.parametrize("B,N,K", [(1024, 512, 8), (1000, 300, 5), (7, 64, 32), (3, 1500, 12),
+                                   (300, 200, 1), (64, 256, 33), (256, 512, 64), (5, 2100, 8)])
 def test_mix_log_cdf_inverse_kernel_matches_plain(cuda, B, N, K):
     from nf_tpu_torch.bijectors import mixlogcdf as mlc
     from nf_tpu_torch.ops.cuda import mixlogcdf as cm
@@ -372,7 +384,12 @@ def test_mix_log_cdf_inverse_kernel_matches_plain(cuda, B, N, K):
     xr, ldr = mlc.mix_log_cdf_inverse_reference(y, logpi, mu, s)
     torch.testing.assert_close(xk, xr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ldk, ldr, atol=1e-3, rtol=0)
-    torch.testing.assert_close(xk, x, atol=1e-3, rtol=0)
+    # the round trip where f32 keeps x: a y rounded next to 0 or 1 loses x
+    # where the mixture's tail is thin, for the plain version alike (at
+    # K = 1 on a few elements in 10^4); past K = 1 on every element
+    kept = (xr - x).abs() <= 1e-3
+    assert bool(kept.all()) or (K == 1 and float(kept.float().mean()) >= 0.999)
+    torch.testing.assert_close(xk[kept], x[kept], atol=1e-3, rtol=0)
     again = cm.launch(y, logpi, mu, s)
     assert torch.equal(again[0], xk) and torch.equal(again[1], ldk)
 
@@ -390,7 +407,6 @@ def test_mix_log_cdf_inverse_has_no_gradient(cuda):
 
 
 def test_uncovered_shapes_raise_on_the_card(cuda):
-    from nf_tpu_torch.bijectors import mixlogcdf as mlc
     from nf_tpu_torch.ops import attention as ta
     from nf_tpu_torch.ops.cuda import attention as ca
     from nf_tpu_torch.ops.cuda import mixlogcdf as cm
@@ -401,10 +417,6 @@ def test_uncovered_shapes_raise_on_the_card(cuda):
         q = torch.randn(BH, L, D, device=cuda)
         with pytest.raises(NotImplementedError, match="attention kernel covers"):
             ta.attention(q, q, q)
-    y = torch.rand(2, 64, device=cuda)
-    p = torch.randn(2, 64, 33, device=cuda)
-    with pytest.raises(NotImplementedError, match="K <= 32"):
-        mlc.mix_log_cdf_inverse(y, p, p, p)
     with pytest.raises(ValueError, match="float32"):
         ca.launch(*(torch.randn(4, 16, 8, device=cuda, dtype=torch.float64),) * 3)
     assert ca.LAUNCHES == {"attention_fwd": 0} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}

@@ -212,6 +212,109 @@ def _walk_kernel_layout(kw, spec, x, direction, probes=None):
     return xp[:, :D], acc
 
 
+def _walk_solve_warps(kw, spec, z):
+    """csrc/fused_resflow.cu's fused_resflow_solve_kernel in PyTorch, lane by
+    lane: a warp per 8 samples (lane 4 g + t on sample g), h1 formed in the
+    mma B layout (features 8 ks + t, + 4 of sample g), W2t h1 in 3xTF32 from
+    the slot's fragments, h2 and the W3t fold in the C layout (rows 16 mt +
+    g, + 8; columns 2 t, 2 t + 1), the xor-4 / 8 / 16 reduction that keeps
+    one column and sends the other, the gather of sample g from lane
+    4 (g & 1) + (g >> 1), and each warp's own fixed-point stopping."""
+    lay = tfr.Layout(kw.fp, kw.dp)
+    fp, dp, D = kw.fp, kw.dp, spec.dim
+    MT, KS = fp // 16, fp // 8
+    B = z.shape[0]
+    nw = -(-B // 8)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    odd = g % 2
+    src = 4 * odd + g // 2
+    xp = torch.zeros(nw * 8, dp)
+    xp[:B, :D] = z
+    valid = (torch.arange(nw * 8) < B).view(nw, 8)
+    for j in reversed(range(spec.n_repeats)):
+        w = kw.w[j]
+        w1t, w3t = w[lay.w1t:lay.b1].view(fp, dp), w[lay.w3t:lay.b3].view(dp, fp)
+        b1, b2, b3 = w[lay.b1:lay.b2], w[lay.b2:lay.w3t], w[lay.b3:lay.an_s]
+        an_s, an_b, beta = w[lay.an_s:lay.an_b], w[lay.an_b:lay.beta], w[lay.beta:lay.beta + 2]
+        big, small = _unfragment(w[lay.w2t:lay.size].view(fp // 8, MT, 2, 32, 4), fp)
+
+        def g_of(xx):
+            """(nw, 8, dp) -> g at each warp's samples, as lane 4 g holds it."""
+            lane_x = xx[:, g]                                     # (nw, 32, dp)
+            f = 8 * torch.arange(KS)[:, None, None] + t[None, :, None] \
+                + 4 * torch.arange(2)[None, None, :]              # (KS, 32, 2)
+            a = (lane_x[:, None, :, None, :] * w1t[f][None]).sum(-1) + b1[f]
+            h1, _ = tfr._lipswish(a, beta[0])                     # (nw, KS, 32, 2)
+            bmat = torch.zeros(xx.shape[0], fp, 8)                # B[k][n]
+            bmat[:, f, g[None, :, None].expand_as(f)] = h1
+            out = _mm3_ktiled(bmat.transpose(1, 2), big, small)   # (nw, 8 n, fp o)
+            gp = torch.zeros(xx.shape[0], 32, 2, dp)
+            for mt in range(MT):
+                for r in range(4):
+                    o, c = 16 * mt + g + 8 * (r // 2), r % 2
+                    h2, _ = tfr._lipswish(out[:, 2 * t + c, o] + b2[o], beta[1])
+                    gp[:, :, c] += h2[..., None] * w3t.T[o]
+            keep = torch.where(odd[:, None].bool(), gp[:, :, 1], gp[:, :, 0])
+            send = torch.where(odd[:, None].bool(), gp[:, :, 0], gp[:, :, 1])
+            red = keep + send[:, lane ^ 4]
+            red = red + red[:, lane ^ 8]
+            red = red + red[:, lane ^ 16]
+            gout = red[:, src] + b3                               # (nw, 32, dp)
+            assert torch.equal(gout, gout.view(-1, 8, 4, dp)[:, :, :1].expand(-1, 8, 4, dp)
+                               .reshape(gout.shape))              # a quad agrees
+            return gout[:, ::4]
+
+        zz = xp.view(nw, 8, dp)
+        x, prev = zz - g_of(zz), zz
+        for _ in range(1, spec.n_iters):
+            moving = (((x - prev).abs() >= spec.ftol) & valid[..., None]).flatten(1).any(1)
+            if not bool(moving.any()):
+                break
+            prev = x
+            x = torch.where(moving[:, None, None], zz - g_of(x), x)
+        xp = (x * torch.exp(an_s) + an_b).reshape(nw * 8, dp)
+    return xp[:B, :D]
+
+
+@pytest.mark.parametrize("D,F,B", [(2, 8, 37), (3, 20, 45), (2, 32, 29), (8, 64, 21)])
+def test_solve_warp_layout_matches_plain_and_pallas(D, F, B):
+    """The warp-per-8-samples solve walked in PyTorch against the plain
+    version (2e-5) and nf_tpu's solve kernel in interpret mode (5e-4), on a
+    ragged batch."""
+    jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=3, seed=F + D)
+    packed = tfr.pack_resflow(tmodel.bijector, tspec)
+    kw = tfr.kernel_weights(tspec, packed)
+    assert tfr.solve_kernel(kw.fp) == "warp"
+    z = normal(40 + D, (B, D), 1.5)
+    x = _walk_solve_warps(kw, tspec, _t(z))
+    close(x, tfr.fused_resflow_solve_reference(tspec, packed, _t(z)), 2e-5)
+    jx = jfr.fused_resflow_inverse_solve(jmodel.bijector, jspec, var, z, interpret=True)
+    close(x, jx, 5e-4)
+
+
+def test_solve_dispatch_and_ring():
+    """FP <= 64 takes the warp-per-8-samples kernel, FP = 128 and 256 variant
+    0 (16-sample tiles); the ring slot holds the block's small tensors and
+    its W2t fragments, 8,992 bytes at FP = 32, DP = 2, and four slots fit
+    the block's shared memory with room for six blocks an SM."""
+    assert [tfr.solve_kernel(fp) for fp in tfr.WIDTHS] == ["warp"] * 3 + ["tile"] * 2
+    assert tfr.SOLVE_WIDTHS == (16, 32, 64) and tfr.SOLVE_WARPS == 4
+    assert 4 * tfr.solve_slot_floats(32, 2) == 8992
+    assert tfr.solve_slots(32) == 4 and tfr.solve_slots(64) == 2
+    assert tfr.solve_smem_bytes(32, 2) == 128 + 4 * 8992
+    assert 6 * (tfr.solve_smem_bytes(32, 2) + 1024) <= 228 * 1024
+    for fp in tfr.SOLVE_WIDTHS:
+        for dp in tfr.DIMS:
+            assert tfr.solve_smem_bytes(fp, dp) <= tfr.SMEM_LIMIT
+            assert (4 * tfr.solve_slot_floats(fp, dp)) % 16 == 0
+    assert tfr.solve_blocks(8192) == 256 and tfr.solve_blocks(8193) == 257
+    tmodel = torch_model("resflow", 2, 32, 32)
+    spec = tfr.extract_resflow_spec(tmodel.bijector, tmodel.dims)
+    kw = tfr.kernel_weights(spec, tfr.pack_resflow(tmodel.bijector, spec))
+    assert tfr.solve_weight_bytes_to_sm(kw, 32, 8192) == 256 * 32 * 8992
+
+
 @pytest.mark.parametrize("D,F", [(3, 20), (2, 8), (5, 40), (2, 100), (2, 256), (8, 200)])
 def test_kernel_layout_matches_plain_versions(D, F):
     tmodel = torch_model("resflow", D, 3, F)
@@ -238,7 +341,10 @@ def test_kernel_layout_matches_plain_versions(D, F):
     wx, wacc = _walk_kernel_layout(kw, spec, z, "inverse", probes)
     close(wx, xi, 2e-5)
     close(const - wacc, ldi, 2e-5)
-    wx, _ = _walk_kernel_layout(kw, spec, z, "solve")
+    if tfr.solve_kernel(kw.fp) == "warp":
+        wx = _walk_solve_warps(kw, spec, z)
+    else:
+        wx, _ = _walk_kernel_layout(kw, spec, z, "solve")
     close(wx, tfr.fused_resflow_solve_reference(spec, packed, z), 2e-5)
 
 
