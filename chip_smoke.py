@@ -21,9 +21,11 @@ Phases, each of which exits non-zero when it fails:
          the inverse (solve_ld) of its latent; the same with 'exact' for
          the solve alone; a ragged D = 3, n = 4, F = 64, B = 1000, D = 2,
          n = 4, F = 128, B = 1000 and the widest tiling, D = 2, n = 4,
-         F = 256, B = 1000 (fragments streamed), for all three variants;
-         with each solve's trip count per block and the probes' series
-         lengths printed;
+         F = 256, B = 1000 (fragments streamed), for all three variants
+         (the solve on fused_resflow_solve_kernel, a warp per 8 samples,
+         up to F = 64, on the tiled variant at 128 and 256); with each
+         solve's trip count per block and the probes' series lengths
+         printed;
      forward z atol/rtol 1e-4, logdet atol 1e-3 (f32 sums in another
      order, compounded through 32 couplings); the Flow++ inverse runs on
      the forward's latent of the same data, as tests/test_pallas.py
@@ -33,8 +35,9 @@ Phases, each of which exits non-zero when it fails:
      random weights expand that (max|dx| 4.8e-3 and max|dlogdet| 3.9e-3
      on an H100, where the plain version's own round trip x -> z -> x
      misses x by as much; the line "plain round trip" prints it); the
-     ResFlow inverse x and logdet atol 1e-3 (the kernel stops each fixed
-     point per 16-sample tile, the plain version on the whole batch);
+     ResFlow inverse x and logdet atol 1e-3 (the kernels stop each fixed
+     point per 16-sample tile, the solve up to F = 64 per warp of 8
+     samples, the plain version on the whole batch);
   4. the main path, for "realnvp", "glow", "flow++" and "resflow" in turn:
      build_model(name, (2,), "2d") on the card -> init(generator) ->
      (Glow / Flow++: ActNorm moved off identity by the seed) ->
@@ -57,9 +60,14 @@ Phases, each of which exits non-zero when it fails:
      (64, 100, 32), (64, 1500, 8), (64, 100, 128) and (4, 16, 6): out
      atol/rtol 1e-5 against the plain version, and PyTorch's SDPA within
      the same;
-     mix_log_cdf_inverse at (1024, 512, K = 8) and a ragged (1000, 300,
-     K = 5), inputs as tests/test_pallas.py: x atol/rtol 1e-4, log-det
-     atol 1e-3, the round trip to x within 1e-3;
+     mix_log_cdf_inverse at (1024, 512, K = 8), a ragged (1000, 300,
+     K = 5), K = 1 (300, 200), K = 33 (128, 384) and K = 64 (256, 512),
+     inputs as tests/test_pallas.py: x atol/rtol 1e-4, log-det atol 1e-3,
+     two launches bit for bit the same, the round trip to x within 1e-3
+     on every element where the plain version's own holds (all of them
+     past K = 1; at K = 1 a y rounded next to 0 or 1 loses x in the thin
+     tail of a single logistic, for the plain version alike, and the run
+     fails if that leaves out more than 0.1 % of the elements);
   5. the image main path, realnvp-img32x1 (bench.py's image zoo: 32x32x1,
      layers = 32, base_filters = 32; 161 couplings, 6,818,978 parameters):
      build_model on the card -> Trainer(seed 0).init_state on a batch of
@@ -122,8 +130,14 @@ Phases, each of which exits non-zero when it fails:
      multiply-add at the f32 FFMA rate, bound_tc_ms with them on the tensor
      cores in 3xTF32 at 165 TFLOP/s) and its share of the bound of the units
      it runs its products on, which fails the run above 1; the ResFlow
-     entries also give their launch's blocks, the blocks one SM holds and
-     the warps on the least loaded SM, which fails the run below 8; the
+     entries also give their launch's blocks and the blocks one SM holds;
+     the series kernels' the warps on the least loaded SM, which fails the
+     run below 8, the solve kernel's its block's warps, ring slots and the
+     weight bytes copied from L2 into shared memory per call, and the run
+     fails unless its blocks fit one wave with a block on every SM; the
+     mixture inverse's entry its registers, blocks per SM, rows per block
+     and the lane slots its warps run under lane refill
+     (warp_newton_evaluations) beside one element per lane's; the
      RealNVP and Glow entries their kernel variant, the blocks one SM
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
@@ -683,35 +697,6 @@ def resflow_occupancy(rf, kw, direction, n):
                       f"({blocks} blocks, {per_sm} per SM)")
     return {"kernel_variant": "tile", "grid_blocks": blocks, "grid_blocks_per_sm": per_sm,
             "sms": sms, "min_warps_per_sm": least, "one_wave": blocks <= per_sm * sms}
-
-
-# the solve's forms timed against each other at the main path's shape:
-# variant 0 (16-sample tiles) and the warp-per-8-samples kernel's (consumer
-# warps per block, LipSwish arithmetic: 0 accurate, 1 / 1.1 as a multiply,
-# 2 also __expf and __fdividef)
-SOLVE_FORMS = {"tile": "tile", "warp4_arith0": (4, 0), "warp4_arith1": (4, 1),
-               "warp4_arith2": (4, 2), "warp8_arith0": (8, 0), "warp8_arith1": (8, 1),
-               "warp8_arith2": (8, 2)}
-
-
-def solve_forms(rf, stack, z, smi):
-    """Each form's largest error against the plain version (checked within
-    RESFLOW_INV_ATOL) and its ms by CUDA events over 200 back-to-back
-    launches, the forms timed in turns, then again in reverse order."""
-    want = rf.fused_resflow_solve_reference(stack.spec, stack.packed, z)
-    out = {}
-    for name, form in SOLVE_FORMS.items():
-        e = max_diff(rf.launch(stack, z, "solve", solve_form=form), want)
-        check(e <= RESFLOW_INV_ATOL, f"resflow solve form {name}: x off by {e}")
-        out[name] = {"max_abs_err": e, "ms": []}
-        if form != "tile":
-            out[name]["blocks_per_sm"] = rf.solve_blocks_per_sm(stack.kernel.fp,
-                                                                stack.kernel.dp, *form)
-    for name in list(SOLVE_FORMS) + list(reversed(SOLVE_FORMS)):
-        out[name]["ms"].append(device_ms(
-            lambda: rf.launch(stack, z, "solve", solve_form=SOLVE_FORMS[name]), 200))
-    return {"forms": out, "card": smi,
-            "timing": "CUDA events over 200 back-to-back launches; forms in turns, twice"}
 
 
 def bound_of(work, sfu_per_s, tensor_cores=False):
@@ -1385,7 +1370,7 @@ def mixlogcdf_entry(cm, mlc, launches, errs, sfu_per_s, inputs):
     evals = counts[0].cpu()
     lanes = torch.nn.functional.pad(evals.reshape(-1), (0, -evals.numel() % 32))
     work = mixlogcdf_work(B, N, K, int(evals.sum()))
-    registers, per_sm = cm.kernel_info(K)
+    registers, per_sm, _ = cm.kernel_info(K)
     rows = cm.launch_rows(y, K)
     return kernel_entry(
         "mix_log_cdf_inverse", launches, errs, work, sfu_per_s,
@@ -1686,7 +1671,6 @@ def main():
                     solve_trips_per_block=trips[::-1] if trips else None,
                     **resflow_pairing(pr),
                     **resflow_occupancy(rf, st.kernel, direction, st.spec.n_repeats)))
-            print(json.dumps({"solve_forms": solve_forms(rf, exact.stack, z_ex, smi)}))
             desc = (f"resflow 2d, {spec.n_repeats} blocks, F={spec.filters}, "
                     f"logdet={spec.estimator}")
         else:

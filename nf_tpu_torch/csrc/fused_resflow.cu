@@ -5,6 +5,9 @@
 //   solve     (true,  false)  make_solve_kernel        (call_solve)
 //   solve_ld  (true,  true)   make_solve_logdet_kernel (call_solve_logdet)
 //   fwd_ld    (false, true)   make_fwd_logdet_kernel   (call_fwd_logdet)
+// The solve at FP <= 64 is fused_resflow_solve_kernel, further down (its
+// design is stated there); the template's solve variant serves FP = 128
+// and 256.
 // over n x [ ActNorm(D) -> InvertibleResBlock(g) ], with
 //   g(x) = W3t h2 + b3,  h2 = LipSwish_b(W2t h1 + b2),  h1 = LipSwish_a(W1t x + b1),
 //   LipSwish_b(a) = a s / 1.1,  s = sigmoid(b a),  LipSwish' = (s + b a s (1 - s)) / 1.1.
@@ -609,10 +612,35 @@ __global__ void __launch_bounds__(kT, FP <= 32 ? 4 : 1) fused_resflow_kernel(con
 // ---- the solve: a warp per 8 samples, no block barriers
 //
 // fused_resflow_solve_kernel computes what variant 0 (solve) computes, for
-// FP <= 64.  Each consumer warp owns 8 samples (one mma's N) for the whole
-// walk; the weights arrive through a ring of residual-block slots that a
-// producer warp fills with bulk copies (csrc/bulk_ring.cuh).
+// FP <= 64 (16, 32, 64) and DP in {2, 4, 8}.
+//  * Bound (H100 SXM, B = 8192, n = 32, F = 32, D = 2, 3-4 trips a
+//    block): 0.013 ms with W2t h1 on the tensor cores in 3xTF32 and one
+//    SFU operation per sigmoid; operations bound it, not bytes.
+//  * A consumer warp owns 8 samples (one mma's N) for the whole walk, so
+//    nothing crosses warps inside a fixed-point trip: h1 is formed in the
+//    B layout, W2t h1 runs over all m-tiles, h2 and the W3t fold stay in
+//    the C layout, reduced by xor shuffles and gathered back, and the
+//    stop is an __any_sync over the warp's samples.  The series kernels'
+//    16-sample blocks instead split g's features over two warps and met
+//    at two block barriers per evaluation.
+//  * The weights arrive through a ring of residual-block slots (the
+//    block's small tensors and W2t fragments, 8,992 bytes at FP = 32,
+//    DP = 2), filled by a producer warp with bulk copies that complete on
+//    mbarriers (csrc/bulk_ring.cuh); consumer warps wait on full barriers
+//    and release empty ones, and move through the residual blocks on
+//    their own.  4 slots up to FP = 32, 2 at FP = 64 (37 KB a slot).
+//  * Blocks of 4 consumer warps: 256 at B = 8192, one wave with a block on
+//    every SM (blocks of 8 measured about 8 % faster on an H100 but leave
+//    4 SMs idle).
+//  * LipSwish in lipswish_h's cheaper form: the arithmetic per hidden unit,
+//    not the mma, set the pace of this layout.
+//  * What bounds it (H100, F = 32): each warp's serial chain per g
+//    evaluation (h1, the 12-deep mma chains, h2, the shuffles) with about
+//    8 warps on an SM, two per scheduler.
 
+constexpr int kSolveWarps = 4;                   // consumer warps per block
+constexpr int kSolveThreads = 32 * (kSolveWarps + 1);  // and one producer warp
+constexpr int kSolveSamples = 8 * kSolveWarps;
 constexpr int kSolveBarBytes = 128;  // the ring's mbarriers, ahead of the ring
 
 // ring slots: residual blocks in flight
@@ -640,18 +668,13 @@ struct SolveParams {
   float ftol;
 };
 
-// LipSwish h = a s / 1.1, s = sigmoid(beta a), in the arithmetic form ARITH:
-// 0 accurate expf and IEEE divisions; 1 the same with / 1.1 as a multiply by
-// the f32 constant 1 / 1.1; 2 also __expf and __fdividef
-template <int ARITH>
+// LipSwish h = a s / 1.1, s = sigmoid(beta a), for the solve: __expf,
+// __fdividef and a multiply by the f32 constant 1 / 1.1.  On an H100 at
+// B = 8192, F = 32 this form takes the solve from 0.24 to 0.10 ms against
+// accurate expf and IEEE divisions (the series kernels' form), and moves
+// x by under 2e-5 against the plain version (chip_smoke.py holds 1e-3).
 __device__ __forceinline__ float lipswish_h(float a, float beta) {
-  if constexpr (ARITH == 0) {
-    return a * sigmoid(beta * a) / 1.1f;
-  } else if constexpr (ARITH == 1) {
-    return a * sigmoid(beta * a) * (1.f / 1.1f);
-  } else {
-    return a * __fdividef(1.f, 1.f + __expf(-(beta * a))) * (1.f / 1.1f);
-  }
+  return a * __fdividef(1.f, 1.f + __expf(-(beta * a))) * (1.f / 1.1f);
 }
 
 // g at this lane's sample x (sample g of the warp): gout[d] for every d,
@@ -662,7 +685,7 @@ __device__ __forceinline__ float lipswish_h(float a, float beta) {
 //  W3t fold stay in the C layout (rows 16 mt + g, + 8; columns 2 t, 2 t + 1),
 //  reduced over the 8 row lanes by xor shuffles that scatter the two
 //  columns, then gathered back to sample g.
-template <int FP, int DP, int ARITH>
+template <int FP, int DP>
 __device__ __forceinline__ void warp_g(const float* wc, const float (&x)[DP], float (&gout)[DP],
                                        int lane) {
   using L = Layout<FP, DP>;
@@ -684,7 +707,7 @@ __device__ __forceinline__ void warp_g(const float* wc, const float (&x)[DP], fl
       float a = 0.f;
 #pragma unroll
       for (int d = 0; d < DP; ++d) a = fmaf(wc[L::kW1t + f * DP + d], x[d], a);
-      split(lipswish_h<ARITH>(a + wc[L::kB1 + f], beta_a), bb[h], bs[h]);
+      split(lipswish_h(a + wc[L::kB1 + f], beta_a), bb[h], bs[h]);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) mma3(acc[mt], frags + (ks * MT + mt) * 256, bb, bs);
@@ -699,7 +722,7 @@ __device__ __forceinline__ void warp_g(const float* wc, const float (&x)[DP], fl
 #pragma unroll
     for (int r = 0; r < 4; ++r) {  // (row, column) = (16 mt + g | + 8, 2 t | 2 t + 1)
       const int o = 16 * mt + g + 8 * (r >> 1), c = r & 1;
-      const float h = lipswish_h<ARITH>(acc[mt][r] + wc[L::kB2 + o], beta_b);
+      const float h = lipswish_h(acc[mt][r] + wc[L::kB2 + o], beta_b);
 #pragma unroll
       for (int d = 0; d < DP; ++d) gp[c][d] = fmaf(wc[L::kW3t + d * FP + o], h, gp[c][d]);
     }
@@ -718,14 +741,13 @@ __device__ __forceinline__ void warp_g(const float* wc, const float (&x)[DP], fl
   }
 }
 
-// WARPS consumer warps and one producer warp per block.  Stopping is per
-// warp: a warp's 8 samples leave a residual block's fixed point when
+// kSolveWarps consumer warps and one producer warp per block.  Stopping is
+// per warp: a warp's 8 samples leave a residual block's fixed point when
 // it == n_iters or max|x - prev| < ftol over its valid samples.  nf_tpu
 // stops per batch tile and its chain on the whole batch; all stop only
 // where max|x - prev| < ftol.
-template <int FP, int DP, int WARPS, int ARITH>
-__global__ void __launch_bounds__(32 * (WARPS + 1))
-    fused_resflow_solve_kernel(const SolveParams prm) {
+template <int FP, int DP>
+__global__ void __launch_bounds__(kSolveThreads) fused_resflow_solve_kernel(const SolveParams prm) {
   using L = Layout<FP, DP>;
   using SL = SolveSlot<FP, DP>;
   constexpr int S = solve_slots(FP);
@@ -740,13 +762,13 @@ __global__ void __launch_bounds__(32 * (WARPS + 1))
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       bar_init(&full[i], 1);
-      bar_init(&empty[i], WARPS);
+      bar_init(&empty[i], kSolveWarps);
     }
     bar_init_fence();
   }
   __syncthreads();
 
-  if (warp == WARPS) {
+  if (warp == kSolveWarps) {
     // the producer: residual block n - 1 - s into slot s % S, once the
     // consumers have released the slot
     if (lane == 0) {
@@ -763,7 +785,7 @@ __global__ void __launch_bounds__(32 * (WARPS + 1))
     return;
   }
 
-  const int sample = (blockIdx.x * WARPS + warp) * 8 + (lane >> 2);
+  const int sample = (blockIdx.x * kSolveWarps + warp) * 8 + (lane >> 2);
   const bool valid = sample < prm.B;
   const int D = prm.D;
   float x[DP];
@@ -777,7 +799,7 @@ __global__ void __launch_bounds__(32 * (WARPS + 1))
     float z[DP], prev[DP], gv[DP];
 #pragma unroll
     for (int d = 0; d < DP; ++d) z[d] = prev[d] = x[d];
-    warp_g<FP, DP, ARITH>(wc, z, gv, lane);
+    warp_g<FP, DP>(wc, z, gv, lane);
 #pragma unroll
     for (int d = 0; d < DP; ++d) x[d] = z[d] - gv[d];
     for (int it = 1; it < prm.n_iters; ++it) {
@@ -787,7 +809,7 @@ __global__ void __launch_bounds__(32 * (WARPS + 1))
       if (!__any_sync(kFull, moving)) break;
 #pragma unroll
       for (int d = 0; d < DP; ++d) prev[d] = x[d];
-      warp_g<FP, DP, ARITH>(wc, x, gv, lane);
+      warp_g<FP, DP>(wc, x, gv, lane);
 #pragma unroll
       for (int d = 0; d < DP; ++d) x[d] = z[d] - gv[d];
     }
@@ -805,11 +827,10 @@ __global__ void __launch_bounds__(32 * (WARPS + 1))
   }
 }
 
-template <int FP, int DP, int WARPS, int ARITH>
+template <int FP, int DP>
 cudaError_t launch_solve(const SolveParams& prm, cudaStream_t stream, int* blocks_per_sm) {
   constexpr int smem = solve_smem_bytes<FP, DP>();
-  constexpr int threads = 32 * (WARPS + 1);
-  auto kernel = fused_resflow_solve_kernel<FP, DP, WARPS, ARITH>;
+  auto kernel = fused_resflow_solve_kernel<FP, DP>;
   static bool opted_in = false;  // above 48 KB a block needs the opt-in
   if (!opted_in) {
     const cudaError_t err =
@@ -818,20 +839,17 @@ cudaError_t launch_solve(const SolveParams& prm, cudaStream_t stream, int* block
     opted_in = true;
   }
   if (blocks_per_sm != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
-  kernel<<<(prm.B + 8 * WARPS - 1) / (8 * WARPS), threads, smem, stream>>>(prm);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kSolveThreads,
+                                                         smem);
+  kernel<<<(prm.B + kSolveSamples - 1) / kSolveSamples, kSolveThreads, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
-constexpr int kSolveWarps = 4;  // consumer warps per block
-constexpr int kSolveArith = 0;  // LipSwish's arithmetic form (lipswish_h)
-
-cudaError_t dispatch_solve(const SolveParams& prm, int fp, int dp, int warps, int arith,
-                           cudaStream_t stream, int* blocks_per_sm) {
-#define NF_SOLVE(FP_, DP_, W_, A_)                                \
-  if (fp == FP_ && dp == DP_ && warps == W_ && arith == A_) \
-    return launch_solve<FP_, DP_, W_, A_>(prm, stream, blocks_per_sm);
-#define NF_SOLVE_TILING(FP_, DP_) NF_SOLVE(FP_, DP_, kSolveWarps, kSolveArith)
+// The solve kernel's tilings: FP in {16, 32, 64}, DP in {2, 4, 8}.
+cudaError_t dispatch_solve(const SolveParams& prm, int fp, int dp, cudaStream_t stream,
+                           int* blocks_per_sm) {
+#define NF_SOLVE_TILING(FP_, DP_) \
+  if (fp == FP_ && dp == DP_) return launch_solve<FP_, DP_>(prm, stream, blocks_per_sm);
   NF_SOLVE_TILING(16, 2)
   NF_SOLVE_TILING(16, 4)
   NF_SOLVE_TILING(16, 8)
@@ -841,15 +859,7 @@ cudaError_t dispatch_solve(const SolveParams& prm, int fp, int dp, int warps, in
   NF_SOLVE_TILING(64, 2)
   NF_SOLVE_TILING(64, 4)
   NF_SOLVE_TILING(64, 8)
-  // the main path's tiling in the other block sizes and arithmetic forms,
-  // measured against the above
-  NF_SOLVE(32, 2, 4, 1)
-  NF_SOLVE(32, 2, 4, 2)
-  NF_SOLVE(32, 2, 8, 0)
-  NF_SOLVE(32, 2, 8, 1)
-  NF_SOLVE(32, 2, 8, 2)
 #undef NF_SOLVE_TILING
-#undef NF_SOLVE
   return cudaErrorInvalidValue;
 }
 
@@ -876,7 +886,9 @@ template <int FP, int DP>
 cudaError_t launch_variant(const Params& prm, int variant, cudaStream_t stream,
                            int* blocks_per_sm) {
   switch (variant) {
-    case 0: return launch<FP, DP, true, false>(prm, stream, blocks_per_sm);
+    case 0:  // up to FP = 64 the solve runs fused_resflow_solve_kernel
+      if constexpr (FP >= 128) return launch<FP, DP, true, false>(prm, stream, blocks_per_sm);
+      return cudaErrorInvalidValue;
     case 1: return launch<FP, DP, true, true>(prm, stream, blocks_per_sm);
     case 2: return launch<FP, DP, false, true>(prm, stream, blocks_per_sm);
     default: return cudaErrorInvalidValue;
@@ -957,24 +969,20 @@ extern "C" int nf_fused_resflow_blocks_per_sm(int fp, int dp, int variant, int* 
 
 // Plain C entry point of the warp-per-8-samples solve: z (B, D) -> x (B, D)
 // on `stream`, returning the cudaError_t of the launch.  (fp, dp) one of
-// its tilings (FP <= 64); warps the consumer warps per block and arith the
-// LipSwish form (lipswish_h): the main tiling takes kSolveWarps and
-// kSolveArith, FP = 32, DP = 2 also the other measured forms.
+// its tilings (FP <= 64; fused_resflow.py::solve_kernel).
 extern "C" int nf_fused_resflow_solve(const void* x, void* y, const void* w, int B, int n, int D,
-                                      int F, int fp, int dp, int n_iters, float ftol, int warps,
-                                      int arith, void* stream) {
+                                      int F, int fp, int dp, int n_iters, float ftol,
+                                      void* stream) {
   if (B < 1 || D < 1 || D > dp || F < 1 || F > fp || n < 1 || n_iters < 1)
     return (int)cudaErrorInvalidValue;
   const SolveParams prm{static_cast<const float*>(x), static_cast<float*>(y),
                         static_cast<const float*>(w), B, n, D, n_iters, ftol};
-  return (int)dispatch_solve(prm, fp, dp, warps, arith, static_cast<cudaStream_t>(stream),
-                             nullptr);
+  return (int)dispatch_solve(prm, fp, dp, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// Blocks of the solve kernel's (fp, dp, warps, arith) tiling that one SM
-// holds at once, into *blocks_per_sm.
-extern "C" int nf_fused_resflow_solve_blocks_per_sm(int fp, int dp, int warps, int arith,
-                                                    int* blocks_per_sm) {
+// Blocks of the solve kernel's (fp, dp) tiling that one SM holds at once,
+// into *blocks_per_sm.
+extern "C" int nf_fused_resflow_solve_blocks_per_sm(int fp, int dp, int* blocks_per_sm) {
   if (blocks_per_sm == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_solve(SolveParams{}, fp, dp, warps, arith, nullptr, blocks_per_sm);
+  return (int)dispatch_solve(SolveParams{}, fp, dp, nullptr, blocks_per_sm);
 }

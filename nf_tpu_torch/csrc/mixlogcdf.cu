@@ -19,8 +19,8 @@
 // on the SFUs and about 11K + 20 f32 operations, 4 to 5 evaluations per
 // element on typical data.  At B = 1024, N = 512, K = 8 the bytes take
 // 16.3 us at 3.35 TB/s; the instructions of the evaluations, the set-up
-// and the log-det take about as long again at the card's issue rate, so
-// issue, not bytes, bounds this design.
+// and the log-det take about as long again at the card's instruction
+// rate, so instructions, not bytes, bound this design.
 //
 // Design.
 //  * The arithmetic per element is the plain version's and stays so: the
@@ -40,8 +40,12 @@
 //    evaluations instead of each 32 elements' slowest one.
 //  * Occupancy: 256-thread blocks with at most 64 registers a thread
 //    (__launch_bounds__(256, 4)): 32 warps on an SM.  Only pi, exp(-s) and
-//    mu of a lane's element stay in registers through its Newton trips
-//    (K <= 8); logpi and s are read again for the log-det.  Past K = 8 the
+//    mu of a lane's element are kept through its Newton trips (K <= 8), in
+//    the lane's slot of shared memory (24 KB a block): in registers they
+//    left too few for the Newton state around the IEEE divisions' slow-path
+//    calls, which ptxas then spilled inside the trip loop.  K < 8 is padded
+//    with components that add exact zeros, so the trips test no k.  logpi
+//    and s are read again for the log-det.  Past K = 8 the
 //    components are walked in chunks of 8, in k order, read from memory at
 //    each evaluation, so the sums keep their sequential order for any K.
 //  * Loads: the (B, N, K) tensors are read with 16-byte loads where K is a
@@ -100,6 +104,8 @@ __device__ __forceinline__ float softplus(float z) { return z > 20.f ? z : log1p
 __device__ __forceinline__ void load_chunk(const float* __restrict__ p, size_t e, int K, int k0,
                                            bool vec, float (&v)[KC]) {
   const float* q = p + e * K + k0;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) v[k] = 0.f;
   if (vec) {
 #pragma unroll
     for (int j = 0; j < KC / 4; ++j) {
@@ -118,18 +124,18 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ p, size_t e
   }
 }
 
-// pi = exp(logpi), inv = exp(-s) and mu of components k0 .. k0 + KC - 1
+// pi = exp(logpi), inv = exp(-s) and mu of components k0 .. k0 + KC - 1,
+// each exp taken as its value arrives (no second array of raw values live)
 __device__ __forceinline__ void load_mixture(const Params& p, size_t e, int k0, float (&pi)[KC],
                                              float (&inv)[KC], float (&mu)[KC]) {
-  float lp[KC], sc[KC];
-  load_chunk(p.logpi, e, p.K, k0, p.vec, lp);
-  load_chunk(p.s, e, p.K, k0, p.vec, sc);
+  load_chunk(p.logpi, e, p.K, k0, p.vec, pi);
+  load_chunk(p.s, e, p.K, k0, p.vec, inv);
   load_chunk(p.mu, e, p.K, k0, p.vec, mu);
 #pragma unroll
   for (int k = 0; k < KC; ++k) {
     if (k0 + k < p.K) {
-      pi[k] = expf(lp[k]);
-      inv[k] = expf(-sc[k]);
+      pi[k] = expf(pi[k]);
+      inv[k] = expf(-inv[k]);
     }
   }
 }
@@ -148,9 +154,53 @@ __device__ __forceinline__ void mixture_sums(float x, int k0, int K, const float
   }
 }
 
+// A lane's staged mixture (K <= KC) in shared memory: float4 groups g of
+// pi (g = 0, 1), exp(-s) (2, 3) and mu (4, 5), group g of thread t at
+// staged[g * kThreads + t], so a warp's 16-byte reads are conflict-free.
+// Components k >= K hold pi = 0, exp(-s) = 1, mu = 0: they add exact zeros
+// to the CDF and pdf sums, so the trips need no guard on k.
+constexpr int kGroups = 3 * KC / 4;
+
+// element e's mixture into a lane's slot (see above), padded past K
+__device__ __forceinline__ void stage_mixture(const Params& p, size_t e, float4* slot) {
+  float pi[KC], inv[KC], mu[KC];
+  load_mixture(p, e, 0, pi, inv, mu);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    if (k >= p.K) {
+      pi[k] = 0.f;
+      inv[k] = 1.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KC / 4; ++j) {
+    slot[j * kThreads] = make_float4(pi[4 * j], pi[4 * j + 1], pi[4 * j + 2], pi[4 * j + 3]);
+    slot[(2 + j) * kThreads] =
+        make_float4(inv[4 * j], inv[4 * j + 1], inv[4 * j + 2], inv[4 * j + 3]);
+    slot[(4 + j) * kThreads] = make_float4(mu[4 * j], mu[4 * j + 1], mu[4 * j + 2], mu[4 * j + 3]);
+  }
+}
+
+// cdf and pdf at x from the lane's staged mixture, in component order
+__device__ __forceinline__ void staged_sums(float x, const float4* slot, float& cdf, float& pdf) {
+#pragma unroll
+  for (int j = 0; j < KC / 4; ++j) {
+    const float4 P = slot[j * kThreads], I = slot[(2 + j) * kThreads],
+                 M = slot[(4 + j) * kThreads];
+    const float pi[4] = {P.x, P.y, P.z, P.w}, inv[4] = {I.x, I.y, I.z, I.w},
+                mu[4] = {M.x, M.y, M.z, M.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float sg = 1.f / (1.f + expf(-((x - mu[q]) * inv[q])));
+      cdf = __fadd_rn(cdf, __fmul_rn(pi[q], sg));
+      pdf = __fadd_rn(pdf, __fmul_rn(__fmul_rn(__fmul_rn(pi[q], inv[q]), sg), 1.f - sg));
+    }
+  }
+}
+
 // log pdf of the mixture at x for element e: logsumexp over k, the
 // components read in chunks (twice past K = KC: the maximum, then the sum)
-__device__ float mixture_logpdf(const Params& p, size_t e, float x) {
+__device__ __forceinline__ float mixture_logpdf(const Params& p, size_t e, float x) {
   float t[KC];
   float m = -INFINITY;
   for (int k0 = 0; k0 < p.K; k0 += KC) {
@@ -192,42 +242,46 @@ __device__ float mixture_logpdf(const Params& p, size_t e, float x) {
 // The Newton solves of one warp's part [lo_e, hi_e) of the run that starts
 // at element `base`, with lane refill; each element's x goes to xs[i], i
 // its index in the run.  RESIDENT (K <= KC): the element's pi, exp(-s), mu
-// stay in registers; else they are read chunk by chunk at each evaluation.
+// are staged in the lane's slot; else they are read chunk by chunk at each
+// evaluation.
 template <bool RESIDENT>
-__device__ void solve_part(const Params& p, size_t base, int lo_e, int hi_e, float* xs, int lane) {
+__device__ __forceinline__ void solve_part(const Params& p, size_t base, int lo_e, int hi_e,
+                                           float* xs, float4* slot, int lane) {
   const unsigned below = (1u << lane) - 1u;
   int next = lo_e;  // the part's next element to hand out (the same on every lane)
   int i = -1;       // this lane's element, -1 for none
-  float y = 0.f, ly = 0.f, l1y = 0.f, x = 0.f, lo = 0.f, hi = 0.f, dxold = 0.f;
+  float y = 0.f, ly = 0.f, x = 0.f, lo = 0.f, hi = 0.f, dxold = 0.f;
   bool use_lo = false;
   int it = 0;
-  float pi[KC], inv[KC], mu[KC];
   while (true) {
     const bool need = i < 0;
     const unsigned want = __ballot_sync(kFull, need);
-    if (need && next + __popc(want & below) < hi_e) {
-      i = next + __popc(want & below);
-      const size_t e = base + i;
-      y = p.y[e];
-      use_lo = y < 0.5f;
-      ly = logf(fmaxf(y, kTiny));
-      l1y = logf(fmaxf(1.f - y, kTiny));
-      x = 0.f;
-      lo = -kSpan;
-      hi = kSpan;
-      dxold = 2.f * kSpan;
-      it = 0;
-      if (RESIDENT) load_mixture(p, e, 0, pi, inv, mu);
+    const int rank = __popc(want & below);
+    const int m = min(__popc(want), hi_e - next);  // elements handed out at this trip
+    if (m > 0) {
+      if (need && rank < m) {
+        i = next + rank;
+        if (RESIDENT) stage_mixture(p, base + i, slot);
+        y = p.y[base + i];
+        use_lo = y < 0.5f;
+        ly = logf(fmaxf(use_lo ? y : 1.f - y, kTiny));  // log y, or log(1 - y)
+        x = 0.f;
+        lo = -kSpan;
+        hi = kSpan;
+        dxold = 2.f * kSpan;
+        it = 0;
+      }
+      next += m;
     }
-    next += __popc(want);
     if (!__any_sync(kFull, i >= 0)) break;
     if (i < 0) continue;
     // one trip of element i
     float cdf = 0.f, pdf = 0.f;
     if (RESIDENT) {
-      mixture_sums(x, 0, p.K, pi, inv, mu, cdf, pdf);
+      staged_sums(x, slot, cdf, pdf);
     } else {
       for (int k0 = 0; k0 < p.K; k0 += KC) {
+        float pi[KC], inv[KC], mu[KC];
         load_mixture(p, base + i, k0, pi, inv, mu);
         mixture_sums(x, k0, p.K, pi, inv, mu, cdf, pdf);
       }
@@ -236,7 +290,7 @@ __device__ void solve_part(const Params& p, size_t base, int lo_e, int hi_e, flo
     if (fraw < 0.f) lo = x;
     if (fraw >= 0.f) hi = x;
     const float c = fminf(fmaxf(cdf, kTiny), kCdfMax);
-    const float f = use_lo ? logf(c) - ly : l1y - log1pf(-c);
+    const float f = use_lo ? logf(c) - ly : ly - log1pf(-c);
     const float df = fmaxf(use_lo ? pdf / c : pdf / (1.f - c), kTiny);
     float dx = f / df;
     float xn = x - dx;
@@ -263,6 +317,7 @@ template <bool RESIDENT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) mix_inverse_kernel(const Params p) {
   __shared__ float xs[kChunk];    // the run's x, then its log pdf
   __shared__ float racc[kChunk];  // the block's row sums
+  __shared__ float4 staged[RESIDENT ? kGroups * kThreads : 1];  // the lanes' mixtures
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * p.rows;
   const int rows = min(p.rows, p.B - row0);
@@ -275,7 +330,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mix_inverse_kernel(const
     const int len = (int)min((size_t)kChunk, total - c0);
     const int part = (len + kWarps - 1) / kWarps;
     const int lo_e = min(len, warp * part);
-    solve_part<RESIDENT>(p, base + c0, lo_e, min(len, lo_e + part), xs, lane);
+    solve_part<RESIDENT>(p, base + c0, lo_e, min(len, lo_e + part), xs,
+                         staged + (RESIDENT ? threadIdx.x : 0), lane);
     __syncthreads();
     for (int i = threadIdx.x; i < len; i += kThreads) {
       const size_t e = base + c0 + i;

@@ -6,7 +6,10 @@ one template variant each:
 
 * ``solve``    (``make_solve_kernel`` / ``call_solve``): the reverse walk
   over the n blocks of ``n x [ActNorm -> InvertibleResBlock]``, each a
-  fixed point x = z - g(x), then the ActNorm inverse;
+  fixed point x = z - g(x), then the ActNorm inverse; for padded widths
+  up to 64 (``solve_kernel``) its own kernel, ``fused_resflow_solve_kernel``
+  (a warp per 8 samples, the weights through a bulk-copy ring, no block
+  barrier), past that the template's variant 0;
 * ``solve_ld`` (``make_solve_logdet_kernel`` / ``call_solve_logdet``): the
   same, plus every block's 'unbias' log-det series at the solved x;
 * ``fwd_ld``   (``make_fwd_logdet_kernel`` / ``call_fwd_logdet``): the
@@ -43,9 +46,10 @@ tensors it runs the plain PyTorch versions
 raises, and counts the launch in ``LAUNCHES``.
 
 Stopping: the plain versions stop the fixed point on the whole batch, as
-the chain does; the kernel stops per block, a tile of ``SAMPLES``
-samples.  Both stop only where max|x - prev| < ftol, so they agree
-within the fixed point's tolerance, not bitwise.
+the chain does; the series kernels stop per block, a tile of ``SAMPLES``
+samples, and the solve kernel per warp of 8.  All stop only where
+max|x - prev| < ftol, so they agree within the fixed point's tolerance,
+not bitwise.
 
 Bound (H100 SXM): per sample and block one g evaluation is D F + F^2 + F D
 multiply-adds (1,152 at D = 2, F = 32), and each live series term one
@@ -524,7 +528,8 @@ def _kernel_fn():
 def blocks_per_sm(fp: int, dp: int, direction: str) -> int:
     """Blocks of the kernel variant that one SM of the current card holds
     at once (the CUDA occupancy API, with the kernel's threads and shared
-    memory).  A batch of B launches ceil(B / SAMPLES) blocks."""
+    memory).  A batch of B launches ceil(B / SAMPLES) blocks.  The solve
+    has this variant only past SOLVE_WIDTHS (``solve_blocks_per_sm``)."""
     variant, _ = _variant(direction)
     fn = _build.load("fused_resflow").nf_fused_resflow_blocks_per_sm
     if fn.argtypes is None:
@@ -542,7 +547,6 @@ def blocks_per_sm(fp: int, dp: int, direction: str) -> int:
 # warp; for the padded widths SOLVE_WIDTHS.  Wider stacks run variant 0.
 SOLVE_WIDTHS = (16, 32, 64)
 SOLVE_WARPS = 4     # consumer warps per block, and one producer warp
-SOLVE_ARITH = 0     # LipSwish's arithmetic form (the kernel's lipswish_h)
 SOLVE_BARRIER_BYTES = 128
 
 
@@ -566,27 +570,25 @@ def solve_smem_bytes(fp: int, dp: int) -> int:
     return SOLVE_BARRIER_BYTES + 4 * solve_slots(fp) * solve_slot_floats(fp, dp)
 
 
-def solve_blocks(B: int, warps: int = SOLVE_WARPS) -> int:
-    return -(-B // (8 * warps))
+def solve_blocks(B: int) -> int:
+    return -(-B // (8 * SOLVE_WARPS))
 
 
-def solve_weight_bytes_to_sm(kw: KernelWeights, n: int, B: int,
-                             warps: int = SOLVE_WARPS) -> int:
+def solve_weight_bytes_to_sm(kw: KernelWeights, n: int, B: int) -> int:
     """Bytes the solve kernel's producer warps copy from L2 into shared
     memory per call: every block reads every residual block's slot."""
-    return solve_blocks(B, warps) * n * 4 * solve_slot_floats(kw.fp, kw.dp)
+    return solve_blocks(B) * n * 4 * solve_slot_floats(kw.fp, kw.dp)
 
 
-def solve_blocks_per_sm(fp: int, dp: int, warps: int = SOLVE_WARPS,
-                        arith: int = SOLVE_ARITH) -> int:
+def solve_blocks_per_sm(fp: int, dp: int) -> int:
     """Blocks of the solve kernel that one SM of the current card holds at
     once (the CUDA occupancy API)."""
     fn = _build.load("fused_resflow").nf_fused_resflow_solve_blocks_per_sm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
-    err = fn(fp, dp, warps, arith, ctypes.byref(out))
+    err = fn(fp, dp, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"fused_resflow: occupancy query failed: CUDA error {err}")
     return out.value
@@ -596,18 +598,16 @@ def _solve_fn():
     fn = _build.load("fused_resflow").nf_fused_resflow_solve
     if fn.argtypes is None:
         i = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [i] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
-           probes: Optional[Probes] = None, solve_form=None):
+           probes: Optional[Probes] = None):
     """Launch the CUDA kernel on ``x`` (B, D).  ``direction`` 'forward'
     (fwd_ld) or 'inverse' (solve_ld) returns (y, logdet (B,)) and needs
-    ``probes``; 'solve' returns x, from the kernel ``solve_kernel`` picks.
-    ``solve_form`` (warps, arith) picks another measured form of the
-    warp-per-8-samples kernel, or 'tile' variant 0."""
+    ``probes``; 'solve' returns x, from the kernel ``solve_kernel`` picks."""
     variant, counter = _variant(direction)
     kw, spec = stack.kernel, stack.spec
     if not covers(spec):
@@ -636,12 +636,11 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
     ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
     if B == 0:
         return (y, ld) if logdet else y
-    if direction == "solve" and solve_form != "tile" and solve_kernel(kw.fp) == "warp":
-        warps, arith = solve_form or (SOLVE_WARPS, SOLVE_ARITH)
+    if direction == "solve" and solve_kernel(kw.fp) == "warp":
         with torch.cuda.device(x.device):
             err = _solve_fn()(x.data_ptr(), y.data_ptr(), kw.w.data_ptr(), B, spec.n_repeats,
                               spec.dim, spec.filters, kw.fp, kw.dp, spec.n_iters, spec.ftol,
-                              warps, arith, torch.cuda.current_stream().cuda_stream)
+                              torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"fused_resflow solve kernel failed to launch: CUDA error {err}")
         LAUNCHES[counter] += 1

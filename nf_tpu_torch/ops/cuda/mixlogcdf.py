@@ -14,7 +14,8 @@ The kernel's schedule, kept here where the CPU tests walk it:
 
 * ``component_chunks``: the components in chunks of ``COMPONENT_CHUNK``, in
   k order; up to one chunk (``resident``) a lane keeps its element's
-  mixture in registers through the Newton trips;
+  mixture (pi, exp(-s), mu) in its slot of shared memory through the
+  Newton trips, past that it reads the chunks from memory at each trip;
 * ``rows_per_block``: a block of ``WARPS`` warps takes that many
   consecutive rows as one run of elements, chosen so the grid is about one
   wave of the card; ``warp_parts``: each warp's contiguous part of its
@@ -46,9 +47,9 @@ from . import _build
 LAUNCHES = {"mix_log_cdf_inverse": 0}
 WARPS = 8             # warps per block
 CHUNK = 2048          # elements of a block's run held in shared memory
-COMPONENT_CHUNK = 8   # components a lane holds in registers at once
+COMPONENT_CHUNK = 8   # components a lane works on at once
 
-_info: Dict[Tuple[int, bool], Tuple[int, int]] = {}
+_info: Dict[Tuple[int, bool], Tuple[int, int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -62,7 +63,8 @@ def component_chunks(K: int) -> List[Tuple[int, int]]:
 
 
 def resident(K: int) -> bool:
-    """Whether a lane keeps its element's mixture in registers (one chunk)."""
+    """Whether a lane keeps its element's mixture through its Newton trips
+    (one chunk)."""
     return K <= COMPONENT_CHUNK
 
 
@@ -110,30 +112,32 @@ def warp_evaluations(evaluations: torch.Tensor, rows: int) -> int:
     return 32 * sum(part_trips(flat[a:b]) for a, b in warp_parts(B, N, rows))
 
 
-def kernel_info(K: int, device=None) -> Tuple[int, int]:
-    """(registers per thread, blocks per SM) of the kernel K components
-    take, from the CUDA runtime."""
+def kernel_info(K: int, device=None) -> Tuple[int, int, int]:
+    """(registers per thread, blocks per SM, SMs) of the kernel K
+    components take on the card, from the CUDA runtime; asked once per
+    card and kernel."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
     key = (index, resident(K))
     if key not in _info:
         fn = _build.load("mixlogcdf").nf_mix_log_cdf_inverse_info
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
             fn.restype = ctypes.c_int
         regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(index):
             err = fn(K, ctypes.byref(regs), ctypes.byref(per_sm))
         if err != 0:
             raise RuntimeError(f"mix_log_cdf_inverse: kernel query failed: CUDA error {err}")
-        _info[key] = (regs.value, per_sm.value)
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _info[key] = (regs.value, per_sm.value, sms)
     return _info[key]
 
 
 def launch_rows(y: torch.Tensor, K: int) -> int:
     """The rows per block of a launch on y (B, N) on its card."""
     B, N = y.shape
-    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    return rows_per_block(B, N, kernel_info(K, y.device)[1] * sms)
+    _, per_sm, sms = kernel_info(K, y.device)
+    return rows_per_block(B, N, per_sm * sms)
 
 
 def _fn():

@@ -14,6 +14,11 @@
   reads them, in k-steps of 8), against the plain versions at padded
   widths up to F = 256, 2e-5, and at F = 256 against the Pallas kernels
   in interpret mode; the fragment layout and the probes' pairing;
+* the solve kernel of padded widths 16 to 64 (a warp per 8 samples) walked
+  lane by lane: h1 in the mma B layout, W2t h1 in 3xTF32, the C-layout
+  fold and its shuffle reduction, each warp's own stopping; against the
+  plain version 2e-5 and nf_tpu's solve kernel in interpret mode 5e-4, on
+  ragged batches; which kernel each width takes, and its weight ring;
 * the wrapper: the plain versions for CPU tensors, no launch counted.
 """
 import jax
@@ -219,7 +224,9 @@ def _walk_solve_warps(kw, spec, z):
     the slot's fragments, h2 and the W3t fold in the C layout (rows 16 mt +
     g, + 8; columns 2 t, 2 t + 1), the xor-4 / 8 / 16 reduction that keeps
     one column and sends the other, the gather of sample g from lane
-    4 (g & 1) + (g >> 1), and each warp's own fixed-point stopping."""
+    4 (g & 1) + (g >> 1), and each warp's own fixed-point stopping.
+    LipSwish is the plain version's; the kernel's __expf / __fdividef form
+    differs from it by a few f32 ulps."""
     lay = tfr.Layout(kw.fp, kw.dp)
     fp, dp, D = kw.fp, kw.dp, spec.dim
     MT, KS = fp // 16, fp // 8
