@@ -38,6 +38,13 @@ Phases, each of which exits non-zero when it fails:
      ResFlow inverse x and logdet atol 1e-3 (the kernels stop each fixed
      point per 16-sample tile, the solve up to F = 64 per warp of 8
      samples, the plain version on the whole batch);
+     the RealNVP and Glow stacks past the FFMA block at its usual tiling,
+     shapes nf_tpu fuses (RealNVP D = 213 and Glow D = 111 at F = 32,
+     RealNVP D = 29 and Glow D = 27 at F = 256, two couplings, B = 1000),
+     through eval_program: each call one launch of the FFMA kernel on its
+     16-sample tiling, never the eager chain, at the tolerances above; and
+     RealNVP D = 400, F = 32, which no tiling holds: eval_program raises
+     NotImplementedError before any launch;
   4. the main path, for "realnvp", "glow", "flow++" and "resflow" in turn:
      build_model(name, (2,), "2d") on the card -> init(generator) ->
      (Glow / Flow++: ActNorm moved off identity by the seed) ->
@@ -48,9 +55,17 @@ Phases, each of which exits non-zero when it fails:
      draw ResFlow's probes for 256 samples from a generator seeded 0);
      then ResFlow with logdet="exact": one solve launch per inverse, none
      for the forward (the eager chain), against the eager chain;
-     the coupling kernels (forward, inverse, backward) at (1024, 512) and a
-     ragged (1000, 384), gain 0.7 and bias -0.1: y and x atol/rtol 1e-5,
-     the row log-dets atol 1e-4 (up to 512 terms summed in another order),
+     then MAF and Planar 2-D (D = 2, 32 layers, B = 8192; Planar's u, w,
+     b and MAF's running statistics moved off init by the seed): the
+     eager chain on the card, no launch of any kernel of the port (nf_tpu
+     runs no Pallas kernel there), the outputs finite, the round trip
+     within 1e-3, log p on 256 samples within 1e-4 of its largest
+     magnitude of the same state's on the CPU (both also printed against
+     the CPU's float64);
+     the coupling kernels (forward, inverse, backward) at (1024, 512),
+     (1024, 1536) and a ragged (1000, 384), gain 0.7 and bias -0.1: y
+     and x atol/rtol 1e-5, the row log-dets atol 1e-4 (up to 1536 terms
+     summed in another order),
      gz0 and graw atol/rtol 1e-5, dgain and dbias rtol 1e-4 (B x N terms),
      and each coupling kernel's kernels per call at (1024, 512), counted
      as the kernel nodes of a CUDA graph of 20 calls (one, or the run
@@ -68,8 +83,11 @@ Phases, each of which exits non-zero when it fails:
      past K = 1; at K = 1 a y rounded next to 0 or 1 loses x in the thin
      tail of a single logistic, for the plain version alike, and the run
      fails if that leaves out more than 0.1 % of the elements);
-  5. the image main path, realnvp-img32x1 (bench.py's image zoo: 32x32x1,
-     layers = 32, base_filters = 32; 161 couplings, 6,818,978 parameters):
+  5. the image main paths, bench.py's image zoo at full width (layers =
+     32, base_filters = 32, 161 couplings): realnvp-img32x1 (32x32x1,
+     6,818,978 parameters, halves 512 wide) and glow-img32x3 (32x32x3,
+     8,380,754 parameters, an ActNorm and a PLU 1x1 conv before each
+     coupling, halves 1536 wide), each:
      build_model on the card -> Trainer(seed 0).init_state on a batch of
      uniform(0.05, 0.95) pixels -> train_steps, K = 4 Adam steps at
      B = 1024 -> eval_program -> log_prob(1024 samples) and sample(1024),
@@ -77,8 +95,9 @@ Phases, each of which exits non-zero when it fails:
      each call (161 coupling_fwd per forward, 161 coupling_bwd per train
      step, 161 coupling_inv per inverse, no other kernel); the losses
      checked finite, the round trip printed; the peak memory of the train
-     steps; log p and the first step's gradients on 64 samples held
-     against the same model on the CPU (state copied after init_state),
+     steps; log p and the first step's gradients on 64 samples
+     (glow-img32x3: 16) held against the same model on the CPU (state
+     copied after init_state),
      in f32 and in float64: log p within 1e-4 of its largest magnitude of
      the CPU's f32; the gradients within twice the CPU's own f32 error,
      both measured as relative L2 distance to the float64 gradients.
@@ -108,16 +127,18 @@ Phases, each of which exits non-zero when it fails:
      over 8 input sets cycled, 67 MB, past the 50 MB L2; attention and the
      mixture inverse, their plain versions, the coupling kernels' plain
      versions and SDPA by calls captured in a CUDA graph, warm), its plain
-     version and, per model, the serving rate fwd_inv_samples_per_s =
+     version (the coupling kernels at both image tiers' shapes) and, per
+     model, the serving rate fwd_inv_samples_per_s =
      8192 / (t_fwd + t_inv), bench.py's definition; print one main_path
      line per model, its device idle share from its kernels' launches
      (the wrappers' counts) times their ms over the wall time (RealNVP and
      Glow also with the host's own cost per EvalProgram call and per
      kernel-wrapper call, timed up to the last call's return before a
-     synchronize), the ResFlow 'exact' program's wall time per direction
+     synchronize), MAF's and Planar's (the eager chain: wall ms per call
+     over 5 calls), the ResFlow 'exact' program's wall time per direction
      and its device idle share (profiler records, with the share of the
-     solve launches the profiler kept); for the image
-     model eval_fwd_inv_samples_per_s = 1024 / (t_fwd + t_inv) and
+     solve launches the profiler kept); for each image
+     tier eval_fwd_inv_samples_per_s = 1024 / (t_fwd + t_inv) and
      train_samples_per_s = K B / t_chunk
      (bench.py:269, :327), each with its device idle share and the
      coupling kernels' share of device time; for flowpp-img32x1
@@ -179,18 +200,23 @@ SMS = 132
 SFU_PER_SM_CLOCK = 16
 PLAIN_ITERS = 10
 EXACT_ITERS = 30  # calls per direction timed of the ResFlow 'exact' program
-# the image main path: realnvp-img32x1 (bench.py:57-58, :62-64)
+# the image main paths: bench.py's image zoo at full width (bench.py:57-64),
+# each with the samples held against the same model on the CPU
 IMG_DIMS = (32, 32, 1)
 IMG_BATCH = 1024
 IMG_TRAIN_CHUNK = 4
 IMG_COUPLINGS = 161
-IMG_PARAMS = 6_818_978
-IMG_PARITY = 64          # samples held against the same model on the CPU
+IMAGE_TIERS = [
+    dict(label="realnvp-img32x1", network="realnvp", dims=IMG_DIMS, params=6_818_978,
+         parity=64),
+    dict(label="glow-img32x3", network="glow", dims=(32, 32, 3), params=8_380_754,
+         parity=16)]
 IMG_LOGP_RTOL = 1e-4     # of the largest |log p|
 IMG_GRAD_FACTOR = 2.0    # the card's f32 gradient error over the CPU's
 IMG_ITERS = 2            # calls per direction timed, after 3 warm-up calls
 IMG_TRAIN_TIMED = 1      # train chunks timed (the main path has warmed the step)
-COUPLING_CASES = [(1024, 512), (1000, 384)]
+COUPLING_CASES = [(1024, 512), (1024, 1536), (1000, 384)]
+COUPLING_WIDTHS = {"realnvp-img32x1": 512, "glow-img32x3": 1536}   # each tier's halves
 COUPLING_TOL = dict(atol=1e-5, rtol=1e-5)
 COUPLING_LD_ATOL = 1e-4
 COUPLING_SUM_RTOL = 1e-4
@@ -253,6 +279,21 @@ MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
           "resflow": ("fused_resflow_fwd_ld", "fused_resflow_solve_ld")}
+# the fused RealNVP / Glow stack past its FFMA block at TILES' sample count,
+# shapes nf_tpu fuses (model, D, couplings, F): the 16-sample tiling; and a
+# D no tiling holds, which eval_program refuses before any launch
+WIDE_STACK_CASES = [("realnvp", 213, 2, 32), ("glow", 111, 2, 32), ("realnvp", 29, 2, 256),
+                    ("glow", 27, 2, 256)]
+REFUSED_STACK = ("realnvp", 400, 2, 32)
+WIDE_STACK_BATCH = 1000
+# the 2-D models that run no kernel, as in nf_tpu (bench.py:41-46): the
+# eager chain on the card
+EAGER_MODELS = ("maf", "planar")
+EAGER_PARITY = 256       # samples held against the same model on the CPU
+# of the largest |log p|, as phase 5 holds the image tiers: through MAF's
+# 32 layers the CPU's own f32 log p is 1.95e-4 from float64 at |log p| = 160
+EAGER_LOGP_RTOL = 1e-4
+EAGER_ITERS = 5          # calls per direction timed, after 3 warm-up calls
 # ResFlow kernel checks: (estimator, D, blocks, F, B, directions)
 RESFLOW_CASES = [("unbias", 2, 32, 32, BATCH, ("forward", "inverse")),
                  ("exact", 2, 32, 32, BATCH, ("solve",)),
@@ -291,6 +332,18 @@ def perturb(model, g, device):
     for m in model.modules():
         if isinstance(m, LipSwish):
             m.beta.copy_(0.5 + torch.rand(m.beta.shape, generator=g, device=device))
+
+
+@torch.no_grad()
+def perturb_planar(model, g, device):
+    """Planar u, w and b drawn from N(0, 0.5^2), so layers with w.u < -1
+    take the u_hat constraint."""
+    from nf_tpu_torch.bijectors.planar import PlanarTransform
+
+    for m in model.modules():
+        if isinstance(m, PlanarTransform):
+            for p in (m.u, m.w, m.b):
+                p.copy_(0.5 * torch.randn(p.shape, generator=g, device=device))
 
 
 def perturbed_program(name, D, layers, F, device, seed, K=8, logdet="unbias"):
@@ -794,6 +847,97 @@ def check_coupling_kernels(tc, device, errs):
     return per_call
 
 
+def check_wide_stacks(fs, device, counters, launches_of, errs):
+    """RealNVP / Glow stacks past the FFMA block at TILES' sample count,
+    through eval_program on the card: each call one launch of the FFMA
+    kernel on the 16-sample tiling (never the eager chain), against the
+    plain version; and a D that no tiling holds, refused with
+    NotImplementedError before any launch."""
+    for name, D, layers, F in WIDE_STACK_CASES:
+        _, prog, g = perturbed_program(name, D, layers, F, device, SEED + D)
+        stack = prog.stack
+        check(isinstance(stack, fs.PackedStack) and stack.variant == "ffma"
+              and stack.kernel.tile == fs.NARROW_TILE,
+              f"{name} D={D} F={F}: not on the FFMA kernel's 16-sample tiling")
+        x = torch.randn(WIDE_STACK_BATCH, D, generator=g, device=device)
+        for direction, kname in zip(("forward", "inverse"), MODELS[name]):
+            reset_all(counters)
+            y, ld = getattr(prog, direction)(x)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launches_of().items() if v}
+            check(got == {kname: 1}, f"{name} D={D} {direction}: launches {got}")
+            yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
+            ey, eld = max_diff(y, yr), max_diff(ld, ldr)
+            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_STACK_BATCH} (ffma, "
+                  f"{fs.NARROW_TILE[0]} samples a block, "
+                  f"{fs.smem_bytes(stack.kernel.fp, fs.NARROW_TILE[0], D, stack.spec.has_mix)} "
+                  f"bytes of shared memory): max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
+            check(torch.allclose(y, yr, **Z_TOL), f"{kname} D={D}: z off by {ey}")
+            check(eld <= LD_ATOL, f"{kname} D={D}: logdet off by {eld}")
+            errs[kname] = max(errs[kname], ey, eld)
+    name, D, layers, F = REFUSED_STACK
+    reset_all(counters)
+    try:
+        perturbed_program(name, D, layers, F, device, SEED)
+    except NotImplementedError as e:
+        print(f"{name} D={D} F={F}: eval_program refused it: {e}")
+    else:
+        check(False, f"{name} D={D} F={F}: eval_program took a stack no tiling holds")
+    check(not any(launches_of().values()), f"{name} D={D}: launched before refusing")
+
+
+def eager_main_path(name, device, counters, launches_of):
+    """MAF or Planar 2-D (bench.py:41-46's shape: D = 2, 32 layers) through
+    build_model -> init -> eval_program -> log_prob / sample on the card,
+    with no launch of any port kernel; the outputs finite, the round trip,
+    and log p against the same state on the CPU.  Returns (program, data,
+    latent) for the timing phase."""
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
+    from nf_tpu_torch.models import build_model
+
+    cfg = NetworkConfig(name=name, **NETWORK_DEFAULTS[name])
+    model = build_model(name, (2,), "2d", cfg)
+    check(model.device.type == "cuda", "build_model did not default to the card")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model.init(gen)
+    perturb(model, gen, device)
+    perturb_planar(model, gen, device)
+    prog = model.eval_program()
+    check(prog.stack is None, f"{name}: a fused kernel matched")
+    x = torch.randn(BATCH, 2, generator=gen, device=device)
+    reset_all(counters)
+    log_px = prog.log_prob(x)
+    y_s, log_py = prog.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launches_of().items() if v}
+    print(f"main path {name} launches: {got}")
+    check(not got, f"{name}: launched {got}")
+    check(log_px.shape == (BATCH,) and y_s.shape == (BATCH, 2) and log_py.shape == (BATCH,),
+          f"{name}: main path output shapes")
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"{name} {what}: non-finite values")
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    rt, ld_sum = max_diff(xr, x), float((ld + ldi).abs().max())
+    n = EAGER_PARITY
+    xs = x[:n].cpu()
+    lp = {}
+    for dtype in (torch.float32, torch.float64):
+        cpu = build_model(name, (2,), "2d", cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        with torch.no_grad():
+            lp[dtype] = cpu.to(dtype).eval().log_prob(xs.to(dtype)).double()
+    card = log_px[:n].cpu().double()
+    diff, top = max_diff(card, lp[torch.float32]), float(lp[torch.float64].abs().max())
+    print(f"{name} round trip: max|x - inv(fwd(x))|={rt:.3e} max|ld_fwd + ld_inv|={ld_sum:.3e};"
+          f" card vs CPU, {n} samples: max|dlog p|={diff:.3e} (max|log p|={top:.1f}; to "
+          f"float64: card {max_diff(card, lp[torch.float64]):.3e}, CPU "
+          f"{max_diff(lp[torch.float32], lp[torch.float64]):.3e})")
+    check(rt < 1e-3 and ld_sum < 1e-3, f"{name}: round trip")
+    check(diff <= EAGER_LOGP_RTOL * top, f"{name}: log p on the card disagrees with the CPU")
+    return prog, x, z
+
+
 def counted_call(what, fn, want, counters, launches_of, totals):
     """fn() with every launch counter set to 0 just before and read just
     after; fails unless the kernels launched are exactly ``want``.  Adds the
@@ -810,24 +954,25 @@ def counted_call(what, fn, want, counters, launches_of, totals):
     return out
 
 
-def image_model(cfg, device, state=None):
+def image_model(cfg, device, state=None, dims=IMG_DIMS):
     from nf_tpu_torch.models import build_model
 
-    model = build_model(cfg.name, IMG_DIMS, "image", cfg, device=device)
+    model = build_model(cfg.name, dims, "image", cfg, device=device)
     if state is not None:
         model.load_state_dict(state)
     return model
 
 
-def image_cpu_parity(cfg, state, xs):
+def image_cpu_parity(tier, cfg, state, xs):
     """Eval-mode log p and one train-mode gradient on ``xs`` for the same
     state on the card (f32) and on the CPU (plain versions, f32 and
     float64)."""
+    label = tier["label"]
     logp, grads = {}, {}
     runs = {"card": ("cuda", torch.float32), "cpu": ("cpu", torch.float32),
             "cpu64": ("cpu", torch.float64)}
     for run, (device, dtype) in runs.items():
-        model = image_model(cfg, device, state).to(dtype).eval()
+        model = image_model(cfg, device, state, tier["dims"]).to(dtype).eval()
         x = xs.to(device=device, dtype=dtype)
         with torch.no_grad():
             logp[run] = model.log_prob(x).cpu().double()
@@ -846,48 +991,50 @@ def image_cpu_parity(cfg, state, xs):
                                             / grads["cpu"].norm()),
            "grad_rel_l2_to_f64": {r: rel_l2(r) for r in ("card", "cpu")},
            "grad_max_abs": float(grads["cpu64"].abs().max())}
-    print(f"realnvp-img32x1 card vs CPU, {xs.shape[0]} samples: max|dlog p|="
+    print(f"{label} card vs CPU, {xs.shape[0]} samples: max|dlog p|="
           f"{out['logp_max_abs_diff']:.3e} (max|log p|={out['logp_max_abs']:.1f}; to float64: "
           f"card {out['logp_f64_max_abs_diff']['card']:.3e}, CPU "
           f"{out['logp_f64_max_abs_diff']['cpu']:.3e}); gradients relative L2 card vs CPU "
           f"{out['grad_rel_l2_card_vs_cpu']:.3e}, to float64: card "
           f"{out['grad_rel_l2_to_f64']['card']:.3e}, CPU {out['grad_rel_l2_to_f64']['cpu']:.3e}")
     check(out["logp_max_abs_diff"] <= IMG_LOGP_RTOL * out["logp_max_abs"],
-          "realnvp-img32x1: log p on the card disagrees with the CPU")
+          f"{label}: log p on the card disagrees with the CPU")
     check(out["grad_rel_l2_to_f64"]["card"]
           <= IMG_GRAD_FACTOR * out["grad_rel_l2_to_f64"]["cpu"],
-          "realnvp-img32x1: gradients on the card are less accurate than the CPU's")
+          f"{label}: gradients on the card are less accurate than the CPU's")
     return out
 
 
-def image_main_path(device, counters, launches_of):
-    """realnvp-img32x1 through Trainer and EvalProgram, each call's
-    launches counted.  Returns what the timing phase needs."""
+def image_main_path(tier, device, counters, launches_of):
+    """One image tier of IMAGE_TIERS through Trainer and EvalProgram, each
+    call's launches counted.  Returns what the timing phase needs."""
     from nf_tpu_torch.bijectors.coupling import AffineCoupling
     from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
     from nf_tpu_torch.train import Trainer
 
-    cfg = NetworkConfig(name="realnvp", layers=32)
-    model = image_model(cfg, None)
+    label, dims = tier["label"], tier["dims"]
+    cfg = NetworkConfig(name=tier["network"], layers=32)
+    model = image_model(cfg, None, dims=dims)
     n_couplings = sum(isinstance(m, AffineCoupling) for m in model.modules())
     n_params = sum(p.numel() for p in model.parameters())
+    print(f"{label}: {n_couplings} couplings, {n_params} parameters")
     check(model.device.type == "cuda", "build_model did not default to the card")
-    check((n_couplings, n_params) == (IMG_COUPLINGS, IMG_PARAMS),
-          f"realnvp-img32x1 has {n_couplings} couplings and {n_params} parameters")
+    check((n_couplings, n_params) == (IMG_COUPLINGS, tier["params"]),
+          f"{label} has {n_couplings} couplings and {n_params} parameters")
     gen = torch.Generator(device=device).manual_seed(SEED)
 
     def pixels(*shape):   # as bench.py:248-259 makes its batches
         return 0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)
 
-    batch0 = pixels(IMG_BATCH, *IMG_DIMS)
-    chunk = pixels(IMG_TRAIN_CHUNK, IMG_BATCH, *IMG_DIMS)
-    x = pixels(IMG_BATCH, *IMG_DIMS)
+    batch0 = pixels(IMG_BATCH, *dims)
+    chunk = pixels(IMG_TRAIN_CHUNK, IMG_BATCH, *dims)
+    x = pixels(IMG_BATCH, *dims)
     trainer = Trainer(model, OptimizerConfig(), seed=SEED)
     totals = dict.fromkeys(KERNEL_SOURCES, 0)
     n = IMG_COUPLINGS
 
     def counted(what, fn, want):
-        return counted_call(f"realnvp-img32x1 {what}", fn, want, counters, launches_of, totals)
+        return counted_call(f"{label} {what}", fn, want, counters, launches_of, totals)
 
     ts = counted("init_state", lambda: trainer.init_state(batch0), {"coupling_fwd": n})
     state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
@@ -897,31 +1044,31 @@ def image_main_path(device, counters, launches_of):
                          {"coupling_fwd": K * n, "coupling_bwd": K * n})
     peak = torch.cuda.max_memory_allocated()
     losses = losses.tolist()
-    print(f"realnvp-img32x1 losses (nats per sample) {losses}; train peak memory "
+    print(f"{label} losses (nats per sample) {losses}; train peak memory "
           f"{peak / 2**30:.2f} GiB")
-    check(all(math.isfinite(v) for v in losses), "realnvp-img32x1: non-finite loss")
+    check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss")
     prog = model.eval_program()
     log_px = counted("log_prob", lambda: prog.log_prob(x), {"coupling_fwd": n})
     y_s, log_py = counted("sample", lambda: prog.sample(IMG_BATCH, gen), {"coupling_inv": n})
-    check(log_px.shape == (IMG_BATCH,) and y_s.shape == (IMG_BATCH,) + IMG_DIMS
-          and log_py.shape == (IMG_BATCH,), "realnvp-img32x1: main path output shapes")
+    check(log_px.shape == (IMG_BATCH,) and y_s.shape == (IMG_BATCH,) + dims
+          and log_py.shape == (IMG_BATCH,), f"{label}: main path output shapes")
     for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
-        check(bool(torch.isfinite(t).all()), f"realnvp-img32x1 {what}: non-finite values")
+        check(bool(torch.isfinite(t).all()), f"{label} {what}: non-finite values")
     z, ld = prog.forward(x)
     xr, ldi = prog.inverse(z)
     err = (xr - x).abs()
     round_trip = {"max": float(err.max()), "median": float(err.median()),
                   "ld_max": max_diff(ld, -ldi), "ld_max_abs": float(ld.abs().max())}
-    print(f"realnvp-img32x1 round trip: max|x - inv(fwd(x))|={round_trip['max']:.3e} "
+    print(f"{label} round trip: max|x - inv(fwd(x))|={round_trip['max']:.3e} "
           f"median {round_trip['median']:.3e}; max|ld_fwd + ld_inv|={round_trip['ld_max']:.3e} "
           f"(max|ld|={round_trip['ld_max_abs']:.1f})")
     check(bool(torch.isfinite(z).all() and torch.isfinite(xr).all()),
-          "realnvp-img32x1: non-finite round trip")
+          f"{label}: non-finite round trip")
     t0 = time.perf_counter()
-    parity = image_cpu_parity(cfg, state, x[:IMG_PARITY])
+    parity = image_cpu_parity(tier, cfg, state, x[:tier["parity"]])
     print(f"card vs CPU parity took {time.perf_counter() - t0:.1f} s")
-    return dict(model=model, prog=prog, trainer=trainer, ts=ts, chunk=chunk, x=x, z=z,
-                totals=totals, losses=losses, peak=peak, round_trip=round_trip,
+    return dict(tier=tier, model=model, prog=prog, trainer=trainer, ts=ts, chunk=chunk, x=x,
+                z=z, totals=totals, losses=losses, peak=peak, round_trip=round_trip,
                 parity=parity, n_params=n_params)
 
 
@@ -968,8 +1115,9 @@ def image_timing(img, smi, tc):
         *profile_window(lambda: trainer.train_step(state["ts"], img["chunk"][0]), 1, (tc,)),
         1)
     K, B = IMG_TRAIN_CHUNK, IMG_BATCH
+    tier = img["tier"]
     line = {
-        "model": f"realnvp-img32x1: {'x'.join(map(str, IMG_DIMS))} image, "
+        "model": f"{tier['label']}: {'x'.join(map(str, tier['dims']))} image, "
                  f"{IMG_COUPLINGS} couplings, base_filters=32, {img['n_params']} parameters",
         "batch": B, "train_chunk": K,
         "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
@@ -985,10 +1133,11 @@ def image_timing(img, smi, tc):
 
 def coupling_entries(tc, launches, errs, sfu_per_s, device, per_call):
     """The three coupling kernels' entries on the kernels line, timed at
-    the main path's shape (1024, 512) over input sets cycled past L2, with
-    their kernels per call from check_coupling_kernels."""
+    each image tier's shape, (1024, 512) and (1024, 1536), over input sets
+    cycled past L2: the entry's own numbers at (1024, 512), the other
+    tier's under its label; with their kernels per call from
+    check_coupling_kernels."""
     g = torch.Generator(device=device).manual_seed(SEED + 1)
-    sets = [coupling_inputs(IMG_BATCH, 512, g, device) for _ in range(COUPLING_SETS)]
     calls = {
         "coupling_fwd": (lambda a: tc.launch(*a[:5], inverse=False),
                          lambda a: tc.coupling_fwd_reference(*a[:5])),
@@ -997,22 +1146,35 @@ def coupling_entries(tc, launches, errs, sfu_per_s, device, per_call):
         "coupling_bwd": (lambda a: tc.launch_bwd(a[0], a[2], a[3], a[4], a[5], a[6]),
                          lambda a: tc.coupling_bwd_reference(a[0], a[2], a[3], a[4], a[5],
                                                              a[6]))}
+    timed = {}
+    for label, N in COUPLING_WIDTHS.items():
+        sets = [coupling_inputs(IMG_BATCH, N, g, device) for _ in range(COUPLING_SETS)]
+        for name, (kernel, plain) in calls.items():
+            cycle = itertools.cycle(sets)
+            kname = "coupling_bwd_kernel" if name == "coupling_bwd" else "coupling_kernel"
+            work = coupling_work(IMG_BATCH, N, name == "coupling_bwd")
+            bound, bound_by = bound_of(work, sfu_per_s)
+            ms = kernel_ms(lambda: kernel(next(cycle)), COUPLING_ITERS, kname)
+            timed[label, name] = dict(
+                shape=[IMG_BATCH, N], ms=ms,
+                plain_ms=graph_ms(lambda: plain(next(cycle)), COUPLING_ITERS),
+                event_ms=device_ms(lambda: kernel(next(cycle)), COUPLING_ITERS),
+                bound_ms=bound, bound_by=bound_by, share=bound / ms, work=work)
+        del sets
     entries = []
-    for name, (kernel, plain) in calls.items():
-        cycle = itertools.cycle(sets)
-        kname = "coupling_bwd_kernel" if name == "coupling_bwd" else "coupling_kernel"
+    for name in calls:
+        main = timed["realnvp-img32x1", name]
+        other = {k: v for k, v in timed["glow-img32x3", name].items() if k != "work"}
         entries.append(kernel_entry(
-            name, launches, errs, coupling_work(IMG_BATCH, 512, name == "coupling_bwd"),
-            sfu_per_s, kernel_ms(lambda: kernel(next(cycle)), COUPLING_ITERS, kname),
-            graph_ms(lambda: plain(next(cycle)), COUPLING_ITERS),
-            shape=[IMG_BATCH, 512],
-            event_ms=device_ms(lambda: kernel(next(cycle)), COUPLING_ITERS),
+            name, launches, errs, main["work"], sfu_per_s, main["ms"], main["plain_ms"],
+            shape=main["shape"], event_ms=main["event_ms"],
             timing="ms: the kernel's own device time per launch (profiler, the mean over "
                    "its records); plain_ms: device time per call, 200 calls in one CUDA "
                    "graph between CUDA events; event_ms: CUDA events over back-to-back "
                    "calls, host cost included",
             library_note="no single PyTorch call computes the coupling transform",
-            calls_per_pass=IMG_COUPLINGS, kernels_per_call=per_call[name]))
+            calls_per_pass=IMG_COUPLINGS, kernels_per_call=per_call[name],
+            **{"glow-img32x3": other}))
     return entries
 
 
@@ -1497,6 +1659,8 @@ def main():
                 check(eld <= LD_ATOL, f"{name} D={D}: logdet off by {eld}")
             errs[name] = max(errs[name], ey, eld)
 
+    check_wide_stacks(fs, dev, counters, launches_of, errs)
+
     for estimator, D, layers, F, B, directions in RESFLOW_CASES:
         _, prog, g = perturbed_program("resflow", D, layers, F, dev, SEED + D, logdet=estimator)
         stack = prog.stack
@@ -1626,10 +1790,16 @@ def main():
     check(e_x < RESFLOW_INV_ATOL and e_ld < RESFLOW_INV_ATOL,
           "resflow exact: serving program disagrees with the eager chain")
 
-    # ---- 5. the image main path: training and serving
-    print(f"phase 5 (image main path) starts at {time.perf_counter() - t_start:.1f} s")
-    img = image_main_path(dev, counters, launches_of)
-    launches.update({k: img["totals"][k] for k in tc.LAUNCHES})
+    # MAF and Planar: the eager chain on the card, no kernel of the port
+    eager = {name: eager_main_path(name, dev, counters, launches_of) for name in EAGER_MODELS}
+
+    # ---- 5. the image main paths: training and serving
+    images = []
+    for tier in IMAGE_TIERS:
+        print(f"phase 5 (image main path, {tier['label']}) starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        images.append(image_main_path(tier, dev, counters, launches_of))
+    launches.update({k: sum(img["totals"][k] for img in images) for k in tc.LAUNCHES})
     print(f"phase 6 (image Flow++ main path) starts at {time.perf_counter() - t_start:.1f} s")
     fp = flowpp_image_main_path(dev, counters, launches_of, ca)
     launches["attention_fwd"] = fp["totals"]["attention_fwd"]
@@ -1733,8 +1903,18 @@ def main():
                 "calls": EXACT_ITERS,
                 "device_idle_share": None if busy is None else 1.0 - busy,
                 "solve_records_kept": kept, "card": smi}}))
+    for name, (prog, x, z) in eager.items():
+        t_fwd = wall_ms(lambda: prog.forward(x), EAGER_ITERS)
+        t_inv = wall_ms(lambda: prog.inverse(z), EAGER_ITERS)
+        print(json.dumps({"main_path": {
+            "model": f"{name} 2d, 32 layers: the eager chain (no kernel of the port, as "
+                     "nf_tpu runs no Pallas kernel there)",
+            "batch": BATCH, "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+            "calls": EAGER_ITERS, "fwd_inv_samples_per_s": BATCH / ((t_fwd + t_inv) / 1e3),
+            "card": smi}}))
     t_img = time.perf_counter()
-    image_timing(img, smi, tc)
+    for img in images:
+        image_timing(img, smi, tc)
     kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev, coupling_per_call)
     print(f"image timing took {time.perf_counter() - t_img:.1f} s")
     t_img = time.perf_counter()

@@ -4,9 +4,13 @@ of ``nf_tpu/bijectors/conv1x1.py``.
 ``W = P L U`` with ``P`` a fixed permutation, ``L`` unit lower triangular
 (only the strict lower part of the parameter counts), ``U`` strict upper
 plus ``diag(sign_s * exp(log_s))``.  Forward ``y = x @ W.T`` per channel
-vector, logdet ``sum(log_s) * n_pixels``; the inverse solves ``W x = y``
-with two triangular solves against ``P^T y``.  ``P`` and ``sign_s`` are
-buffers, as ``nf_tpu`` keeps them in state.
+vector, logdet ``sum(log_s) * n_pixels``; the inverse is
+``x = y @ (U^-1 L^-1 P^T).T``, the two triangular inverses formed by
+solves against the C x C identity.  ``nf_tpu`` solves against all N
+pixel vectors instead; on an H100 ``torch.linalg.solve_triangular``
+takes 15.9 s for glow-img32x3's (3, 1,048,576) right-hand side, where
+this takes 0.35 ms (``conv1x1_inverse_probe.py``).  ``P``
+and ``sign_s`` are buffers, as ``nf_tpu`` keeps them in state.
 """
 from __future__ import annotations
 
@@ -69,7 +73,7 @@ class InvertibleConv1x1(Bijector):
 
     def inverse(self, y):
         P, L, U = self.factors()
-        rhs = P.T @ y.reshape(-1, self.num_channels).T            # (C, N)
-        z = torch.linalg.solve_triangular(L, rhs, upper=False, unitriangular=True)
-        x = torch.linalg.solve_triangular(U, z, upper=True)
-        return x.T.reshape(y.shape), self._logdet(y, -1.0)
+        eye = torch.eye(self.num_channels, dtype=L.dtype, device=L.device)
+        l_inv = torch.linalg.solve_triangular(L, eye, upper=False, unitriangular=True)
+        u_inv = torch.linalg.solve_triangular(U, eye, upper=True)
+        return y @ (u_inv @ l_inv @ P.T).T, self._logdet(y, -1.0)

@@ -1,6 +1,8 @@
-"""Volume-preserving squeeze / unsqueeze bijectors, NHWC (counterpart of
-``nf_tpu/bijectors/squeeze.py``); log-det 0."""
+"""Volume-preserving squeeze / unsqueeze bijectors, NHWC, and the flatten
+(counterpart of ``nf_tpu/bijectors/squeeze.py``); log-det 0."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -47,3 +49,20 @@ class Unsqueeze2d(Bijector):
 
     def inverse(self, z):
         return _squeeze(z, self.odd), _zeros(z)
+
+
+class Flatten(Bijector):
+    """(B, *dims) <-> (B, prod(dims)); log-det 0.  MAF's flattened-pixel
+    image variant runs its stack between ``Flatten`` and
+    ``Inverted(Flatten)``."""
+
+    def __init__(self, dims):
+        super().__init__()
+        self.dims = tuple(dims)
+        self.flat_dim = math.prod(self.dims)
+
+    def forward(self, z):
+        return z.reshape(z.shape[0], self.flat_dim), _zeros(z)
+
+    def inverse(self, z):
+        return z.reshape((z.shape[0],) + self.dims), _zeros(z)

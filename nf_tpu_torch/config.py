@@ -20,8 +20,14 @@ class NetworkConfig:
     # resflow (configs/network/resflow.yaml)
     logdet: str = "unbias"
     spnorm_coeff: float = 0.9
+    # maf image mode: the flattened-pixel variant (nf_tpu's opt-in; image
+    # data raises without it)
+    allow_image: bool = False
     # flow++ image mode: variational dequantization; not ported (raises)
     var_dequant: bool = False
+    # maf: redraw the MADE masks from the trainer's per-step generator on
+    # every training forward; False keeps the masks drawn at init
+    resample_masks: bool = False
     # conditioner width (reference MLP/ConvNet base_filters=32)
     base_filters: int = 32
     # matmul / conv precision: None, "float32" or "highest" run f32 (TF32
@@ -48,8 +54,10 @@ class OptimizerConfig:
 
 # per-network defaults mirroring configs/network/*.yaml
 NETWORK_DEFAULTS = {
+    "planar": dict(layers=32),
     "realnvp": dict(layers=32),
     "glow": dict(layers=32),
     "flow++": dict(layers=32, mixtures=8),
+    "maf": dict(layers=32),
     "resflow": dict(layers=32, logdet="unbias", spnorm_coeff=0.9),
 }

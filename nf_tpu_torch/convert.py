@@ -24,6 +24,12 @@ matching parameters and buffers.  Layout differences handled here:
 * ``SpectralNormDense`` keeps ``nf_tpu``'s ``(in, out)`` ``w_bar``; its
   power-iteration vectors ``u`` / ``v`` are state there and buffers here.
   ``InvertibleResBlock`` nests its g-net under ``"g"`` in both trees.
+* ``MADE`` keeps lists ``w`` / ``u`` / ``b`` / ``bn`` and its masks in
+  state, ``(in, out)`` there and ``(out, in)`` here (both transposed);
+  ``AutoregressiveTransform`` nests the MADEs under ``"s"`` / ``"t"`` and
+  keeps ``perm`` in state.  ``PlanarTransform``'s ``u`` / ``w`` / ``b``
+  copy as they are; ``Flatten`` has no variables, and ``Inverted`` holds
+  its inner bijector's.
 """
 from __future__ import annotations
 
@@ -35,9 +41,11 @@ from .bijectors.coupling import AffineCoupling
 from .bijectors.elementwise import Logit
 from .bijectors.flowpp_coupling import MixLogAttnCoupling
 from .bijectors.iresblock import InvertibleResBlock
+from .bijectors.made import MADE, AutoregressiveTransform
 from .bijectors.norm import ActNorm, BatchNorm
-from .bijectors.squeeze import Squeeze2d, Unsqueeze2d
-from .core.bijector import Chain
+from .bijectors.planar import PlanarTransform
+from .bijectors.squeeze import Flatten, Squeeze2d, Unsqueeze2d
+from .core.bijector import Chain, Inverted
 from .models.base import FlowModel
 from .nets.conditioners import ResBlockLinear
 from .nets.core import Activation, Sequential
@@ -47,9 +55,9 @@ from .nets.spectral import LipSwish, SpectralNormDense
 
 
 def _copy(dst: torch.Tensor, src, name: str, transpose=False) -> None:
-    """Copy ``src`` into ``dst``; ``transpose`` is True (reverse the axes) or
-    an axis order for ``np.transpose``."""
-    a = np.asarray(src, dtype=np.float32)
+    """Copy ``src`` into ``dst`` in ``dst``'s dtype; ``transpose`` is True
+    (reverse the axes) or an axis order for ``np.transpose``."""
+    a = np.asarray(src)
     if transpose is True:
         a = a.T
     elif transpose:
@@ -57,6 +65,23 @@ def _copy(dst: torch.Tensor, src, name: str, transpose=False) -> None:
     if tuple(a.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: shape {a.shape} does not fit {tuple(dst.shape)}")
     dst.copy_(torch.tensor(a))
+
+
+def _load_made(module, params, state, path: str) -> None:
+    n = len(module.w)
+    lists = [("w", module.w), ("b", module.b)] + ([("u", module.u)] if module.u is not None
+                                                  else [])
+    if "u" in params and module.u is None:
+        raise ValueError(f"{path}: companion weights for a MADE without them")
+    for k, dst in lists:
+        if len(params[k]) != n:
+            raise ValueError(f"{path}.{k}: {len(params[k])} entries for {n} layers")
+        for i in range(n):
+            _copy(dst[i], params[k][i], f"{path}.{k}[{i}]", transpose=k != "b")
+    for i, m in enumerate(module.masks()):
+        _copy(m, state["masks"][i], f"{path}.masks[{i}]", transpose=True)
+    for i, bn in enumerate(module.bn):
+        _load(bn, params["bn"][i], state["bn"][i], f"{path}.bn[{i}]")
 
 
 def _load(module, params, state, path: str) -> None:
@@ -94,8 +119,10 @@ def _load(module, params, state, path: str) -> None:
         if module.bridge is not None:
             _load(module.bridge, params["bridge"], state["bridge"],
                   f"{path}.bridge")
-    elif isinstance(module, (Activation, Logit, Squeeze2d, Unsqueeze2d)):
+    elif isinstance(module, (Activation, Logit, Squeeze2d, Unsqueeze2d, Flatten)):
         pass
+    elif isinstance(module, Inverted):
+        _load(module.inner, params, state, f"{path}.inner")
     elif isinstance(module, BatchNorm):
         src = params if module.affine else state
         for k in ("log_gamma", "beta"):
@@ -136,6 +163,17 @@ def _load(module, params, state, path: str) -> None:
         _copy(module.beta, params["beta"], f"{path}.beta")
     elif isinstance(module, InvertibleResBlock):
         _load(module.g_net, params["g"], state["g"], f"{path}.g")
+    elif isinstance(module, MADE):
+        _load_made(module, params, state, path)
+    elif isinstance(module, AutoregressiveTransform):
+        for k, net in (("s", module.net_s), ("t", module.net_t)):
+            _load(net, params[k], state[k], f"{path}.{k}")
+        for k in ("s_log_scale", "s_bias"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
+        _copy(module.perm, state["perm"], f"{path}.perm")
+    elif isinstance(module, PlanarTransform):
+        for k in ("u", "w", "b"):
+            _copy(getattr(module, k), params[k], f"{path}.{k}")
     else:
         raise TypeError(f"{path}: no conversion for {type(module).__name__}")
 

@@ -1,1 +1,1 @@
-from .bijector import Bijector, Chain, init_children  # noqa: F401
+from .bijector import Bijector, Chain, Inverted, call_forward, init_children  # noqa: F401

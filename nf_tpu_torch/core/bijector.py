@@ -10,10 +10,15 @@ that was applied.  ``init(generator)`` re-draws the parameters in place
 from an explicit ``torch.Generator``.  ``nf_tpu``'s ``Ctx.train`` is the
 module's ``training`` flag; ``dd_init(x)`` is the one-time data-dependent
 pass, run by ``FlowModel.data_dependent_init`` in train mode.
+
+``nf_tpu``'s ``Ctx.rng`` is a ``torch.Generator`` handed to ``forward``
+where a layer draws noise while it trains (``takes_generator``; MAF's
+``resample_masks``), and ResFlow's log-det probes a ``probes`` argument
+(``takes_probes``); ``call_forward`` hands each layer what it takes.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -32,9 +37,12 @@ def init_children(module: nn.Module, generator: torch.Generator) -> None:
 class Bijector(nn.Module):
     """Base class: subclasses implement ``forward`` and ``inverse``.
     ``takes_probes``: ``forward`` takes ResFlow's log-det probes
-    (``ops/estimators.py``'s (V, n_terms)) as its second argument."""
+    (``ops/estimators.py``'s (V, n_terms)) as ``probes``;
+    ``takes_generator``: ``forward`` takes the training step's
+    ``torch.Generator`` as ``generator`` (None: draw nothing)."""
 
     takes_probes = False
+    takes_generator = False
 
     def init(self, generator: torch.Generator) -> None:
         """Re-draw this bijector's parameters in place."""
@@ -56,22 +64,35 @@ class Bijector(nn.Module):
         return self(x)[0]
 
 
+def call_forward(layer: Bijector, x: torch.Tensor, probes=None,
+                 generator: Optional[torch.Generator] = None):
+    """``layer(x)`` with the probes and the generator it takes."""
+    kw = {}
+    if layer.takes_probes:
+        kw["probes"] = probes
+    if layer.takes_generator:
+        kw["generator"] = generator
+    return layer(x, **kw)
+
+
 class Chain(Bijector):
     """Sequential composition: forward in order, inverse reversed, per-layer
     logdets summed starting from zeros.  ``forward``'s ``probes`` go to
     every layer that takes them (one probe set for every block: ResFlow's
-    serving semantics)."""
+    serving semantics), and its ``generator`` to every layer that takes
+    one, each drawing from it in turn."""
 
     takes_probes = True
+    takes_generator = True
 
     def __init__(self, layers: Sequence[Bijector]):
         super().__init__()
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x, probes=None):
+    def forward(self, x, probes=None, generator=None):
         logdet = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, ld = layer(x, probes) if layer.takes_probes else layer(x)
+            x, ld = call_forward(layer, x, probes, generator)
             logdet = logdet + ld
         return x, logdet
 
@@ -86,3 +107,17 @@ class Chain(Bijector):
         for layer in self.layers:
             x = layer.dd_init(x)
         return x
+
+
+class Inverted(Bijector):
+    """Swap forward and inverse of a wrapped bijector."""
+
+    def __init__(self, inner: Bijector):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x):
+        return self.inner.inverse(x)
+
+    def inverse(self, y):
+        return self.inner(y)

@@ -65,8 +65,10 @@
 //    MIX is a template parameter, so the RealNVP instantiation is the
 //    kernel without it.
 //  * Widths: FP is F rounded up to 8, 16, ..., 256 on the host with zero
-//    weights, which keeps the padded features exactly 0.  D is any: the
-//    x tile is D x S in shared memory and the host checks the budget.  A
+//    weights, which keeps the padded features exactly 0.  D is any that
+//    fits: the x tile and the head's rows are D x S in shared memory, so
+//    a wide D takes the 16-sample tiling (fused_stack.py::ffma_tiling
+//    checks the budget, and the host refuses a D that fits neither).  A
 //    ragged batch tail loads zeros and stores nothing.
 //  * Accurate expf / tanhf (no fast math): the results are held against
 //    the plain PyTorch version.
@@ -481,6 +483,14 @@ extern "C" int nf_fused_stack(const void* x, void* y, void* ld, const void* pre,
   NF_TILING(64, 64, 4)
   NF_TILING(128, 32, 4)
   NF_TILING(256, 32, 4)
+  // NARROW_TILE: 16 samples a block, for a D whose x tile and head rows
+  // would pass the shared memory at the tilings above
+  NF_TILING(8, 16, 2)
+  NF_TILING(16, 16, 2)
+  NF_TILING(32, 16, 2)
+  NF_TILING(64, 16, 2)
+  NF_TILING(128, 16, 2)
+  NF_TILING(256, 16, 2)
 #undef NF_TILING
   return (int)cudaErrorInvalidValue;
 }

@@ -8,13 +8,17 @@ from ..config import NETWORK_DEFAULTS, NetworkConfig
 from .base import EvalProgram, FlowModel  # noqa: F401
 from .flowpp import build_flowpp
 from .glow import build_glow
+from .maf import build_maf
+from .planar import build_planar
 from .realnvp import build_realnvp
 from .resflow import build_resflow
 
 _REGISTRY = {
+    "planar": build_planar,
     "realnvp": build_realnvp,
     "glow": build_glow,
     "flow++": build_flowpp,
+    "maf": build_maf,
     "resflow": build_resflow,
 }
 
@@ -62,6 +66,9 @@ def build_model(name: str, dims, datatype=None, cfg=None,
     if getattr(cfg, "compute_dtype", "float32") not in (None, "float32"):
         raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r} is not ported "
                                   "yet; the port computes in float32")
+    for flag in ("scan", "remat"):     # nf_tpu's ScannedChain and rematerialization
+        if getattr(cfg, flag, False):
+            raise NotImplementedError(f"{name} with {flag}=True is not ported yet")
     device = resolve_device(device)
     _apply_matmul_precision(cfg, device)
     return _REGISTRY[name](dims, datatype=datatype, cfg=cfg, device=device)

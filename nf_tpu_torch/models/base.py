@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.bijector import Bijector
+from ..core.bijector import Bijector, call_forward
 from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
                                      fused_flowpp, pack_flowpp)
 from ..ops.cuda.fused_resflow import (PackedResFlow, extract_resflow_spec,
@@ -83,17 +83,19 @@ class FlowModel(nn.Module):
         return EvalProgram(self, probes)
 
     # ------------------------------------------------------------- running
-    def forward(self, y):
-        """data -> latent; returns (z, log|det J|)."""
-        return self.bijector(y)
+    def forward(self, y, generator: Optional[torch.Generator] = None):
+        """data -> latent; returns (z, log|det J|).  ``generator`` feeds the
+        layers that draw noise while they train (``Trainer`` hands one per
+        step); without it they draw nothing."""
+        return call_forward(self.bijector, y, generator=generator)
 
     def inverse(self, z):
         """latent -> data; returns (y, logdet of the inverse map)."""
         return self.bijector.inverse(z)
 
-    def log_prob(self, y):
+    def log_prob(self, y, generator: Optional[torch.Generator] = None):
         """log p(y) = log N(z) + log|det dz/dy|; returns (B,)."""
-        z, logdet = self.forward(y)
+        z, logdet = self.forward(y, generator)
         return standard_normal_logprob(z) + logdet
 
     def sample(self, n: int, generator: torch.Generator):
@@ -113,7 +115,9 @@ class EvalProgram:
     on the card, its plain version on the CPU); any other stack runs the
     eager chain on the model's device, as ``nf_tpu`` runs its jitted chain
     where no fused kernel applies.  ``stack`` holds the packed weights, or
-    None for the chain.
+    None for the chain.  A matched stack that no kernel on the card takes
+    raises NotImplementedError there (``PackedStack``, ``PackedResFlow``),
+    never falling back to the chain.
 
     A program over the chain serves the live module in eval mode: a call
     sets it back to eval mode where training (``Trainer``) left it in train

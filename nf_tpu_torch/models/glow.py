@@ -1,5 +1,10 @@
-"""Glow model builder (counterpart of ``nf_tpu/models/glow.py``), density
-mode: n x [ActNorm -> InvertibleConv1x1 -> AffineCoupling(alt odd)]."""
+"""Glow model builder (counterpart of ``nf_tpu/models/glow.py``).
+
+* density mode: n x [ActNorm -> InvertibleConv1x1 -> AffineCoupling(alt odd)];
+* image mode (NHWC): ``multiscale``'s skeleton with n x [ActNorm ->
+  InvertibleConv1x1 -> AffineCoupling] as its block.  At 32x32 and n = 32
+  that is 161 couplings.
+"""
 from __future__ import annotations
 
 from ..bijectors.conv1x1 import InvertibleConv1x1
@@ -7,14 +12,21 @@ from ..bijectors.coupling import AffineCoupling
 from ..bijectors.norm import ActNorm
 from ..core.bijector import Chain
 from .base import FlowModel
+from .multiscale import multiscale
 
 
 def build_glow(dims, datatype=None, cfg=None, device=None) -> FlowModel:
-    if datatype == "image":
-        raise NotImplementedError("the Glow image tier lands in a later slice")
     bf = getattr(cfg, "base_filters", 32)
-    layers = [l for i in range(cfg.layers) for l in (
-        ActNorm(dims[-1], device=device),
-        InvertibleConv1x1(dims[-1], device=device),
-        AffineCoupling(dims, odd=i % 2 != 0, base_filters=bf, device=device))]
+
+    def block(n, dims, masking):
+        """n x [ActNorm -> InvertibleConv1x1 -> AffineCoupling], the
+        coupling parity alternating."""
+        return [l for i in range(n) for l in (
+            ActNorm(dims[-1], device=device),
+            InvertibleConv1x1(dims[-1], device=device),
+            AffineCoupling(dims, masking=masking, odd=i % 2 != 0, base_filters=bf,
+                           device=device))]
+
+    layers = (multiscale(dims, cfg.layers, block) if datatype == "image"
+              else block(cfg.layers, dims, "checkerboard"))
     return FlowModel("glow", Chain(layers), dims, device)

@@ -9,14 +9,17 @@ layers on the tensor cores (``mma.sync`` in 3xTF32) for padded widths up
 to 64 and data dimensions up to 8, which includes the headline (D = 2,
 F = 32);
 ``nf_tpu_torch/csrc/fused_stack.cu`` runs them on the FFMA units for the
-rest.  ``kernel_variant`` chooses by shape.  The eval-mode forward or
+rest, with 16 samples a block where a wide D would pass the shared memory
+at its usual tiling (``ffma_tiling``).  ``kernel_variant`` chooses by
+shape; a stack no tiling holds raises NotImplementedError on the card.  The eval-mode forward or
 inverse of
 
     n x [ channel-affine norm -> (PLU 1x1 mix)? -> affine coupling(MLP) ]
 
 runs as ONE launch per direction.  Host side, once per stack:
 
-* ``extract_stack_spec`` matches the chain against that structure;
+* ``extract_stack_spec`` matches the chain against that structure, by
+  ``nf_tpu``'s rules;
 * ``pack_stack`` folds weight norm, the conditioner BatchNorms' eval
   affines, the norm's shift / scale (flow-BatchNorm or ActNorm), the PLU
   recomposition ``W = P L U`` with its inverse, and every constant log-det,
@@ -67,6 +70,10 @@ _N_VEC = 15
 # conditioner layer, so a block has (S / TS) * (FP / 4) threads.
 TILES = {8: (256, 4), 16: (128, 4), 32: (64, 2), 64: (64, 4),
          128: (32, 4), 256: (32, 4)}
+# the tiling of every width for a stack whose block would pass SMEM_LIMIT at
+# TILES' S: the x tile and the head's rows are D x (S + 4) floats, so 16
+# samples a block take D up to several hundred at F = 32 (``ffma_tiling``)
+NARROW_TILE = (16, 2)
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
 
 # The tensor-core kernel: padded widths and data dimensions it covers, and
@@ -195,6 +202,26 @@ def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False) -> int:
                 + 2 * half * sp + samples)
 
 
+def ffma_tiling(dim: int, filters: int, has_mix: bool) -> Optional[Tuple[int, int]]:
+    """The FFMA kernel's (S, TS) for a (D = dim, F = filters) stack: TILES'
+    entry of its padded width, else NARROW_TILE, whichever is first to fit
+    one block's shared memory; None where neither does."""
+    fp = padded_width(filters)
+    for tile in (TILES[fp], NARROW_TILE):
+        if smem_bytes(fp, tile[0], dim, has_mix) <= SMEM_LIMIT:
+            return tile
+    return None
+
+
+def _uncovered(spec: "StackSpec") -> NotImplementedError:
+    fp = padded_width(spec.filters)
+    return NotImplementedError(
+        f"fused_stack: no FFMA tiling holds D = {spec.dim}, F = {spec.filters}"
+        f"{' (Glow mix)' if spec.has_mix else ''} in one block's shared memory: "
+        f"{smem_bytes(fp, NARROW_TILE[0], spec.dim, spec.has_mix)} bytes at "
+        f"{NARROW_TILE[0]} samples a block, {SMEM_LIMIT} the limit")
+
+
 def _is_relu(layer) -> bool:
     return isinstance(layer, Activation) and layer.fn is torch.relu
 
@@ -227,12 +254,12 @@ def _mlp_ok(net, filters_out: int) -> Optional[int]:
 
 
 def extract_stack_spec(chain, dims) -> Optional[StackSpec]:
-    """Match chain.layers against the fusable repeated structure.
-
-    ``nf_tpu`` also caps the stacked weights at 8 MB of TPU VMEM; the
-    Hopper kernel streams each coupling's weights from L2, so its only
-    budget is one block's shared memory, which grows with D.
-    """
+    """Match chain.layers against the fusable repeated structure, by
+    ``nf_tpu``'s rules but its 8 MB cap on the stacked weights (TPU VMEM;
+    the Hopper kernels stream each coupling's weights from L2).  What a
+    kernel on the card takes is asked where the stack is packed for the
+    card (``PackedStack``, ``ffma_tiling``): a matched stack is never
+    served by the eager chain there."""
     if not isinstance(chain, Chain) or len(dims) != 1:
         return None
     D = dims[0]
@@ -274,9 +301,6 @@ def extract_stack_spec(chain, dims) -> Optional[StackSpec]:
         halves[i % 2] = (out_chs, in_chs)
 
     if F > max(TILES):
-        return None
-    fp = padded_width(F)
-    if kernel_variant(D, F) == "ffma" and smem_bytes(fp, TILES[fp][0], D, has_mix) > SMEM_LIMIT:
         return None
     return StackSpec(n_repeats=n, dim=D, filters=F, has_mix=has_mix,
                      norm_kind=norm_kind, halves=(halves[0], halves[1]))
@@ -563,8 +587,10 @@ class FfmaWeights:
     to width fp: pre / prei (n, D, 2), w0t (n, in_max, fp) k-major, vec
     (n, 15, fp), wrt (n, 4, fp, fp) k-major, wh (n, 2*out_max, fp) with the
     t rows first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2),
-    and for Glow mix / mixi (n, D, D) row-major (out, in), else None."""
+    and for Glow mix / mixi (n, D, D) row-major (out, in), else None;
+    ``tile`` the launch's (S samples a block, TS a thread), ``ffma_tiling``'s."""
     fp: int
+    tile: Tuple[int, int]
     pre: torch.Tensor
     prei: torch.Tensor
     w0t: torch.Tensor
@@ -581,6 +607,9 @@ class FfmaWeights:
 def ffma_weights(spec: StackSpec, packed) -> FfmaWeights:
     n, D, F = spec.n_repeats, spec.dim, spec.filters
     fp = padded_width(F)
+    tile = ffma_tiling(D, F, spec.has_mix)
+    if tile is None:
+        raise _uncovered(spec)
     half = (D + 1) // 2                   # in_max == out_max
     kw = dict(dtype=torch.float32, device=packed[0]["gb"].device)
     out = dict(pre=torch.zeros(n, D, 2, **kw), prei=torch.zeros(n, D, 2, **kw),
@@ -609,7 +638,7 @@ def ffma_weights(spec: StackSpec, packed) -> FfmaWeights:
         if spec.has_mix:
             out["mix"][c] = P["mix"]
             out["mixi"][c] = P["mixi"]
-    return FfmaWeights(fp=fp, **out)
+    return FfmaWeights(fp=fp, tile=tile, **out)
 
 
 def kernel_weights(spec: StackSpec, packed):
@@ -621,7 +650,9 @@ def kernel_weights(spec: StackSpec, packed):
 
 class PackedStack:
     """One stack's packed weights, built once: ``nf_tpu``'s layout for the
-    plain version and, for a stack on the card, the kernel's layout."""
+    plain version and, for a stack off the CPU, the kernel's layout.
+    Raises NotImplementedError for a stack off the CPU that no kernel
+    takes (``ffma_tiling``)."""
 
     def __init__(self, spec: StackSpec, packed, const_ld: torch.Tensor):
         self.spec = spec
@@ -629,9 +660,10 @@ class PackedStack:
         self.const_ld = const_ld
         self.device = const_ld.device
         self.variant = kernel_variant(spec.dim, spec.filters)
-        self.kernel = (kernel_weights(spec, packed)
-                       if const_ld.device.type == "cuda" else None)
-        self.ld_const = float(const_ld) if self.kernel is not None else None
+        self.kernel = self.ld_const = None
+        if self.device.type != "cpu":
+            self.kernel = kernel_weights(spec, packed)
+            self.ld_const = float(const_ld)
 
 
 def _ffma_fn():
@@ -702,7 +734,7 @@ def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
                             B, spec.dim, spec.n_repeats, lay.fp, lay.dp, int(inverse),
                             int(spec.has_mix), ld_const, stream)
         else:
-            S, TS = TILES[kw.fp]
+            S, TS = kw.tile
             mix = kw.mixi if inverse else kw.mix
             err = _ffma_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr(),
                              (kw.prei if inverse else kw.pre).data_ptr(),

@@ -22,6 +22,12 @@ def log_deriv_logit(x: torch.Tensor, eps: float = 1.0e-8) -> torch.Tensor:
     return -log_deriv_sigmoid(logit(torch.clamp(x, eps, 1.0 - eps)))
 
 
+def deriv_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh'(x) = 1 - tanh(x)^2."""
+    y = torch.tanh(x)
+    return 1.0 - y * y
+
+
 def logistic_logpdf(x: torch.Tensor, mu: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """log pdf of Logistic(mu, exp(s)) at x (s is the log-scale)."""
     z = (x - mu) * torch.exp(-s)

@@ -20,15 +20,22 @@ counter and the losses stay on the device.
   (``optax.add_decayed_weights``): L2 added to the gradient, which is
   Adam's ``weight_decay``.
 
-Not ported yet: ``mesh`` (data parallelism), multi-process start-up,
-checkpoints, and the per-step PRNG (no ported model draws noise while it
-trains).
+The per-step PRNG: ``nf_tpu`` folds the step into its key; here
+``step_generator`` seeds one ``torch.Generator`` per step from
+``(seed, step)`` on the model's device, and the step hands it to the
+layers that draw noise while they train (``Bijector.takes_generator``:
+MAF's ``resample_masks``).  The two frameworks' draws differ, so parity
+tests inject the noise.
+
+Not ported yet: ``mesh`` (data parallelism), multi-process start-up and
+checkpoints.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models.base import FlowModel
@@ -109,6 +116,13 @@ class Trainer:
         return TrainState(0, make_optimizer(self.opt_cfg, list(model.parameters())))
 
     # ----------------------------------------------------------------- steps
+    def step_generator(self, step: int) -> torch.Generator:
+        """The generator of update ``step``, on the model's device: seeded
+        from ``(seed, step)``, so each step draws anew and a step run again
+        draws the same."""
+        seed = int(np.random.SeedSequence((self.seed, step)).generate_state(1)[0])
+        return torch.Generator(device=self.model.device).manual_seed(seed)
+
     def _batch(self, batch) -> torch.Tensor:
         return torch.as_tensor(batch).to(device=self.model.device, dtype=torch.float32)
 
@@ -120,7 +134,7 @@ class Trainer:
         model.train()
         opt = ts.optimizer
         opt.zero_grad(set_to_none=True)
-        loss = -model.log_prob(self._batch(batch)).mean()
+        loss = -model.log_prob(self._batch(batch), self.step_generator(ts.step)).mean()
         loss.backward()
         lr = self.schedule(ts.step)
         for group in opt.param_groups:

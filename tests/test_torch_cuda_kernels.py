@@ -3,7 +3,8 @@
 Marked ``cuda``: skipped without an NVIDIA card (the CPU has no CUDA
 kernel to run).  On a machine with one:
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
-Tolerances as chip_smoke.py: z atol/rtol 1e-4, logdet atol 1e-3; the
+Tolerances as chip_smoke.py: z atol/rtol 1e-4, logdet atol 1e-3 (the
+fused stack also at D past its FFMA block's widest tiling); the
 Flow++ inverse x atol 1e-3, logdet atol 5e-3 (two Newton solves meet the
 same root only within XTOL, compounded through the couplings); the ResFlow
 inverse x and logdet atol 1e-3 (the kernels stop each fixed point per tile
@@ -81,6 +82,35 @@ def test_fused_stack_kernel_matches_plain(cuda, name, D, layers, F, B):
                                            x, direction)
         torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name,D,F", [("realnvp", 213, 32), ("glow", 111, 32),
+                                      ("realnvp", 117, 64), ("realnvp", 29, 256),
+                                      ("glow", 27, 256)])
+def test_fused_stack_narrow_tiling_matches_plain(cuda, name, D, F):
+    """Stacks whose FFMA block at TILES' sample count passes the shared
+    memory run the 16-sample tiling."""
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+
+    prog, g = _program(D, 2, F, 0, cuda, name)
+    assert prog.stack.kernel.tile == fs.NARROW_TILE
+    x = torch.randn(300, D, generator=g, device=cuda)
+    for direction in ("forward", "inverse"):
+        y, ld = fs.fused_stack(prog.stack, x, direction)
+        torch.cuda.synchronize()
+        yr, ldr = fs.fused_stack_reference(prog.stack.packed, prog.stack.const_ld,
+                                           x, direction)
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+
+
+def test_fused_stack_past_every_tiling_raises(cuda):
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+
+    fs.reset_launches()
+    with pytest.raises(NotImplementedError, match="D = 400, F = 32"):
+        _program(400, 2, 32, 0, cuda)
+    assert not any(fs.LAUNCHES.values())
 
 
 def test_fused_stack_headline_fills_the_card(cuda):
@@ -319,6 +349,65 @@ def test_image_realnvp_launches_161_per_pass(cuda):
     torch.cuda.synchronize()
     assert counts() == {"coupling_inv": 161}
     assert torch.isfinite(log_py).all()
+
+
+def test_image_glow_launches_161_per_pass(cuda):
+    """glow-img32x3: the coupling kernels as realnvp-img32x1's, and no other
+    kernel of the port (the 1x1 convs and ActNorms are ATen ops)."""
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops.cuda import coupling as tc
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+    from nf_tpu_torch.train import Trainer
+
+    def counts():
+        return {k: v for k, v in {**fs.LAUNCHES, **tc.LAUNCHES}.items() if v}
+
+    def reset():
+        fs.reset_launches()
+        tc.reset_launches()
+
+    model = build_model("glow", (32, 32, 3), "image", NetworkConfig(name="glow"))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = 0.05 + 0.9 * torch.rand(2, 8, 32, 32, 3, generator=g, device=cuda)
+    tr = Trainer(model, OptimizerConfig(), seed=0)
+    reset()
+    ts = tr.init_state(batch[0])
+    assert counts() == {"coupling_fwd": 161}
+    reset()
+    ts, losses = tr.train_steps(ts, batch)
+    assert counts() == {"coupling_fwd": 322, "coupling_bwd": 322}
+    assert torch.isfinite(losses).all()
+    prog = model.eval_program()
+    reset()
+    y, log_py = prog.sample(8, g)
+    torch.cuda.synchronize()
+    assert counts() == {"coupling_inv": 161} and torch.isfinite(log_py).all()
+
+
+@pytest.mark.parametrize("name", ["maf", "planar"])
+def test_maf_and_planar_launch_no_kernel(cuda, name):
+    """MAF and Planar serve through the eager chain, as nf_tpu runs no
+    Pallas kernel for them; log p as the same state's on the CPU."""
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops.cuda import coupling as tc
+    from nf_tpu_torch.ops.cuda import fused_stack as fs
+
+    model = build_model(name, (2,), "2d", NetworkConfig(name=name, layers=4))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    prog = model.eval_program(model.init(g))
+    x = torch.randn(1000, 2, generator=g, device=cuda)
+    fs.reset_launches()
+    tc.reset_launches()
+    lp = prog.log_prob(x)
+    y, _ = prog.sample(1000, g)
+    torch.cuda.synchronize()
+    assert not any({**fs.LAUNCHES, **tc.LAUNCHES}.values()) and torch.isfinite(y).all()
+    cpu = build_model(name, (2,), "2d", NetworkConfig(name=name, layers=4), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    torch.testing.assert_close(lp.cpu(), cpu.eval_program().log_prob(x.cpu()), atol=1e-4,
+                               rtol=0)
 
 
 def test_matmul_precision_on_the_card(cuda):

@@ -9,7 +9,9 @@
   version at 2e-5, RealNVP and Glow; the FFMA kernel's layout the same
   way at the shapes it keeps (F = 128, D = 9);
 * the shape dispatch between the two kernels and their shared-memory
-  budgets.
+  budgets;
+* the matcher at shapes past the FFMA block's shared memory, against
+  nf_tpu's, and the program there against nf_tpu's EvalProgram (1e-4).
 """
 import numpy as np
 import pytest
@@ -316,6 +318,68 @@ def test_smem_budget_covers_headline_and_wide_stacks():
     # the FFMA kernel's tiles for the widths past the tensor-core kernel
     for fp in (128, 256):
         assert tfs.smem_bytes(fp, tfs.TILES[fp][0], 3) <= tfs.SMEM_LIMIT
+
+
+# stacks nf_tpu fuses (F <= 256, 8 MB of weights, any D) whose FFMA block at
+# TILES' sample count passes the shared memory: the first D past it at
+# F = 32 (RealNVP, Glow) and at F = 256 with two layers
+PAST_THE_BLOCK = [("realnvp", 213, 32), ("glow", 111, 32), ("realnvp", 29, 256),
+                  ("glow", 27, 256)]
+
+
+@pytest.mark.parametrize("name,D,F", PAST_THE_BLOCK)
+def test_spec_matches_nf_tpu_past_the_ffma_block(name, D, F, monkeypatch):
+    """Both matchers return the same spec; the port's CPU program runs
+    ``fused_stack_reference`` (no launch) and agrees with nf_tpu's
+    EvalProgram within 1e-4; on the card the 16-sample tiling holds it."""
+    jmodel, var = jax_model(name, D, 2, F, seed=2, batch=32)
+    tmodel = torch_model(name, D, 2, F, var)
+    jspec = jfs.extract_stack_spec(jmodel.bijector, jmodel.dims)
+    tspec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
+    assert jspec is not None and tspec is not None
+    for field in ("n_repeats", "dim", "filters", "has_mix", "norm_kind", "halves"):
+        assert getattr(tspec, field) == getattr(jspec, field), field
+    fp = tfs.padded_width(F)
+    assert tfs.smem_bytes(fp, tfs.TILES[fp][0], D, name == "glow") > tfs.SMEM_LIMIT
+    assert tfs.ffma_tiling(D, F, name == "glow") == tfs.NARROW_TILE
+
+    calls = []
+    plain = tfs.fused_stack_reference
+    monkeypatch.setattr(tfs, "fused_stack_reference",
+                        lambda *a: calls.append(a[-1]) or plain(*a))
+    prog = tmodel.eval_program()
+    assert isinstance(prog.stack, tfs.PackedStack) and prog.stack.kernel is None
+    jprog = jmodel.eval_program(var)
+    x = normal(40 + D, (16, D))
+    before = dict(tfs.LAUNCHES)
+    z, ld = prog.forward(torch.from_numpy(x))
+    jz, jld = jprog.forward(x)
+    close(z, jz, 1e-4)
+    close(ld, jld, 1e-4)
+    y, ldi = prog.inverse(z)
+    jy, jldi = jprog.inverse(np.asarray(jz))
+    close(y, jy, 1e-4)
+    close(ldi, jldi, 1e-4)
+    assert calls == ["forward", "inverse"] and tfs.LAUNCHES == before
+
+
+def test_stack_no_tiling_holds_raises_off_the_cpu():
+    """A D that no FFMA tiling holds matches (as in nf_tpu) and runs its
+    plain version on the CPU; off the CPU packing it raises
+    NotImplementedError naming the shape and the bytes, before any
+    launch."""
+    D, F = 400, 32
+    assert tfs.ffma_tiling(D, F, False) is None
+    tmodel = torch_realnvp(D, 2, F)
+    spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
+    assert spec is not None and tfs.kernel_variant(D, F) == "ffma"
+    packed, const_ld = tfs.pack_stack(tmodel.bijector, spec)
+    assert tfs.PackedStack(spec, packed, const_ld).kernel is None
+    need = tfs.smem_bytes(32, tfs.NARROW_TILE[0], D, False)
+    with pytest.raises(NotImplementedError, match=f"D = {D}, F = {F}.*{need} bytes"):
+        tfs.PackedStack(spec, packed, torch.zeros((), device="meta"))
+    with pytest.raises(NotImplementedError, match="no FFMA tiling"):
+        tfs.ffma_weights(spec, packed)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -279,8 +279,26 @@ def test_eval_program_matches_eager_chain(full_depth):
 
 
 def test_image_mode_not_in_this_slice():
+    """The image tier is ported: at 8x8x1 the builder emits Logit and one
+    final checkerboard block of layers + 1 [ActNorm, InvertibleConv1x1,
+    AffineCoupling] and no squeeze, and the model inverts itself
+    (tests/test_torch_glow_image.py holds the image model to nf_tpu)."""
+    from nf_tpu_torch.bijectors.conv1x1 import InvertibleConv1x1
+    from nf_tpu_torch.bijectors.coupling import AffineCoupling
+    from nf_tpu_torch.bijectors.elementwise import Logit
+    from nf_tpu_torch.bijectors.norm import ActNorm
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError):
-        build_model("glow", (8, 8, 1), "image", NetworkConfig(), device="cpu")
+    model = build_model("glow", (8, 8, 1), "image",
+                        NetworkConfig(name="glow", layers=2, base_filters=8), device="cpu")
+    layers = list(model.bijector.layers)
+    assert isinstance(layers[0], Logit) and len(layers) == 1 + 3 * 3
+    assert [type(l) for l in layers[1:4]] == [ActNorm, InvertibleConv1x1, AffineCoupling]
+    assert all(c.masking == "checkerboard" for c in layers[3::3])
+    prog = model.eval_program(model.init(torch.Generator().manual_seed(0)))
+    x = torch.rand(5, 8, 8, 1, generator=torch.Generator().manual_seed(1)) * 0.9 + 0.05
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    close(xr, x, 1e-5)
+    close(ldi, -ld, 1e-3)

@@ -10,7 +10,14 @@
   after the steps.  For the image RealNVP at 16x16x1 (layers = 1,
   base_filters = 8, every coupling through the coupling kernel's Function
   and its analytic backward) and for RealNVP 2-D density (D = 2,
-  layers = 2).
+  layers = 2); the same for Glow 2-D, Flow++ 2-D (mixtures = 2), MAF 2-D
+  (layers = 2, base_filters = 8) and the image Glow at 16x16x3 (layers = 1,
+  base_filters = 8, four couplings through the coupling kernel's Function).
+  In those four a gradient entry past 1e-5 of nf_tpu's is held instead
+  within atol 1e-5 + rtol 1e-5 of the float64 gradient of the same state,
+  or no further from it than nf_tpu's f32 entry: at 16x16x3 an entry of
+  the first 1x1 conv's L (a sum over 4,096 pixels that cancels to -1.9)
+  is 9.5e-5 from float64 in nf_tpu and 9.1e-6 in the port.
 
 The state check is tight where the gradient is real: parameter entries
 whose first gradient exceeds 1e-4, and the variances (running_var,
@@ -76,11 +83,11 @@ def test_optimizer_matches_optax(name, weight_decay):
             close(p.detach(), jp[key], 1e-6)
 
 
-def _jax_start(dims, datatype, layers, filters):
+def _jax_start(name, dims, datatype, layers, filters):
     from nf_tpu.models import build_model
 
-    cfg = JNetworkConfig(name="realnvp", layers=layers, base_filters=filters)
-    model = build_model("realnvp", dims, datatype=datatype, cfg=cfg)
+    cfg = JNetworkConfig(name=name, layers=layers, base_filters=filters, mixtures=2)
+    model = build_model(name, dims, datatype=datatype, cfg=cfg)
     return model, model.init(jax.random.PRNGKey(0))
 
 
@@ -98,7 +105,17 @@ NOISE_DRIVEN = 1e-3      # 2 x 3 steps x lr (1e-4), with a margin
 MEANS = 2e-3             # a few noise-driven shifts added up
 
 
-def _trainer_parity(dims, datatype, layers, filters, batches):
+def _f64_grads(make_model, state, batch):
+    """The first step's gradients of the same state in float64."""
+    m = make_model()
+    m.load_state_dict(state)
+    m = m.double().train()
+    (-m.log_prob(torch.from_numpy(batch).double()).mean()).backward()
+    return {n: p.grad for n, p in m.named_parameters()}
+
+
+def _trainer_parity(dims, datatype, layers, filters, batches, name="realnvp",
+                    f64_arbiter=False):
     from nf_tpu.core import Ctx
     from nf_tpu.train import Trainer as JTrainer
     from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
@@ -107,10 +124,11 @@ def _trainer_parity(dims, datatype, layers, filters, batches):
     from nf_tpu_torch.train import Trainer
 
     def tmodel():
-        return build_model("realnvp", dims, datatype,
-                           NetworkConfig(layers=layers, base_filters=filters), device="cpu")
+        return build_model(name, dims, datatype,
+                           NetworkConfig(name=name, layers=layers, base_filters=filters,
+                                         mixtures=2), device="cpu")
 
-    jmodel, var0 = _jax_start(dims, datatype, layers, filters)
+    jmodel, var0 = _jax_start(name, dims, datatype, layers, filters)
     jt = JTrainer(jmodel, JOptimizerConfig(), seed=0)
     jts = jt.init_state(jax.random.PRNGKey(0), batches[0])
 
@@ -128,14 +146,27 @@ def _trainer_parity(dims, datatype, layers, filters, batches):
     tt = Trainer(model, OptimizerConfig(), seed=0)
     ts = tt.init_state(torch.from_numpy(batches[0]),
                        params=load_jax_variables(model, to_numpy(var0)))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
     losses = []
     for k in range(1, 4):
         ts, lt = tt.train_step(ts, torch.from_numpy(batches[k]))
         losses.append(float(lt))
         if k == 1:
             first = _grads_in_port_layout(tmodel, jgrads, jts.state)
-            for name, p in model.named_parameters():
-                close(p.grad, first[name].detach(), 1e-5, 1e-5)
+            g64 = {}
+            for pname, p in model.named_parameters():
+                want = first[pname].detach()
+                off = (p.grad - want).abs() > 1e-5 + 1e-5 * want.abs()
+                if not (f64_arbiter and off.any()):
+                    close(p.grad, want, 1e-5, 1e-5)
+                    continue
+                # an entry past 1e-5 of nf_tpu's: held to the same 1e-5 of the
+                # float64 gradient, or to nf_tpu's own f32 distance from it
+                g64 = g64 or _f64_grads(tmodel, start, batches[1])
+                ref = g64[pname]
+                err = (p.grad.double() - ref).abs()
+                bound = torch.maximum((want.double() - ref).abs(), 1e-5 + 1e-5 * ref.abs())
+                assert (err <= bound)[off].all(), pname
     assert ts.step == 3
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
 
@@ -143,18 +174,18 @@ def _trainer_parity(dims, datatype, layers, filters, batches):
     load_jax_variables(ref, to_numpy(jts.var))
     want = ref.state_dict()
     params = dict(model.named_parameters())
-    for name, got in model.state_dict().items():
-        diff = (got.float() - want[name].float()).abs()
-        if name in params:
-            real = first[name].detach().abs() > 1e-4
-            assert not real.any() or diff[real].max() <= 1e-5, name
-            assert diff.max() <= NOISE_DRIVEN, name
-        elif name.endswith("_var"):
-            assert diff.max() <= 1e-5, name
-        elif name.endswith("_mean"):
-            assert diff.max() <= MEANS, name
+    for key, got in model.state_dict().items():
+        diff = (got.float() - want[key].float()).abs()
+        if key in params:
+            real = first[key].detach().abs() > 1e-4
+            assert not real.any() or diff[real].max() <= 1e-5, key
+            assert diff.max() <= NOISE_DRIVEN, key
+        elif key.endswith("_var"):
+            assert diff.max() <= 1e-5, key
+        elif key.endswith("_mean"):
+            assert diff.max() <= MEANS, key
         else:
-            assert diff.max() == 0, name
+            assert diff.max() == 0, key
 
 
 def test_trainer_image_realnvp_matches_nf_tpu():
@@ -166,6 +197,19 @@ def test_trainer_image_realnvp_matches_nf_tpu():
 def test_trainer_density_realnvp_matches_nf_tpu():
     batches = np.stack([normal(40 + k, (64, 2)) * 1.3 + 0.2 for k in range(4)])
     _trainer_parity((2,), "2d", 2, 8, batches)
+
+
+@pytest.mark.parametrize("name,dims,layers", [("glow", (2,), 2), ("flow++", (2,), 2),
+                                               ("glow", (16, 16, 3), 1), ("maf", (2,), 2)],
+                         ids=["glow-2d", "flowpp-2d", "glow-img16x16x3", "maf-2d"])
+def test_trainer_matches_nf_tpu(name, dims, layers):
+    """The other ported families through the same three Adam steps."""
+    if len(dims) == 3:
+        batches = np.stack([uniform(60 + k, (16,) + dims) for k in range(4)])
+    else:
+        batches = np.stack([normal(70 + k, (64,) + dims) * 1.3 + 0.2 for k in range(4)])
+    _trainer_parity(dims, "image" if len(dims) == 3 else "2d", layers, 8, batches, name,
+                    f64_arbiter=True)
 
 
 def test_trainer_runs_train_mode_after_an_eval_program():
