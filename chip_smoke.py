@@ -120,7 +120,45 @@ Phases, each of which exits non-zero when it fails:
      inverse of its own output within 1e-3 of the CPU's and of its input;
      then mix_log_cdf_inverse through its entry point at (1024, 512,
      K = 8), one launch, the round trip within 1e-3;
-  7. time each kernel (CUDA events over back-to-back launches, warm L2 as
+  7. FFJORD and Flow++ variational dequantization, which run no kernel of
+     the port (nf_tpu runs no Pallas kernel there), every call's launches
+     counted (none, or flowpp-img32x1's 161 attention_fwd per forward):
+     (a) FFJORD 2-D at the density zoo's shape (NETWORK_DEFAULTS["ffjord"]:
+     3 x [ActNorm -> CNF], dopri5 at rtol / atol 1e-4, the adjoint,
+     Hutchinson, base_filters 32): build_model on the card ->
+     Trainer(seed 0).init_state on 1,024 samples of nf_tpu's "circles"
+     density (made with numpy) -> train_steps, K = 4 Adam steps at
+     B = 1024 -> eval_program -> log_prob(8192) and sample(8192); the
+     losses and outputs finite, the round trip x -> z -> x within 1e-3 (two
+     dopri5 solves at 1e-4); against the same state on the CPU, the CNFs'
+     probes drawn on the CPU and injected on both: log p on 256 samples
+     within 1e-4 of its largest magnitude, the first step's gradients no
+     further from float64 than twice the CPU's own f32 error; printed: the
+     wall ms per direction over 5 calls and fwd_inv_samples_per_s =
+     8192 / (t_fwd + t_inv), the train step's wall ms,
+     train_samples_per_s and peak memory, the dynamics evaluations and
+     accepted / rejected steps per solve, and a profiled window's device
+     idle share (a forward and a train step);
+     (b) rk4, midpoint, bosha3, trace="exact" and backprop="normal" on the
+     trained state at B = 8192: one forward and one inverse each, finite,
+     log p on 256 samples against the CPU as in (a), the inverse of 256
+     latents within 1e-3 of the CPU's (an accept decision at err ~ 1 can
+     flip between two f32 sums, and the solves then differ by the solver's
+     tolerance); 'normal' also one step's gradients against the adjoint's
+     on the card, relative L2 within 1e-2 (the adjoint solves its backward
+     on its own steps), printed;
+     (c) FFJORD's image opt-in (allow_image), 16x16x1, 1 layer,
+     base_filters 32, B = 64: one forward and one inverse, log p against
+     the CPU as in (a), the round trip within 1e-3;
+     (d) flowpp-img32x1 with var_dequant=True at full width (161
+     couplings): Trainer.init_state -> K = 2 Adam steps at B = 256 (a cut
+     from 1,024: the steps peak at 23.5 GiB at 256 on an H100, so 1,024
+     would not fit 80 GB), its peak memory, the losses finite, the ELBO terms printed
+     (-log q(u|x) and D log 256), Trainer.log_prob with a generator, an
+     EvalProgram's forward raising ValueError (no generator), and the
+     first step's log p and gradients on 4 samples against the CPU with
+     the same injected dequantization noise, as in (a);
+  8. time each kernel (CUDA events over back-to-back launches, warm L2 as
      in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
      and by their profiler records; the coupling kernels by their own
      device time per launch, the mean over a profiler window's records,
@@ -163,10 +201,11 @@ Phases, each of which exits non-zero when it fails:
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
      phase 3);
-  8. print {"ok": true, "device": {...}} as the last line.
+  9. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
+import dataclasses
 import itertools
 import json
 import math
@@ -175,6 +214,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 BATCH = 8192
@@ -1571,6 +1611,452 @@ def ptxas_summary(log):
     return out
 
 
+# --------------------------------------------------------------------------
+# FFJORD and Flow++ variational dequantization: no kernel of the port
+# --------------------------------------------------------------------------
+FFJORD_TRAIN_BATCH = 1024   # bench.py:36 TRAIN_BATCH
+FFJORD_TRAIN_CHUNK = 4
+FFJORD_PARITY = 256         # samples held against the same state on the CPU
+FFJORD_ITERS = 5            # calls per direction timed, after one warm-up
+FFJORD_ROUND_TRIP_ATOL = 1e-3   # two dopri5 solves at rtol / atol 1e-4
+FFJORD_LOGP_RTOL = 1e-4     # of the largest |log p|
+# the inverse's x, card vs CPU: f32 sums in another order can flip an
+# accept decision at err ~ 1, and the two solves then differ by the
+# solver's tolerance
+FFJORD_INV_ATOL = 1e-3
+# backprop 'normal' against the adjoint: the adjoint solves its backward on
+# its own steps, so the two differ by the solver's tolerance (relative L2)
+FFJORD_NORMAL_REL = 1e-2
+FFJORD_VARIANTS = [("rk4", dict(solver="rk4")), ("midpoint", dict(solver="midpoint")),
+                   ("bosha3", dict(solver="bosha3")), ("trace=exact", dict(trace="exact")),
+                   ("backprop=normal", dict(backprop="normal"))]
+FFJORD_IMG_DIMS = (16, 16, 1)
+FFJORD_IMG_BATCH = 64
+# flowpp-img32x1 with variational dequantization: training at B = 256, a
+# cut from bench.py's 1024 (23.5 GiB at 256 on an H100; 1024 would not fit)
+VD_BATCH = 256
+VD_TRAIN_CHUNK = 2
+VD_PARITY = 4
+
+
+def circles(n, rng):
+    """nf_tpu's default toy density (nf_tpu/data/toy.py sample_circles):
+    two concentric circles, radii 1.0 / 0.5, noise 0.08, scaled by 0.6."""
+    n_out = n // 2
+    t = rng.uniform(0.0, 2 * math.pi, size=n)
+    r = np.where(np.arange(n) < n_out, 1.0, 0.5)
+    x = r * np.cos(t) + rng.normal(0.0, 0.08, size=n)
+    y = r * np.sin(t) + rng.normal(0.0, 0.08, size=n)
+    return (np.stack([x, y], axis=1) * 0.6).astype(np.float32)
+
+
+def cnfs_of(model):
+    from nf_tpu_torch.bijectors.cnf import CNF
+
+    return [m for m in model.modules() if isinstance(m, CNF)]
+
+
+def inject_probes(model, probes):
+    """Each CNF's probes (a list, one per CNF, or None to draw again)."""
+    for i, m in enumerate(cnfs_of(model)):
+        m.injected_probes = None if probes is None else probes[i]
+
+
+def solve_stats(model, reset=False):
+    """The CNFs' solve counts summed: solves, dynamics evaluations,
+    accepted and rejected steps."""
+    from nf_tpu_torch.ops.odeint import SolveStats
+
+    total = SolveStats()
+    for m in cnfs_of(model):
+        total.add(m.stats)
+        if reset:
+            m.stats = SolveStats()
+    return total.__dict__
+
+
+def per_solve(stats):
+    n = max(stats["solves"], 1)
+    return {"solves": stats["solves"],
+            **{f"{k}_per_solve": stats[k] / n for k in ("evaluations", "accepted", "rejected")}}
+
+
+def profiled_idle(fn):
+    """A profiled window of one call (CUDA activity only): the device idle
+    share, its device ms and the kernel records kept.  An upper bound of
+    the idle share: the profiler may drop records (see kernel_ms)."""
+    wall_us, kernels, records, _ = profile_window(fn, 1, (), warmup=False, cpu=False)
+    busy = sum(kernels.values())
+    return {"device_idle_share": None if busy <= 0 else 1.0 - busy / wall_us,
+            "window_wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+            "kernel_records": sum(records.values())}
+
+
+def parity_runs(make_model, state, body, card):
+    """``body(model, device, dtype)`` for the same state on the card (f32,
+    ``card`` the device) and on the CPU (f32 and float64)."""
+    out = {}
+    for run, (device, dtype) in {"card": (card, torch.float32), "cpu": ("cpu", torch.float32),
+                                 "cpu64": ("cpu", torch.float64)}.items():
+        model = make_model(device)
+        model.load_state_dict(state)
+        out[run] = body(model.to(dtype), device, dtype)
+    return out
+
+
+def held_logp_and_grads(label, logp, grads):
+    """log p card vs CPU within FFJORD_LOGP_RTOL of the largest |log p|,
+    the card's gradients no further from float64 than IMG_GRAD_FACTOR times
+    the CPU's (relative L2), both printed against float64."""
+    def rel_l2(run):
+        return float((grads[run] - grads["cpu64"]).norm() / grads["cpu64"].norm())
+
+    out = {"logp_max_abs_diff": max_diff(logp["card"], logp["cpu"]),
+           "logp_max_abs": float(logp["cpu64"].abs().max()),
+           "logp_f64_max_abs_diff": {r: max_diff(logp[r], logp["cpu64"]) for r in ("card", "cpu")}}
+    if grads:
+        out["grad_rel_l2_to_f64"] = {r: rel_l2(r) for r in ("card", "cpu")}
+    print(f"{label} card vs CPU: max|dlog p|={out['logp_max_abs_diff']:.3e} (max|log p|="
+          f"{out['logp_max_abs']:.2f}; to float64: card {out['logp_f64_max_abs_diff']['card']:.3e},"
+          f" CPU {out['logp_f64_max_abs_diff']['cpu']:.3e})"
+          + (f"; gradients relative L2 to float64: card {out['grad_rel_l2_to_f64']['card']:.3e},"
+             f" CPU {out['grad_rel_l2_to_f64']['cpu']:.3e}" if grads else ""))
+    check(out["logp_max_abs_diff"] <= FFJORD_LOGP_RTOL * out["logp_max_abs"],
+          f"{label}: log p on the card disagrees with the CPU")
+    if grads:
+        check(out["grad_rel_l2_to_f64"]["card"] <= IMG_GRAD_FACTOR
+              * out["grad_rel_l2_to_f64"]["cpu"],
+              f"{label}: gradients on the card are less accurate than the CPU's")
+    return out
+
+
+def ffjord_probes(n_cnfs, shape, n_probes, seed):
+    """Probes drawn on the CPU from a seeded generator, one set per CNF."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((n_probes,) + tuple(shape), generator=g) for _ in range(n_cnfs)]
+
+
+def flat_grads(model):
+    return torch.cat([p.grad.reshape(-1).cpu().double() for p in model.parameters()])
+
+
+def ffjord_cpu_parity(label, cfg, dims, datatype, state, xs, card, grads=True):
+    """Eval-mode log p (4 injected probes per CNF) and, with ``grads``, one
+    train-mode gradient (1 injected probe per CNF) on ``xs`` for the same
+    state on the card and on the CPU in f32 and float64."""
+    from nf_tpu_torch.models import build_model
+
+    n = len(cnfs_of(build_model("ffjord", dims, datatype, cfg, device="cpu")))
+    eval_v = ffjord_probes(n, xs.shape, 4, SEED + 11)
+    train_v = ffjord_probes(n, xs.shape, 1, SEED + 12)
+    logp, grad = {}, {}
+
+    def body(model, device, dtype):
+        x = xs.to(device=device, dtype=dtype)
+        inject_probes(model, eval_v)
+        with torch.no_grad():
+            lp = model.eval().log_prob(x).cpu().double()
+        g = None
+        if grads:
+            inject_probes(model, train_v)
+            model.train()
+            (-model.log_prob(x).mean()).backward()
+            g = flat_grads(model)
+        return lp, g
+
+    out = parity_runs(lambda d: build_model("ffjord", dims, datatype, cfg, device=d), state,
+                      body, card)
+    for run, (lp, g) in out.items():
+        logp[run], grad[run] = lp, g
+    return held_logp_and_grads(label, logp, grad if grads else {})
+
+
+def ffjord_main_path(device, counters, launches_of, smi):
+    """FFJORD 2-D at the density zoo's shape (NETWORK_DEFAULTS["ffjord"]:
+    3 x [ActNorm -> CNF], dopri5 at rtol / atol 1e-4, the adjoint,
+    Hutchinson, base_filters 32) through Trainer and EvalProgram on the
+    card, no launch of any port kernel; then the other solvers and traces,
+    and the image opt-in.  Prints its main_path lines."""
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    cfg = NetworkConfig(name="ffjord", **NETWORK_DEFAULTS["ffjord"])
+    model = build_model("ffjord", (2,), "2d", cfg)
+    check(model.device.type == "cuda", "build_model did not default to the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"ffjord 2d: {len(cnfs_of(model))} CNFs, {n_params} parameters, times "
+          f"{cnfs_of(model)[0].times.tolist()}")
+    rng = np.random.default_rng(SEED)
+    B, K = FFJORD_TRAIN_BATCH, FFJORD_TRAIN_CHUNK
+    batch0 = torch.from_numpy(circles(B, rng)).to(device)
+    chunk = torch.from_numpy(circles(K * B, rng).reshape(K, B, 2)).to(device)
+    x = torch.from_numpy(circles(BATCH, rng)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+
+    def counted(what, fn):
+        return counted_call(f"ffjord {what}", fn, {}, counters, launches_of, totals)
+
+    solve_stats(model, reset=True)
+    t0 = time.perf_counter()
+    ts = counted("init_state", lambda: trainer.init_state(batch0))
+    t_init = (time.perf_counter() - t0) * 1e3
+    init_stats = solve_stats(model, reset=True)
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, losses = counted(f"train_steps K={K}", lambda: trainer.train_steps(ts, chunk))
+    t_chunk = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    train_stats = solve_stats(model, reset=True)
+    losses = losses.tolist()
+    print(f"ffjord losses (nats per sample) {losses}; {t_chunk / K:.1f} ms per Adam step at "
+          f"B={B}; train peak memory {peak / 2**30:.3f} GiB; solves {per_solve(train_stats)}")
+    check(all(math.isfinite(v) for v in losses), "ffjord: non-finite loss")
+    train_profile = profiled_idle(lambda: trainer.train_step(ts, chunk[0]))
+    solve_stats(model, reset=True)
+    prog = model.eval_program()
+    check(prog.stack is None, "ffjord: a fused kernel matched")
+    log_px = counted("log_prob", lambda: prog.log_prob(x))
+    y_s, log_py = counted("sample", lambda: prog.sample(BATCH, gen))
+    check(log_px.shape == (BATCH,) and y_s.shape == (BATCH, 2) and log_py.shape == (BATCH,),
+          "ffjord: main path output shapes")
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"ffjord {what}: non-finite values")
+    solve_stats(model, reset=True)
+    z, ld = prog.forward(x)
+    fwd_stats = solve_stats(model, reset=True)
+    xr, ldi = prog.inverse(z)
+    inv_stats = solve_stats(model, reset=True)
+    rt, ld_sum = max_diff(xr, x), max_diff(ld, -ldi)
+    print(f"ffjord round trip: max|x - inv(fwd(x))|={rt:.3e} max|ld_fwd + ld_inv|={ld_sum:.3e};"
+          f" forward {per_solve(fwd_stats)}, inverse {per_solve(inv_stats)}")
+    check(rt < FFJORD_ROUND_TRIP_ATOL, "ffjord: round trip")
+    t_fwd = wall_ms(lambda: prog.forward(x), FFJORD_ITERS, warmup=1)
+    t_inv = wall_ms(lambda: prog.inverse(z), FFJORD_ITERS, warmup=1)
+    eval_profile = profiled_idle(lambda: prog.forward(x))
+    t0 = time.perf_counter()
+    parity = ffjord_cpu_parity("ffjord", cfg, (2,), "2d", state, x[:FFJORD_PARITY].cpu(),
+                               device)
+    print(f"card vs CPU parity took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"main_path": {
+        "model": f"ffjord 2d, 3 x [ActNorm -> CNF], dopri5 rtol/atol 1e-4, adjoint, "
+                 f"hutchinson, base_filters 32, {n_params} parameters: the eager chain (no "
+                 f"kernel of the port, as nf_tpu runs no Pallas kernel there)",
+        "batch": BATCH, "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+        "calls": FFJORD_ITERS, "fwd_inv_samples_per_s": BATCH / ((t_fwd + t_inv) / 1e3),
+        "forward_solves": per_solve(fwd_stats), "inverse_solves": per_solve(inv_stats),
+        "eval_profile_forward": eval_profile,
+        "train_batch": B, "train_chunk": K, "init_state_ms": t_init,
+        "init_state_solves": per_solve(init_stats),
+        "train_chunk_ms": t_chunk, "train_step_ms": t_chunk / K,
+        "train_samples_per_s": K * B / (t_chunk / 1e3), "train_solves": per_solve(train_stats),
+        "train_profile_step": train_profile, "train_peak_memory_bytes": peak,
+        "losses": losses, "round_trip": {"max": rt, "ld_max": ld_sum},
+        "cpu_parity": parity, "card": smi}}))
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ffjord_variants(cfg, trained, x, device, counters, launches_of, totals, smi)
+    ffjord_image(device, counters, launches_of, totals, smi)
+
+
+def ffjord_variants(cfg, state, x, device, counters, launches_of, totals, smi):
+    """The other solvers and traces on the trained state at B = 8192: one
+    forward and one inverse each, finite, against the CPU on 256 samples;
+    backprop 'normal' also one step's gradients against the adjoint's."""
+    from nf_tpu_torch.models import build_model
+
+    n = FFJORD_PARITY
+    xs = x[:n].cpu()
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    for label, kw in FFJORD_VARIANTS:
+        vcfg = dataclasses.replace(cfg, **kw)
+        model = build_model("ffjord", (2,), "2d", vcfg)
+        model.load_state_dict(state)
+        prog = model.eval_program()
+        t0 = time.perf_counter()
+        z, ld = counted_call(f"ffjord {label} forward", lambda: prog.forward(x), {}, counters,
+                             launches_of, totals)
+        t_fwd = (time.perf_counter() - t0) * 1e3
+        fwd_stats = solve_stats(model, reset=True)
+        t0 = time.perf_counter()
+        xr, ldi = counted_call(f"ffjord {label} inverse", lambda: prog.inverse(z), {}, counters,
+                               launches_of, totals)
+        t_inv = (time.perf_counter() - t0) * 1e3
+        inv_stats = solve_stats(model, reset=True)
+        for t, what in ((z, "z"), (ld, "logdet"), (xr, "x"), (ldi, "inverse logdet")):
+            check(bool(torch.isfinite(t).all()), f"ffjord {label} {what}: non-finite values")
+        parity = ffjord_cpu_parity(f"ffjord {label}", vcfg, (2,), "2d", cpu_state, xs, device,
+                                   grads=False)
+        # the inverse of the same 256 latents on both devices
+        eval_v = ffjord_probes(3, xs.shape, 4, SEED + 13)
+        inv = {}
+        for dev in (device, "cpu"):
+            m = build_model("ffjord", (2,), "2d", vcfg, device=dev)
+            m.load_state_dict(state)
+            inject_probes(m, eval_v)
+            with torch.no_grad():
+                inv[dev] = m.eval().inverse(z[:n].to(dev))[0].cpu()
+        e_inv = max_diff(inv[device], inv["cpu"])
+        line = {"variant": label, "batch": BATCH, "forward_ms": t_fwd, "inverse_ms": t_inv,
+                "forward_solves": per_solve(fwd_stats), "inverse_solves": per_solve(inv_stats),
+                "round_trip_max": max_diff(xr, x), "cpu_parity": parity,
+                "inverse_card_vs_cpu_max_abs": e_inv}
+        check(e_inv <= FFJORD_INV_ATOL, f"ffjord {label}: inverse on the card disagrees")
+        if kw.get("backprop") == "normal":
+            train_v = ffjord_probes(3, xs.shape, 1, SEED + 14)
+            grads = {}
+            for bp, c in (("normal", vcfg), ("adjoint", cfg)):
+                m = build_model("ffjord", (2,), "2d", c)
+                m.load_state_dict(state)
+                inject_probes(m, train_v)
+                m.train()
+                (-m.log_prob(xs.to(device)).mean()).backward()
+                grads[bp] = flat_grads(m)
+            rel = float((grads["normal"] - grads["adjoint"]).norm() / grads["adjoint"].norm())
+            line["normal_vs_adjoint_grad_rel_l2"] = rel
+            check(rel <= FFJORD_NORMAL_REL, f"ffjord: normal and adjoint gradients {rel}")
+        print(json.dumps({"ffjord_variant": {**line, "card": smi}}))
+
+
+def ffjord_image(device, counters, launches_of, totals, smi):
+    """FFJORD's image opt-in (allow_image): Logit then 1 x [ActNorm -> CNF
+    with the conv ODENet], base_filters 32, at 16x16x1, B = 64: one forward
+    and one inverse on the card, log p against the CPU."""
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
+    from nf_tpu_torch.models import build_model
+
+    cfg = NetworkConfig(name="ffjord", **{**NETWORK_DEFAULTS["ffjord"], "layers": 1,
+                                          "allow_image": True})
+    dims = FFJORD_IMG_DIMS
+    model = build_model("ffjord", dims, "image", cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model.init(gen)
+    x = 0.05 + 0.9 * torch.rand((FFJORD_IMG_BATCH,) + dims, generator=gen, device=device)
+    model.data_dependent_init(x)
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    prog = model.eval_program()
+    solve_stats(model, reset=True)
+    t0 = time.perf_counter()
+    z, ld = counted_call("ffjord image forward", lambda: prog.forward(x), {}, counters,
+                         launches_of, totals)
+    t_fwd = (time.perf_counter() - t0) * 1e3
+    fwd_stats = solve_stats(model, reset=True)
+    t0 = time.perf_counter()
+    xr, ldi = counted_call("ffjord image inverse", lambda: prog.inverse(z), {}, counters,
+                           launches_of, totals)
+    t_inv = (time.perf_counter() - t0) * 1e3
+    inv_stats = solve_stats(model, reset=True)
+    for t, what in ((z, "z"), (ld, "logdet"), (xr, "x"), (ldi, "inverse logdet")):
+        check(bool(torch.isfinite(t).all()), f"ffjord image {what}: non-finite values")
+    rt = max_diff(xr, x)
+    parity = ffjord_cpu_parity("ffjord image 16x16x1", cfg, dims, "image", state, x.cpu(),
+                               device, grads=False)
+    print(json.dumps({"ffjord_image": {
+        "model": "ffjord image 16x16x1 (allow_image): Logit -> 1 x [ActNorm -> CNF, conv "
+                 "ODENet], dopri5 rtol/atol 1e-4, hutchinson, base_filters 32",
+        "batch": FFJORD_IMG_BATCH, "forward_ms": t_fwd, "inverse_ms": t_inv,
+        "forward_solves": per_solve(fwd_stats), "inverse_solves": per_solve(inv_stats),
+        "round_trip_max": rt, "cpu_parity": parity, "card": smi}}))
+    check(rt < FFJORD_ROUND_TRIP_ATOL, "ffjord image: round trip")
+
+
+def vardequant_main_path(device, counters, launches_of, smi):
+    """flowpp-img32x1 with var_dequant=True at full width: Trainer.init_state
+    -> K = 2 Adam steps at B = 256 -> Trainer.log_prob with a generator;
+    an EvalProgram raises ValueError (no generator); the first step's loss
+    and gradients on 4 samples against the CPU with the same injected
+    dequantization noise."""
+    from nf_tpu_torch.bijectors.flowpp_coupling import MixLogAttnCoupling
+    from nf_tpu_torch.bijectors.vardequant import VariationalDequant
+    from nf_tpu_torch.config import OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(flowpp_image_config(), var_dequant=True)
+    model = image_model(cfg, None)
+    head = model.bijector.layers[0]
+    n_couplings = sum(isinstance(m, MixLogAttnCoupling) for m in model.modules())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"flowpp-img32x1 var_dequant: {n_couplings} couplings, {n_params} parameters "
+          f"({sum(p.numel() for p in head.parameters())} in the dequantization head)")
+    check(isinstance(head, VariationalDequant) and n_couplings == IMG_COUPLINGS,
+          "flowpp-img32x1 var_dequant: structure")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    B, K = VD_BATCH, VD_TRAIN_CHUNK
+
+    def pixels(*shape):
+        return 0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)
+
+    batch0, chunk, x = pixels(B, *IMG_DIMS), pixels(K, B, *IMG_DIMS), pixels(B, *IMG_DIMS)
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    n = IMG_COUPLINGS
+
+    def counted(what, fn, want):
+        return counted_call(f"flowpp-img32x1 var_dequant {what}", fn, want, counters,
+                            launches_of, totals)
+
+    t0 = time.perf_counter()
+    ts = counted("init_state", lambda: trainer.init_state(batch0), {"attention_fwd": n})
+    t_init = (time.perf_counter() - t0) * 1e3
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, losses = counted(f"train_steps K={K}", lambda: trainer.train_steps(ts, chunk),
+                         {"attention_fwd": K * n})
+    t_chunk = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    check(all(math.isfinite(v) for v in losses), "flowpp-img32x1 var_dequant: non-finite loss")
+    d = math.prod(IMG_DIMS)
+    with torch.no_grad():
+        model.eval()
+        _, head_ld = head(x, torch.Generator(device=device).manual_seed(SEED + 1))
+    neg_logq = float((head_ld + d * math.log(256)).mean())
+    print(f"flowpp-img32x1 var_dequant losses {losses}; {t_chunk / K:.1f} ms per Adam step at "
+          f"B={B}; train peak memory {peak / 2**30:.2f} GiB; ELBO terms per sample: "
+          f"-log q(u|x) = {neg_logq:.2f}, D log 256 = {d * math.log(256):.2f}")
+    lp = counted("Trainer.log_prob", lambda: trainer.log_prob(
+        ts, x, torch.Generator(device=device).manual_seed(SEED + 2)), {"attention_fwd": n})
+    check(lp.shape == (B,) and bool(torch.isfinite(lp).all()),
+          "flowpp-img32x1 var_dequant: Trainer.log_prob")
+    try:
+        model.eval_program().forward(x)
+        check(False, "flowpp-img32x1 var_dequant: an EvalProgram drew no noise and did not "
+                     "raise")
+    except ValueError as e:
+        print(f"eval_program(...).forward raises ValueError: {e}")
+    t0 = time.perf_counter()
+    xs = x[:VD_PARITY].cpu()
+    eps = torch.randn(xs.shape, generator=torch.Generator().manual_seed(SEED + 3))
+    loss, logp, grads = {}, {}, {}
+
+    def body(model, device, dtype):
+        model.bijector.layers[0].injected_eps = eps
+        model.train()
+        lp = model.log_prob(xs.to(device=device, dtype=dtype),
+                            torch.Generator(device=device).manual_seed(0))
+        (-lp.mean()).backward()
+        return lp.detach().cpu().double(), flat_grads(model)
+
+    out = parity_runs(lambda dev: image_model(cfg, dev), state, body, device)
+    for run, (lp_, g) in out.items():
+        logp[run], grads[run] = lp_, g
+    parity = held_logp_and_grads("flowpp-img32x1 var_dequant (train mode, first step)", logp,
+                                 grads)
+    print(f"card vs CPU parity took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"main_path": {
+        "model": f"flowpp-img32x1 with var_dequant: 32x32x1, {n_couplings} couplings, "
+                 f"{n_params} parameters",
+        "train_batch": B, "train_chunk": K, "init_state_ms": t_init,
+        "train_chunk_ms": t_chunk, "train_step_ms": t_chunk / K,
+        "train_samples_per_s": K * B / (t_chunk / 1e3), "train_peak_memory_bytes": peak,
+        "losses": losses, "elbo_neg_log_q": neg_logq, "elbo_d_log_256": d * math.log(256),
+        "attention_launches": totals["attention_fwd"], "cpu_parity": parity, "card": smi}}))
+
+
 def reset_all(modules):
     for m in modules:
         m.reset_launches()
@@ -1805,7 +2291,12 @@ def main():
     launches["attention_fwd"] = fp["totals"]["attention_fwd"]
     mix_main, mix_totals = mixlogcdf_main_path(dev, counters, launches_of)
     launches["mix_log_cdf_inverse"] = mix_totals["mix_log_cdf_inverse"]
-    print(f"phase 7 (timing) starts at {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 7 (FFJORD) starts at {time.perf_counter() - t_start:.1f} s")
+    ffjord_main_path(dev, counters, launches_of, smi)
+    print(f"phase 7 (flowpp-img32x1 var_dequant) starts at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    vardequant_main_path(dev, counters, launches_of, smi)
+    print(f"phase 8 (timing) starts at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. timing and bounds
     kernels = []

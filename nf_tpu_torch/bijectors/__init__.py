@@ -1,3 +1,4 @@
+from .cnf import CNF, ODENet  # noqa: F401
 from .conv1x1 import InvertibleConv1x1  # noqa: F401
 from .coupling import AffineCoupling, merge1d, split1d  # noqa: F401
 from .elementwise import Logit  # noqa: F401
@@ -6,3 +7,4 @@ from .made import MADE, AutoregressiveTransform  # noqa: F401
 from .norm import ActNorm, BatchNorm  # noqa: F401
 from .planar import PlanarTransform  # noqa: F401
 from .squeeze import Flatten, Squeeze2d, Unsqueeze2d  # noqa: F401
+from .vardequant import VariationalDequant  # noqa: F401

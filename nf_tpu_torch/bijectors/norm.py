@@ -54,7 +54,7 @@ class ActNorm(Bijector):
         return (sign * self.log_scale.sum() * _num_pixels(x)).expand(x.shape[0])
 
     @torch.no_grad()
-    def dd_init(self, x):
+    def dd_init(self, x, generator=None):
         axes = tuple(range(x.dim() - 1))
         mean = x.mean(dim=axes)
         n = x.numel() // x.shape[-1]

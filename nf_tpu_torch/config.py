@@ -20,10 +20,24 @@ class NetworkConfig:
     # resflow (configs/network/resflow.yaml)
     logdet: str = "unbias"
     spnorm_coeff: float = 0.9
-    # maf image mode: the flattened-pixel variant (nf_tpu's opt-in; image
-    # data raises without it)
+    # ffjord (configs/network/ffjord.yaml): the time grid t0..t1 at
+    # ``stepsize``, the ODE solver (ops/odeint.py SOLVERS), "adjoint" or
+    # "normal" backprop, and the trace estimator in eval ("exact" or
+    # "hutchinson"; training always takes one Hutchinson probe)
+    t0: float = 0.0
+    t1: float = 1.0
+    stepsize: float = 0.1
+    solver: str = "dopri5"
+    backprop: str = "adjoint"
+    trace: str = "hutchinson"
+    # adaptive-solver tolerances; None = the solver tableau's defaults
+    rtol: Optional[float] = None
+    atol: Optional[float] = None
+    # maf and ffjord image mode: the flattened-pixel MAF and the conv
+    # ODENet (nf_tpu's opt-ins; image data raises without it)
     allow_image: bool = False
-    # flow++ image mode: variational dequantization; not ported (raises)
+    # flow++ image mode: variational dequantization (a conditional flow
+    # over the dequantization noise, trained by the ELBO) before the Logit
     var_dequant: bool = False
     # maf: redraw the MADE masks from the trainer's per-step generator on
     # every training forward; False keeps the masks drawn at init
@@ -60,4 +74,8 @@ NETWORK_DEFAULTS = {
     "flow++": dict(layers=32, mixtures=8),
     "maf": dict(layers=32),
     "resflow": dict(layers=32, logdet="unbias", spnorm_coeff=0.9),
+    # rtol / atol 1e-4, nf_tpu's choice for its accept / reject controller
+    "ffjord": dict(layers=3, t0=0.0, t1=1.0, stepsize=0.1, solver="dopri5",
+                   backprop="adjoint", trace="hutchinson",
+                   rtol=1e-4, atol=1e-4),
 }

@@ -30,12 +30,19 @@ matching parameters and buffers.  Layout differences handled here:
   keeps ``perm`` in state.  ``PlanarTransform``'s ``u`` / ``w`` / ``b``
   copy as they are; ``Flatten`` has no variables, and ``Inverted`` holds
   its inner bijector's.
+* ``CNF`` keeps its ODENet under ``{'net': {'w': [...], 'b': [...]}}`` and
+  its time grid in state (``times``, a buffer here).  Dense weights keep
+  ``nf_tpu``'s ``(din + 1, dout)`` and copy as they are; conv weights are
+  HWIO there and ``(out, in, kh, kw)`` here.
+* ``VariationalDequant`` nests its ``ConvNet``s under ``affine`` and
+  ``couplings[0..1]`` in both trees.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .bijectors.cnf import CNF
 from .bijectors.conv1x1 import InvertibleConv1x1
 from .bijectors.coupling import AffineCoupling
 from .bijectors.elementwise import Logit
@@ -45,6 +52,7 @@ from .bijectors.made import MADE, AutoregressiveTransform
 from .bijectors.norm import ActNorm, BatchNorm
 from .bijectors.planar import PlanarTransform
 from .bijectors.squeeze import Flatten, Squeeze2d, Unsqueeze2d
+from .bijectors.vardequant import VariationalDequant
 from .core.bijector import Chain, Inverted
 from .models.base import FlowModel
 from .nets.conditioners import ResBlockLinear
@@ -82,6 +90,18 @@ def _load_made(module, params, state, path: str) -> None:
         _copy(m, state["masks"][i], f"{path}.masks[{i}]", transpose=True)
     for i, bn in enumerate(module.bn):
         _load(bn, params["bn"][i], state["bn"][i], f"{path}.bn[{i}]")
+
+
+def _load_cnf(module, params, state, path: str) -> None:
+    net = module.net
+    hwio = (3, 2, 0, 1) if net.is_image else False
+    for k, dst, order in (("w", net.w, hwio), ("b", net.b, False)):
+        if len(params["net"][k]) != len(dst):
+            raise ValueError(f"{path}.net.{k}: {len(params['net'][k])} entries for "
+                             f"{len(dst)} layers")
+        for i in range(len(dst)):
+            _copy(dst[i], params["net"][k][i], f"{path}.net.{k}[{i}]", transpose=order)
+    _copy(module.times, state["times"], f"{path}.times")
 
 
 def _load(module, params, state, path: str) -> None:
@@ -174,6 +194,13 @@ def _load(module, params, state, path: str) -> None:
     elif isinstance(module, PlanarTransform):
         for k in ("u", "w", "b"):
             _copy(getattr(module, k), params[k], f"{path}.{k}")
+    elif isinstance(module, CNF):
+        _load_cnf(module, params, state, path)
+    elif isinstance(module, VariationalDequant):
+        _load(module.net_affine, params["affine"], state["affine"], f"{path}.affine")
+        for i, net in enumerate(module.net_couplings):
+            _load(net, params["couplings"][i], state["couplings"][i],
+                  f"{path}.couplings[{i}]")
     else:
         raise TypeError(f"{path}: no conversion for {type(module).__name__}")
 

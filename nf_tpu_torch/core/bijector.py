@@ -12,9 +12,12 @@ module's ``training`` flag; ``dd_init(x)`` is the one-time data-dependent
 pass, run by ``FlowModel.data_dependent_init`` in train mode.
 
 ``nf_tpu``'s ``Ctx.rng`` is a ``torch.Generator`` handed to ``forward``
-where a layer draws noise while it trains (``takes_generator``; MAF's
-``resample_masks``), and ResFlow's log-det probes a ``probes`` argument
-(``takes_probes``); ``call_forward`` hands each layer what it takes.
+where a layer draws noise (``takes_generator``: MAF's ``resample_masks``,
+FFJORD's Hutchinson probes, variational dequantization) and to ``inverse``
+where a layer draws noise while it samples (``inverse_takes_generator``:
+FFJORD), and ResFlow's log-det probes a ``probes`` argument
+(``takes_probes``); ``call_forward`` / ``call_inverse`` hand each layer
+what it takes.  ``dd_init`` takes the data-dependent init's generator.
 """
 from __future__ import annotations
 
@@ -39,10 +42,12 @@ class Bijector(nn.Module):
     ``takes_probes``: ``forward`` takes ResFlow's log-det probes
     (``ops/estimators.py``'s (V, n_terms)) as ``probes``;
     ``takes_generator``: ``forward`` takes the training step's
-    ``torch.Generator`` as ``generator`` (None: draw nothing)."""
+    ``torch.Generator`` as ``generator`` (None: the layer's own default);
+    ``inverse_takes_generator``: ``inverse`` takes one too."""
 
     takes_probes = False
     takes_generator = False
+    inverse_takes_generator = False
 
     def init(self, generator: torch.Generator) -> None:
         """Re-draw this bijector's parameters in place."""
@@ -56,12 +61,14 @@ class Bijector(nn.Module):
         """latent -> data. Returns ``(x, logdet)``."""
         raise NotImplementedError
 
-    def dd_init(self, x: torch.Tensor) -> torch.Tensor:
+    def dd_init(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Data-dependent initialization; returns the forward-transformed
         batch for the layers after it.  Default: a forward in the module's
         mode (train mode under ``data_dependent_init``, so buffers such as
-        running statistics move once) that keeps the parameters."""
-        return self(x)[0]
+        running statistics move once), handed ``generator`` if it takes
+        one, that keeps the parameters."""
+        return call_forward(self, x, generator=generator)[0]
 
 
 def call_forward(layer: Bijector, x: torch.Tensor, probes=None,
@@ -75,15 +82,25 @@ def call_forward(layer: Bijector, x: torch.Tensor, probes=None,
     return layer(x, **kw)
 
 
+def call_inverse(layer: Bijector, y: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+    """``layer.inverse(y)`` with the generator if it takes one."""
+    if layer.inverse_takes_generator:
+        return layer.inverse(y, generator=generator)
+    return layer.inverse(y)
+
+
 class Chain(Bijector):
     """Sequential composition: forward in order, inverse reversed, per-layer
     logdets summed starting from zeros.  ``forward``'s ``probes`` go to
     every layer that takes them (one probe set for every block: ResFlow's
-    serving semantics), and its ``generator`` to every layer that takes
-    one, each drawing from it in turn."""
+    serving semantics), and its ``generator`` (both directions, and
+    ``dd_init``) to every layer that takes one, each drawing from it in
+    turn."""
 
     takes_probes = True
     takes_generator = True
+    inverse_takes_generator = True
 
     def __init__(self, layers: Sequence[Bijector]):
         super().__init__()
@@ -96,16 +113,16 @@ class Chain(Bijector):
             logdet = logdet + ld
         return x, logdet
 
-    def inverse(self, y):
+    def inverse(self, y, generator=None):
         logdet = torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
         for layer in reversed(self.layers):
-            y, ld = layer.inverse(y)
+            y, ld = call_inverse(layer, y, generator)
             logdet = logdet + ld
         return y, logdet
 
-    def dd_init(self, x):
+    def dd_init(self, x, generator=None):
         for layer in self.layers:
-            x = layer.dd_init(x)
+            x = layer.dd_init(x, generator)
         return x
 
 

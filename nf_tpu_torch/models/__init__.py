@@ -6,6 +6,7 @@ import torch
 
 from ..config import NETWORK_DEFAULTS, NetworkConfig
 from .base import EvalProgram, FlowModel  # noqa: F401
+from .ffjord import build_ffjord
 from .flowpp import build_flowpp
 from .glow import build_glow
 from .maf import build_maf
@@ -20,6 +21,7 @@ _REGISTRY = {
     "flow++": build_flowpp,
     "maf": build_maf,
     "resflow": build_resflow,
+    "ffjord": build_ffjord,
 }
 
 

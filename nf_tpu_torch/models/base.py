@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.bijector import Bijector, call_forward
+from ..core.bijector import Bijector, call_forward, call_inverse
 from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
                                      fused_flowpp, pack_flowpp)
 from ..ops.cuda.fused_resflow import (PackedResFlow, extract_resflow_spec,
@@ -54,15 +54,22 @@ class FlowModel(nn.Module):
         return self.state_dict()
 
     @torch.no_grad()
-    def data_dependent_init(self, batch: torch.Tensor) -> dict:
+    def data_dependent_init(self, batch: torch.Tensor,
+                            generator: Optional[torch.Generator] = None) -> dict:
         """The one-time data-dependent pass (ActNorm's init; every flow and
         conditioner BatchNorm's running statistics move once): the chain's
-        ``dd_init`` in train mode over ``batch``, without gradients.  The
-        module's mode is restored after it.  Returns the state dict."""
+        ``dd_init`` in train mode over ``batch``, without gradients,
+        ``generator`` handed to the layers that draw (default: one seeded 0
+        on the model's device, as ``nf_tpu``'s ``rng=None`` becomes
+        ``PRNGKey(0)``).  The module's mode is restored after it.  Returns
+        the state dict."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
         mode = self.training
         self.train()
         try:
-            self.bijector.dd_init(batch.to(device=self.device, dtype=torch.float32))
+            self.bijector.dd_init(batch.to(device=self.device, dtype=torch.float32),
+                                  generator)
         finally:
             self.train(mode)
         return self.state_dict()
@@ -85,13 +92,15 @@ class FlowModel(nn.Module):
     # ------------------------------------------------------------- running
     def forward(self, y, generator: Optional[torch.Generator] = None):
         """data -> latent; returns (z, log|det J|).  ``generator`` feeds the
-        layers that draw noise while they train (``Trainer`` hands one per
-        step); without it they draw nothing."""
+        layers that draw noise (``Trainer`` hands one per step); without it
+        each draws its default (MAF nothing, FFJORD a generator seeded 0)
+        or raises (variational dequantization)."""
         return call_forward(self.bijector, y, generator=generator)
 
-    def inverse(self, z):
-        """latent -> data; returns (y, logdet of the inverse map)."""
-        return self.bijector.inverse(z)
+    def inverse(self, z, generator: Optional[torch.Generator] = None):
+        """latent -> data; returns (y, logdet of the inverse map);
+        ``generator`` feeds the layers that draw while they sample."""
+        return call_inverse(self.bijector, z, generator)
 
     def log_prob(self, y, generator: Optional[torch.Generator] = None):
         """log p(y) = log N(z) + log|det dz/dy|; returns (B,)."""
@@ -99,9 +108,11 @@ class FlowModel(nn.Module):
         return standard_normal_logprob(z) + logdet
 
     def sample(self, n: int, generator: torch.Generator):
-        """Draw n samples; returns (y, log p(y))."""
+        """Draw n samples; returns (y, log p(y)).  z is drawn from
+        ``generator``, which then feeds the layers that draw (``nf_tpu``'s
+        ``Ctx(rng=key)``)."""
         z = _normal(generator, (n,) + self.dims, self.device)
-        y, logdet_inv = self.inverse(z)
+        y, logdet_inv = self.inverse(z, generator)
         return y, standard_normal_logprob(z) - logdet_inv
 
 
@@ -121,7 +132,9 @@ class EvalProgram:
 
     A program over the chain serves the live module in eval mode: a call
     sets it back to eval mode where training (``Trainer``) left it in train
-    mode.
+    mode.  It hands the chain no generator: FFJORD's CNFs draw their probes
+    from a generator seeded 0, and variational dequantization raises
+    ``ValueError``, as ``nf_tpu``'s program (``rng=None``) does.
 
     ResFlow: with the 'unbias' estimator both directions are one kernel
     each, the series over the probe set of the call's batch size (drawn

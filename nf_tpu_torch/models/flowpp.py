@@ -3,17 +3,17 @@
 * density mode: n x [ActNorm -> MixLogAttnCoupling(alt odd)];
 * image mode (NHWC): ``multiscale``'s skeleton with n x [ActNorm ->
   InvertibleConv1x1 -> MixLogAttnCoupling] as its block.  At 32x32x1 and
-  n = 32 that is 161 couplings.
-
-``nf_tpu``'s ``var_dequant`` (variational dequantization, a training
-objective: its eval context has no random key to draw the noise from) is
-not ported and raises.
+  n = 32 that is 161 couplings.  With ``var_dequant`` a
+  ``VariationalDequant`` comes before the skeleton's Logit: a training
+  objective that draws noise on every forward, so a forward without a
+  generator (an ``EvalProgram``'s) raises, as ``nf_tpu``'s does.
 """
 from __future__ import annotations
 
 from ..bijectors.conv1x1 import InvertibleConv1x1
 from ..bijectors.flowpp_coupling import MixLogAttnCoupling
 from ..bijectors.norm import ActNorm
+from ..bijectors.vardequant import VariationalDequant
 from ..core.bijector import Chain
 from .base import FlowModel
 from .multiscale import multiscale
@@ -28,10 +28,6 @@ def build_flowpp(dims, datatype=None, cfg=None, device=None) -> FlowModel:
             MixLogAttnCoupling(dims, odd=i % 2 != 0, base_filters=bf, n_mixtures=K,
                                device=device))]
         return FlowModel("flow++", Chain(layers), dims, device)
-    if getattr(cfg, "var_dequant", False):
-        raise NotImplementedError("Flow++ variational dequantization lands with the Flow++ "
-                                  "training slice")
-
     def block(n, dims, masking):
         """n x [ActNorm -> InvertibleConv1x1 -> MixLogAttnCoupling], the
         coupling parity alternating."""
@@ -41,4 +37,6 @@ def build_flowpp(dims, datatype=None, cfg=None, device=None) -> FlowModel:
             MixLogAttnCoupling(dims, masking=masking, odd=i % 2 != 0, base_filters=bf,
                                n_mixtures=K, device=device))]
 
-    return FlowModel("flow++", Chain(multiscale(dims, n, block)), dims, device)
+    head = ([VariationalDequant(dims, base_filters=bf, device=device)]
+            if getattr(cfg, "var_dequant", False) else [])
+    return FlowModel("flow++", Chain(head + multiscale(dims, n, block)), dims, device)

@@ -1,5 +1,5 @@
-"""Log-det estimators for residual maps f(x) = x + g(x) (counterpart of
-``nf_tpu/ops/estimators.py``), eval mode.
+"""Log-det estimators for residual maps f(x) = x + g(x), eval mode, and
+FFJORD's trace estimators (counterpart of ``nf_tpu/ops/estimators.py``).
 
 * ``logdet_exact``: log|det(I + J)| from D vector-Jacobian products per
   sample and ``slogdet``;
@@ -20,8 +20,9 @@ is the serving set: ``nf_tpu``'s eval blocks all use ``PRNGKey(0)``, the
 port a generator seeded 0 on the data's device, so every block and every
 call at one batch size sees the same probes.
 
-``trace_*`` (FFJORD) and ``iresblock_forward`` (training) wait for their
-slices.
+``trace_exact`` / ``trace_hutchinson`` (FFJORD's CNF) return the map's
+value with its trace; they take the Hutchinson probes as a tensor too.
+``iresblock_forward`` (ResFlow training) waits for its slice.
 """
 from __future__ import annotations
 
@@ -137,3 +138,44 @@ def logdet_unbias(g_fn: Callable, x: torch.Tensor, v: torch.Tensor,
             acc = acc + roulette_coefficient(k, p, n_exact) * _dot_per_sample(w, vs)
         est.append(acc)
     return torch.stack(est).mean(dim=0)
+
+
+# --------------------------------------------------------------------- trace
+def _value_and_vjp(f_fn: Callable, z: torch.Tensor):
+    """f_fn(z) and its VJP w -> w^T df/dz.  Under grad mode the VJPs are
+    themselves differentiable (``create_graph``), as a trace that a loss or
+    an adjoint differentiates needs; otherwise the value and the VJPs come
+    back detached, so a solve of many steps keeps no graph alive."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        zz = z if create and z.requires_grad else z.detach().requires_grad_()
+        f = f_fn(zz)
+
+    def vjp(w):
+        with torch.enable_grad():
+            g = torch.autograd.grad(f, zz, w, retain_graph=True, create_graph=create)[0]
+        return g if create else g.detach()
+
+    return (f if create else f.detach()), vjp
+
+
+def trace_exact(f_fn: Callable, z: torch.Tensor):
+    """(f_fn(z), exact trace of df/dz) via D VJPs with basis vectors.
+    ``f_fn`` maps (B, *dims) -> (B, *dims); the non-batch dims are
+    flattened for the basis sweep, so NHWC images work (small D only)."""
+    f, vjp = _value_and_vjp(f_fn, z)
+    B, D = z.shape[0], z[0].numel()
+    acc = torch.zeros(B, dtype=z.dtype, device=z.device)
+    for i in range(D):
+        e = torch.zeros(B, D, dtype=z.dtype, device=z.device)
+        e[:, i] = 1.0
+        acc = acc + vjp(e.reshape(z.shape)).reshape(B, D)[:, i]
+    return f, acc
+
+
+def trace_hutchinson(f_fn: Callable, z: torch.Tensor, v: torch.Tensor):
+    """(f_fn(z), Hutchinson trace estimate): the mean over the probes
+    v (P, *z.shape) of v_i^T (df/dz) v_i per sample."""
+    f, vjp = _value_and_vjp(f_fn, z)
+    ests = [_dot_per_sample(vjp(vi), vi) for vi in v]
+    return f, sum(ests) / len(ests)

@@ -24,8 +24,12 @@ The per-step PRNG: ``nf_tpu`` folds the step into its key; here
 ``step_generator`` seeds one ``torch.Generator`` per step from
 ``(seed, step)`` on the model's device, and the step hands it to the
 layers that draw noise while they train (``Bijector.takes_generator``:
-MAF's ``resample_masks``).  The two frameworks' draws differ, so parity
-tests inject the noise.
+MAF's ``resample_masks``, FFJORD's Hutchinson probe, variational
+dequantization).  ``init_state`` hands the data-dependent init a
+generator of its own, seeded from ``(seed, "dd")`` (``nf_tpu``'s
+``fold_in(key, 1)``); ``log_prob`` takes one as ``nf_tpu``'s ``rng``, and
+``sample`` hands its generator to the layers that draw.  The two
+frameworks' draws differ, so parity tests inject the noise.
 
 Not ported yet: ``mesh`` (data parallelism), multi-process start-up and
 checkpoints.
@@ -45,6 +49,10 @@ def lr_schedule(cfg) -> Callable[[int], float]:
     """Learning rate of update k = 0, 1, ...: staircase exponential decay."""
     return lambda k: cfg.lr * cfg.decay_ratio ** (k // cfg.decay_steps)
 
+
+# the data-dependent init's stream: SeedSequence(seed, spawn_key=(DD_KEY,)),
+# apart from every step's (seed, step)
+DD_KEY = int.from_bytes(b"dd", "big")
 
 # optax.rmsprop's defaults, which nf_tpu uses
 RMSPROP_DECAY = 0.9
@@ -105,23 +113,30 @@ class Trainer:
         """Draw the parameters from the trainer's seed (or load ``params``,
         a state dict as ``FlowModel.init`` or ``convert.load_jax_variables``
         return it), run the data-dependent init on ``sample_batch`` when
-        given, and make the optimizer."""
+        given, with ``dd_generator()``, and make the optimizer."""
         model = self.model
         if params is None:
             model.init(torch.Generator(device=model.device).manual_seed(self.seed))
         else:
             model.load_state_dict(params)
         if sample_batch is not None:
-            model.data_dependent_init(sample_batch)
+            model.data_dependent_init(sample_batch, self.dd_generator())
         return TrainState(0, make_optimizer(self.opt_cfg, list(model.parameters())))
+
+    def _generator(self, seq: np.random.SeedSequence) -> torch.Generator:
+        seed = int(seq.generate_state(1)[0])
+        return torch.Generator(device=self.model.device).manual_seed(seed)
+
+    def dd_generator(self) -> torch.Generator:
+        """The data-dependent init's generator, on the model's device."""
+        return self._generator(np.random.SeedSequence(self.seed, spawn_key=(DD_KEY,)))
 
     # ----------------------------------------------------------------- steps
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of update ``step``, on the model's device: seeded
         from ``(seed, step)``, so each step draws anew and a step run again
         draws the same."""
-        seed = int(np.random.SeedSequence((self.seed, step)).generate_state(1)[0])
-        return torch.Generator(device=self.model.device).manual_seed(seed)
+        return self._generator(np.random.SeedSequence((self.seed, step)))
 
     def _batch(self, batch) -> torch.Tensor:
         return torch.as_tensor(batch).to(device=self.model.device, dtype=torch.float32)
@@ -155,13 +170,17 @@ class Trainer:
 
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
-    def log_prob(self, ts: TrainState, batch) -> torch.Tensor:
-        """Eval-mode log p(batch), (B,)."""
+    def log_prob(self, ts: TrainState, batch,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Eval-mode log p(batch), (B,).  ``generator`` feeds the layers that
+        draw in eval (variational dequantization needs one: a fresh
+        dequantization sample per call; FFJORD's probes)."""
         self.model.eval()
-        return self.model.log_prob(self._batch(batch))
+        return self.model.log_prob(self._batch(batch), generator)
 
     @torch.no_grad()
     def sample(self, ts: TrainState, n: int, generator: torch.Generator):
-        """Eval-mode draw of n samples: (y, log p(y))."""
+        """Eval-mode draw of n samples: (y, log p(y)); ``generator`` draws the
+        latent, then feeds the layers that draw (FFJORD's probes)."""
         self.model.eval()
         return self.model.sample(n, generator)

@@ -80,7 +80,8 @@ def test_image_flowpp_matches_nf_tpu(dims):
 
 
 def test_unported_options_raise():
-    for kw in (dict(var_dequant=True), dict(scan=True), dict(remat=True)):
+    # var_dequant is ported (tests/test_torch_vardequant.py)
+    for kw in (dict(scan=True), dict(remat=True)):
         with pytest.raises(NotImplementedError):
             _torch_flowpp_image((8, 8, 1), **kw)
 

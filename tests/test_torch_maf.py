@@ -296,7 +296,9 @@ def test_sample_masks_are_autoregressive_and_seeded():
 
 def test_trainer_hands_each_step_its_generator(monkeypatch):
     """Trainer.train_step hands the MAF layers a generator seeded from
-    (seed, step): a step's draws repeat, and the next step's differ."""
+    (seed, step): a step's draws repeat, and the next step's differ.  The
+    data-dependent init draws too, from its own generator (nf_tpu's
+    data_dependent_init hands its layers a key)."""
     from nf_tpu_torch.config import OptimizerConfig
     from nf_tpu_torch.train import Trainer
 
@@ -308,6 +310,8 @@ def test_trainer_hands_each_step_its_generator(monkeypatch):
                         lambda self, g: seen.append(g.initial_seed()) or sample(self, g))
     batch = torch.from_numpy(normal(110, (16, 5)))
     ts = tr.init_state(batch)
+    assert len(seen) == 2 * 2 and set(seen) == {tr.dd_generator().initial_seed()}
+    seen.clear()
     ts, _ = tr.train_steps(ts, torch.stack([batch, batch]))
     assert len(seen) == 2 * 2 * 2                # 2 steps x 2 layers x 2 MADEs
     assert len(set(seen[:4])) == 1 and len(set(seen[4:])) == 1 and seen[0] != seen[4]

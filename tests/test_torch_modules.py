@@ -187,3 +187,35 @@ def test_image_coupling_not_in_this_slice():
             xr, ldi = c.inverse(y)
         close(xr, x, 1e-5)
         close(ldi, -ld, 1e-5)
+
+
+@pytest.mark.parametrize("name,dims,datatype,kw", [
+    ("ffjord", (2,), "2d", {}),
+    ("flow++", (8, 8, 1), "image", dict(layers=1, base_filters=8, mixtures=2,
+                                        var_dequant=True))], ids=["ffjord", "flowpp-var_dequant"])
+def test_new_families_build(name, dims, datatype, kw):
+    """FFJORD at NETWORK_DEFAULTS (3 x [ActNorm -> CNF], dopri5, adjoint,
+    Hutchinson, rtol / atol 1e-4, the grid of stepsize 0.1) and Flow++
+    with variational dequantization build; scan still raises."""
+    from nf_tpu.config import NETWORK_DEFAULTS as JDEFAULTS
+    from nf_tpu_torch.bijectors import CNF, VariationalDequant
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
+    from nf_tpu_torch.models import available_models, build_model
+
+    assert name in available_models()
+    cfg = NetworkConfig(name=name, **{**NETWORK_DEFAULTS[name], **kw})
+    model = build_model(name, dims, datatype, cfg, device="cpu")
+    layers = list(model.bijector.layers)
+    if name == "ffjord":
+        assert NETWORK_DEFAULTS["ffjord"] == JDEFAULTS["ffjord"]
+        cnfs = layers[1::2]
+        assert len(layers) == 6 and all(isinstance(c, CNF) for c in cnfs)
+        c = cnfs[0]
+        assert (c.solver, c.backprop, c.trace_estimator, c.rtol, c.atol) == (
+            "dopri5", "adjoint", "hutchinson", 1e-4, 1e-4)
+        close(c.times, np.linspace(0.0, 1.0, 11, dtype=np.float32), 0.0)
+    else:
+        assert isinstance(layers[0], VariationalDequant)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(name, dims, datatype, NetworkConfig(**{**cfg.__dict__, "scan": True}),
+                    device="cpu")

@@ -137,7 +137,7 @@ def test_image_mode_not_in_this_slice():
     close(xr, x, 1e-5)
     close(ldi, -ld, 1e-3)
     with pytest.raises(ValueError, match="unknown network"):
-        build_model("ffjord", (2,), "2d", device="cpu")
+        build_model("nice", (2,), "2d", device="cpu")
 
 
 def test_default_config_is_the_headline_width():
