@@ -158,7 +158,36 @@ Phases, each of which exits non-zero when it fails:
      EvalProgram's forward raising ValueError (no generator), and the
      first step's log p and gradients on 4 samples against the CPU with
      the same injected dequantization noise, as in (a);
-  8. time each kernel (CUDA events over back-to-back launches, warm L2 as
+  8. ResFlow training, no kernel of the port while it trains (nf_tpu's
+     runs no Pallas kernel there), every call's launches counted:
+     (a) ResFlow 2-D at the density zoo's shape (NETWORK_DEFAULTS
+     ["resflow"]: 32 x [ActNorm -> i-ResNet block], F = 32, coeff 0.9,
+     'unbias'): build_model on the card -> Trainer(seed 0).init_state on
+     1,024 "circles" samples -> train_steps, K = 8 Adam steps at B = 1024
+     (bench.py:35-36; the memory-saved Function, one power iteration per
+     step) -> u, v and the LipSwish betas checked moved off their values
+     after init_state -> eval_program -> log_prob(8192) and sample(8192),
+     one fwd_ld and one solve_ld launch, the round trip within 1e-3; both
+     kernels held against their plain versions on the trained weights
+     (the limits of phase 3); the first step's log p (and eval log p
+     through the program) on 256 samples of init_state's weights against
+     the CPU, the training draws and the serving probes drawn on the CPU
+     and injected on both: within 1e-4 of the largest |log p|, the
+     gradients' relative L2 to float64 within twice the CPU's own or
+     1e-5, whichever is larger;
+     (b) resflow-img32x1: build_model("resflow", (32, 32, 1), "image")
+     with the zoo's config and allow_image (32 conv blocks on 16x16x4,
+     width 32, 371,136 parameters) -> init_state -> K = 4 Adam steps at
+     B = 1024 -> eval_program (the eager chain) -> log_prob(1024) and
+     sample(1024); the round trip within 1e-3 (nf_tpu's own), the inverse
+     of 16 latents against the CPU's within 1e-3 with the same probes, and
+     the parity checks of (a) on 16 samples;
+     each printed with ms per Adam step, train_samples_per_s, the steps'
+     peak memory, ms per direction, the serving rate, the fixed-point
+     trips per block of an inverse, the series lengths the training drew
+     and the serving probes', and a profiled step's (and image forward's)
+     device idle share and longest kernels;
+  9. time each kernel (CUDA events over back-to-back launches, warm L2 as
      in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
      and by their profiler records; the coupling kernels by their own
      device time per launch, the mean over a profiler window's records,
@@ -201,7 +230,7 @@ Phases, each of which exits non-zero when it fails:
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
      phase 3);
-  9. print {"ok": true, "device": {...}} as the last line.
+ 10. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -1683,13 +1712,16 @@ def per_solve(stats):
 
 def profiled_idle(fn):
     """A profiled window of one call (CUDA activity only): the device idle
-    share, its device ms and the kernel records kept.  An upper bound of
-    the idle share: the profiler may drop records (see kernel_ms)."""
+    share, its device ms, the kernel records kept and the six longest
+    kernels' device ms.  An upper bound of the idle share: the profiler
+    may drop records (see kernel_ms)."""
     wall_us, kernels, records, _ = profile_window(fn, 1, (), warmup=False, cpu=False)
     busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {"device_idle_share": None if busy <= 0 else 1.0 - busy / wall_us,
             "window_wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
-            "kernel_records": sum(records.values())}
+            "kernel_records": sum(records.values()),
+            "top_kernels_ms": [[k[:100], v / 1e3] for k, v in top]}
 
 
 def parity_runs(make_model, state, body, card):
@@ -2057,6 +2089,346 @@ def vardequant_main_path(device, counters, launches_of, smi):
         "attention_launches": totals["attention_fwd"], "cpu_parity": parity, "card": smi}}))
 
 
+# --------------------------------------------------------------------------
+# ResFlow training (2-D and the image branch): no kernel of the port while
+# it trains; the trained 2-D state is served by the fused ResFlow kernels
+# --------------------------------------------------------------------------
+RF_TRAIN_BATCH = 1024    # bench.py:36 TRAIN_BATCH
+RF_TRAIN_CHUNK = 8       # bench.py:35 TRAIN_CHUNK
+RF_PARITY = 256          # samples held against the same state on the CPU
+RF_ITERS = 20            # calls per direction timed of the trained 2-D program
+# gradients card vs CPU float64, relative L2: within twice the CPU's own f32
+# distance, or this, whichever is larger (both are near f32 rounding)
+RF_GRAD_REL_FLOOR = 1e-5
+# resflow-img32x1: build_model("resflow", (32, 32, 1), "image") with the zoo's
+# ResFlow config and allow_image (32 conv blocks on 16x16x4, width 32)
+RF_IMG_DIMS = (32, 32, 1)
+RF_IMG_PARAMS = 371_136
+RF_IMG_BATCH = 1024
+RF_IMG_TRAIN_CHUNK = 4
+RF_IMG_PARITY = 16
+RF_IMG_ITERS = 2         # calls per direction timed, after one warm-up
+RF_IMG_ROUND_TRIP_ATOL = 1e-3   # nf_tpu's own (tests/test_zoo_image_optin.py:30)
+
+
+class SeriesRecorder:
+    """Records, while in use, the series lengths each training block draws
+    (``draw_train_probes``) and the fixed-point trips of each block's
+    solve; the library's functions are restored on exit."""
+
+    def __enter__(self):
+        from nf_tpu_torch.bijectors.iresblock import InvertibleResBlock
+        from nf_tpu_torch.ops import estimators as est
+
+        self.train_lengths, self.trips = [], []
+        self._draw, self._solve = est.draw_train_probes, InvertibleResBlock.solve
+
+        def draw(shape, generator):
+            d = self._draw(shape, generator)
+            self.train_lengths.append((d[0][0], d[1][0]))
+            return d
+
+        def solve(block, z):
+            x, it = self._solve(block, z)
+            self.trips.append(it)
+            return x, it
+
+        est.draw_train_probes, InvertibleResBlock.solve = draw, solve
+        return self
+
+    def __exit__(self, *exc):
+        from nf_tpu_torch.bijectors.iresblock import InvertibleResBlock
+        from nf_tpu_torch.ops import estimators as est
+
+        est.draw_train_probes, InvertibleResBlock.solve = self._draw, self._solve
+
+    def lengths_summary(self):
+        if not self.train_lengths:
+            return None
+        v, g = (np.array(c, dtype=np.float64) for c in zip(*self.train_lengths))
+        return {"draws": len(v), "value_mean": float(v.mean()), "value_max": int(v.max()),
+                "neumann_mean": float(g.mean()), "neumann_max": int(g.max())}
+
+
+def resflow_blocks(model):
+    from nf_tpu_torch.bijectors.iresblock import InvertibleResBlock
+
+    return [m for m in model.modules() if isinstance(m, InvertibleResBlock)]
+
+
+def resflow_cpu_parity(label, make_model, state, xs, inner, card):
+    """log p in eval (the serving probes drawn on the CPU and handed to
+    both) and the first train step's log p and gradients (each block's two
+    training draws injected on both) on ``xs`` for the same state on the
+    card and on the CPU in f32 and float64: eval and train log p within
+    IMG_LOGP_RTOL of the largest |log p|, the gradients' relative L2 to
+    float64 within max(IMG_GRAD_FACTOR x the CPU's, RF_GRAD_REL_FLOOR)."""
+    from nf_tpu_torch.ops.estimators import draw_train_probes, draw_unbias_probes
+
+    g = torch.Generator().manual_seed(SEED + 21)
+    n_blocks = len(resflow_blocks(make_model("cpu")))
+    shape = (xs.shape[0],) + tuple(inner)
+    V, n_terms = draw_unbias_probes(xs.shape[0], math.prod(inner), g)
+    probes = (V.reshape((V.shape[0],) + shape), n_terms)
+    draws = [draw_train_probes(shape, g) for _ in range(n_blocks)]
+
+    def body(model, device, dtype):
+        x = xs.to(device=device, dtype=dtype)
+        lp_eval = None
+        if dtype == torch.float32:     # the serving program computes in f32
+            prog = model.eval_program(probes=(probes[0].to(device), probes[1]))
+            lp_eval = prog.log_prob(x).cpu().double()
+        for b, d in zip(resflow_blocks(model), draws):
+            b.injected_train_probes = d
+        model.train()
+        lp = model.log_prob(x)
+        (-lp.mean()).backward()
+        return lp_eval, lp.detach().cpu().double(), flat_grads(model)
+
+    out = parity_runs(make_model, state, body, card)
+    lp_eval, lp, grads = ({r: o[i] for r, o in out.items()} for i in range(3))
+    top = max(float(lp["cpu"].abs().max()), float(lp_eval["cpu"].abs().max()))
+    rel = {r: float((grads[r] - grads["cpu64"]).norm() / grads["cpu64"].norm())
+           for r in ("card", "cpu")}
+    res = {"samples": xs.shape[0],
+           "eval_logp_max_abs_diff": max_diff(lp_eval["card"], lp_eval["cpu"]),
+           "train_logp_max_abs_diff": max_diff(lp["card"], lp["cpu"]), "logp_max_abs": top,
+           "logp_f64_max_abs_diff": {r: max_diff(lp[r], lp["cpu64"]) for r in ("card", "cpu")},
+           "grad_rel_l2_to_f64": rel}
+    print(f"{label} card vs CPU, {xs.shape[0]} samples: eval max|dlog p|="
+          f"{res['eval_logp_max_abs_diff']:.3e}, first step max|dlog p|="
+          f"{res['train_logp_max_abs_diff']:.3e} (max|log p|={top:.2f}); gradients relative "
+          f"L2 to float64: card {rel['card']:.3e}, CPU {rel['cpu']:.3e}")
+    check(max(res["eval_logp_max_abs_diff"], res["train_logp_max_abs_diff"])
+          <= IMG_LOGP_RTOL * top, f"{label}: log p on the card disagrees with the CPU")
+    check(rel["card"] <= max(IMG_GRAD_FACTOR * rel["cpu"], RF_GRAD_REL_FLOOR),
+          f"{label}: gradients on the card are less accurate than the CPU's")
+    return res
+
+
+def moved_off(state0, model, suffixes):
+    """How many of the buffers / parameters ending in ``suffixes`` moved."""
+    now = model.state_dict()
+    names = [k for k in state0 if k.endswith(suffixes)]
+    return sum(not torch.equal(now[k].cpu(), state0[k]) for k in names), len(names)
+
+
+def resflow_train_main_path(device, counters, launches_of, smi, rf, errs):
+    """ResFlow 2-D at the zoo's shape (NETWORK_DEFAULTS["resflow"]: 32 x
+    [ActNorm -> i-ResNet block], F = 32, coeff 0.9, 'unbias'): Trainer ->
+    K = 8 Adam steps at B = 1024 (no kernel launch: training is the eager
+    chain with the memory-saved Function, as nf_tpu's runs no Pallas
+    kernel) -> eval_program at B = 8192 through the fused fwd_ld /
+    solve_ld kernels, each held against its plain version on the trained
+    weights; then resflow-img32x1 trains and serves (the eager chain).
+    Returns the fused kernels' launch counts of the served calls."""
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    cfg = NetworkConfig(name="resflow", **NETWORK_DEFAULTS["resflow"])
+    model = build_model("resflow", (2,), "2d", cfg)
+    check(model.device.type == "cuda", "build_model did not default to the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"resflow 2d training: {len(resflow_blocks(model))} blocks, {n_params} parameters")
+    rng = np.random.default_rng(SEED + 5)
+    B, K = RF_TRAIN_BATCH, RF_TRAIN_CHUNK
+    batch0 = torch.from_numpy(circles(B, rng)).to(device)
+    # shuffled: circles() puts the outer circle's samples first
+    chunk = torch.from_numpy(rng.permutation(circles(K * B, rng)).reshape(K, B, 2)).to(device)
+    x = torch.from_numpy(circles(BATCH, rng)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    fwd_name, inv_name = MODELS["resflow"]
+
+    def counted(what, fn, want):
+        return counted_call(f"resflow {what}", fn, want, counters, launches_of, totals)
+
+    ts = counted("init_state", lambda: trainer.init_state(batch0), {})
+    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    with SeriesRecorder() as rec:
+        t0 = time.perf_counter()
+        ts, losses = counted(f"train_steps K={K}", lambda: trainer.train_steps(ts, chunk), {})
+        t_chunk = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    moved = {s: moved_off(state0, model, (s,)) for s in (".u", ".v", ".beta")}
+    print(f"resflow 2d losses {losses}; {t_chunk / K:.1f} ms per Adam step at B={B}; train "
+          f"peak memory {peak / 2**30:.3f} GiB; series lengths {rec.lengths_summary()}; "
+          f"moved off init (moved, of): {moved}")
+    check(all(math.isfinite(v) for v in losses), "resflow 2d: non-finite loss")
+    check(all(m == n and n > 0 for m, n in moved.values()),
+          f"resflow 2d: training left u, v or the betas at init: {moved}")
+
+    prog = model.eval_program()
+    check(isinstance(prog.stack, rf.PackedResFlow), "resflow 2d: the trained stack missed "
+                                                    "its fused kernel")
+    log_px = counted("trained log_prob", lambda: prog.log_prob(x), {fwd_name: 1})
+    y_s, log_py = counted("trained sample", lambda: prog.sample(BATCH, gen), {inv_name: 1})
+    check(log_px.shape == (BATCH,) and y_s.shape == (BATCH, 2) and log_py.shape == (BATCH,),
+          "resflow 2d trained: main path output shapes")
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"resflow 2d trained {what}: non-finite values")
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    rt, ld_sum = max_diff(xr, x), max_diff(ld, -ldi)
+    check(rt < RESFLOW_INV_ATOL and ld_sum < RESFLOW_INV_ATOL, "resflow 2d trained: round trip")
+    # the kernels against their plain versions on the trained weights
+    stack, probes = prog.stack, prog._probes(x)
+    zr, ldr = rf.fused_resflow_fwd_logdet_reference(stack.spec, stack.packed, x, probes)
+    zk, ldk = rf.launch(stack, x, "forward", probes)
+    trips = []
+    xw, ldiw = rf.fused_resflow_solve_logdet_reference(stack.spec, stack.packed, zr, probes,
+                                                       trips)
+    xk, ldik = rf.launch(stack, zr, "inverse", probes)
+    torch.cuda.synchronize()
+    e = {fwd_name: (max_diff(zk, zr), max_diff(ldk, ldr)),
+         inv_name: (max_diff(xk, xw), max_diff(ldik, ldiw))}
+    print(f"check on the trained weights: {fwd_name} max|dz|={e[fwd_name][0]:.3e} "
+          f"max|dlogdet|={e[fwd_name][1]:.3e}; {inv_name} max|dx|={e[inv_name][0]:.3e} "
+          f"max|dlogdet|={e[inv_name][1]:.3e}; trips per block (plain, whole batch) {trips}; "
+          f"serving n_terms {probes[1].tolist()}")
+    check(torch.allclose(zk, zr, **Z_TOL) and e[fwd_name][1] <= LD_ATOL,
+          f"{fwd_name}: disagrees with its plain version on the trained weights")
+    check(max(e[inv_name]) <= RESFLOW_INV_ATOL,
+          f"{inv_name}: disagrees with its plain version on the trained weights")
+    for name, pair in e.items():
+        errs[name] = max(errs[name], *pair)
+    t_fwd = wall_ms(lambda: prog.forward(x), RF_ITERS)
+    t_inv = wall_ms(lambda: prog.inverse(z), RF_ITERS)
+    t0 = time.perf_counter()
+    parity = resflow_cpu_parity(
+        "resflow 2d (init_state's weights)",
+        lambda d: build_model("resflow", (2,), "2d", cfg, device=d), state0,
+        x[:RF_PARITY].cpu(), (2,), device)
+    print(f"card vs CPU parity took {time.perf_counter() - t0:.1f} s")
+    train_profile = profiled_idle(lambda: trainer.train_step(ts, chunk[0]))
+    print(json.dumps({"main_path": {
+        "model": f"resflow 2d trained, {len(resflow_blocks(model))} blocks, F=32, "
+                 f"logdet=unbias, {n_params} parameters: trains on the eager chain with the "
+                 f"memory-saved Function, serves through {fwd_name} / {inv_name}",
+        "batch": BATCH, "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+        "calls": RF_ITERS, "fwd_inv_samples_per_s": BATCH / ((t_fwd + t_inv) / 1e3),
+        "solve_trips_per_block": trips[::-1], "serving_n_terms": probes[1].tolist(),
+        "train_batch": B, "train_chunk": K, "train_chunk_ms": t_chunk,
+        "train_step_ms": t_chunk / K, "train_samples_per_s": K * B / (t_chunk / 1e3),
+        "train_peak_memory_bytes": peak, "train_series_lengths": rec.lengths_summary(),
+        "train_profile_step": train_profile, "losses": losses, "moved_off_init": moved,
+        "round_trip": {"max": rt, "ld_max": ld_sum},
+        "trained_kernel_vs_plain": {k: list(v) for k, v in e.items()},
+        "cpu_parity": parity, "card": smi}}))
+    resflow_image_main_path(device, counters, launches_of, smi)
+    return {k: totals[k] for k in (fwd_name, inv_name)}
+
+
+def resflow_image_main_path(device, counters, launches_of, smi):
+    """resflow-img32x1 (allow_image) through Trainer -> K = 4 Adam steps at
+    B = 1024 -> eval_program -> log_prob / sample at B = 1024, the eager
+    chain (no fused spec matches image dims, as in nf_tpu), no launch of
+    any port kernel; against the CPU on 16 samples with injected probes."""
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    cfg = NetworkConfig(name="resflow", **{**NETWORK_DEFAULTS["resflow"], "allow_image": True})
+    dims = RF_IMG_DIMS
+    inner = (dims[0] // 2, dims[1] // 2, 4 * dims[2])
+    model = build_model("resflow", dims, "image", cfg)
+    n_blocks = len(resflow_blocks(model))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"resflow-img32x1: {n_blocks} conv blocks on {inner}, {n_params} parameters")
+    check((n_blocks, n_params) == (32, RF_IMG_PARAMS),
+          f"resflow-img32x1 has {n_blocks} blocks and {n_params} parameters")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    B, K = RF_IMG_BATCH, RF_IMG_TRAIN_CHUNK
+
+    def pixels(*shape):
+        return 0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)
+
+    batch0, chunk, x = pixels(B, *dims), pixels(K, B, *dims), pixels(B, *dims)
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+
+    def counted(what, fn):
+        return counted_call(f"resflow-img32x1 {what}", fn, {}, counters, launches_of, totals)
+
+    t0 = time.perf_counter()
+    ts = counted("init_state", lambda: trainer.init_state(batch0))
+    t_init = (time.perf_counter() - t0) * 1e3
+    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    with SeriesRecorder() as rec:
+        t0 = time.perf_counter()
+        ts, losses = counted(f"train_steps K={K}", lambda: trainer.train_steps(ts, chunk))
+        t_chunk = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    moved = {s: moved_off(state0, model, (s,)) for s in (".u", ".v", ".beta")}
+    print(f"resflow-img32x1 losses {losses}; {t_chunk / K:.1f} ms per Adam step at B={B}; "
+          f"train peak memory {peak / 2**30:.3f} GiB; series lengths "
+          f"{rec.lengths_summary()}; moved off init: {moved}")
+    check(all(math.isfinite(v) for v in losses), "resflow-img32x1: non-finite loss")
+    check(all(m == n and n > 0 for m, n in moved.values()),
+          f"resflow-img32x1: training left u, v or the betas at init: {moved}")
+    prog = model.eval_program()
+    check(prog.stack is None, "resflow-img32x1: a fused kernel matched")
+    with SeriesRecorder() as rec_eval:
+        log_px = counted("log_prob", lambda: prog.log_prob(x))
+        y_s, log_py = counted("sample", lambda: prog.sample(B, gen))
+    sample_trips = rec_eval.trips
+    check(log_px.shape == (B,) and y_s.shape == (B,) + dims and log_py.shape == (B,),
+          "resflow-img32x1: main path output shapes")
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"resflow-img32x1 {what}: non-finite values")
+    t_fwd = wall_ms(lambda: prog.forward(x), RF_IMG_ITERS, warmup=1)
+    z, ld = prog.forward(x)
+    with SeriesRecorder() as rec_inv:
+        xr, ldi = prog.inverse(z)
+    t_inv = wall_ms(lambda: prog.inverse(z), RF_IMG_ITERS, warmup=1)
+    rt, ld_sum = max_diff(xr, x), max_diff(ld, -ldi)
+    print(f"resflow-img32x1 round trip: max|x - inv(fwd(x))|={rt:.3e} max|ld_fwd + ld_inv|="
+          f"{ld_sum:.3e}; fixed-point trips per block (inverse of the data's latent) "
+          f"{rec_inv.trips[::-1]}; of the sample's {sample_trips[::-1]}")
+    check(rt < RF_IMG_ROUND_TRIP_ATOL, "resflow-img32x1: round trip")
+    # the inverse of the same 16 latents on both devices, the probes injected
+    n = RF_IMG_PARITY
+    V, n_terms = prog._probes(z[:n])
+    inv = {}
+    for dev in (device, "cpu"):
+        m = build_model("resflow", dims, "image", cfg, device=dev)
+        m.load_state_dict(model.state_dict())
+        inv[dev] = m.eval_program(probes=(V.to(dev), n_terms)).inverse(z[:n].to(dev))[0].cpu()
+    e_inv = max_diff(inv[device], inv["cpu"])
+    print(f"resflow-img32x1 inverse card vs CPU, {n} latents: max|dx|={e_inv:.3e}")
+    check(e_inv <= RESFLOW_INV_ATOL, "resflow-img32x1: inverse on the card disagrees")
+    t0 = time.perf_counter()
+    parity = resflow_cpu_parity(
+        "resflow-img32x1 (init_state's weights)",
+        lambda d: build_model("resflow", dims, "image", cfg, device=d), state0,
+        x[:n].cpu(), inner, device)
+    print(f"card vs CPU parity took {time.perf_counter() - t0:.1f} s")
+    eval_profile = profiled_idle(lambda: prog.forward(x))
+    train_profile = profiled_idle(lambda: trainer.train_step(ts, chunk[0]))
+    print(json.dumps({"main_path": {
+        "model": f"resflow-img32x1 (allow_image): Logit -> Squeeze2d -> {n_blocks} x "
+                 f"[ActNorm({inner[2]}) -> InvertibleResConv2d({inner[2]}, {inner[2]}, width "
+                 f"{cfg.base_filters}, spatial {inner[0]}x{inner[1]})] -> Unsqueeze2d, "
+                 f"{n_params} parameters: the eager chain (no kernel of the port, as nf_tpu "
+                 f"runs no Pallas kernel there)",
+        "batch": B, "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+        "calls": RF_IMG_ITERS, "eval_fwd_inv_samples_per_s": B / ((t_fwd + t_inv) / 1e3),
+        "solve_trips_per_block": rec_inv.trips[::-1],
+        "serving_n_terms": prog._probes(x)[1].tolist(), "eval_profile_forward": eval_profile,
+        "train_batch": B, "train_chunk": K, "init_state_ms": t_init,
+        "train_chunk_ms": t_chunk, "train_step_ms": t_chunk / K,
+        "train_samples_per_s": K * B / (t_chunk / 1e3), "train_peak_memory_bytes": peak,
+        "train_series_lengths": rec.lengths_summary(), "train_profile_step": train_profile,
+        "losses": losses, "moved_off_init": moved, "round_trip": {"max": rt, "ld_max": ld_sum},
+        "inverse_card_vs_cpu_max_abs": e_inv, "cpu_parity": parity, "card": smi}}))
+
+
 def reset_all(modules):
     for m in modules:
         m.reset_launches()
@@ -2296,7 +2668,10 @@ def main():
     print(f"phase 7 (flowpp-img32x1 var_dequant) starts at "
           f"{time.perf_counter() - t_start:.1f} s")
     vardequant_main_path(dev, counters, launches_of, smi)
-    print(f"phase 8 (timing) starts at {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 8 (ResFlow training) starts at {time.perf_counter() - t_start:.1f} s")
+    for k, v in resflow_train_main_path(dev, counters, launches_of, smi, rf, errs).items():
+        launches[k] += v
+    print(f"phase 9 (timing) starts at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. timing and bounds
     kernels = []

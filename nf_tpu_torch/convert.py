@@ -21,8 +21,10 @@ matching parameters and buffers.  Layout differences handled here:
 * ``GatedLinear`` and ``GatedConv2d`` nest their dense or conv layer (no
   weight norm) under ``"op"``.  ``GatedAttn`` keeps ``nf_tpu``'s
   ``(in, out)`` layout for its raw projections, so they copy as they are.
-* ``SpectralNormDense`` keeps ``nf_tpu``'s ``(in, out)`` ``w_bar``; its
-  power-iteration vectors ``u`` / ``v`` are state there and buffers here.
+* ``SpectralNormDense`` keeps ``nf_tpu``'s ``(in, out)`` ``w_bar`` and
+  ``SpectralNormConv2d`` its HWIO ``w_bar``; their power-iteration vectors
+  ``u`` / ``v`` (NHWC featuremaps for a conv with ``spatial``, vectors
+  otherwise) are state there and buffers here, all copied as they are.
   ``InvertibleResBlock`` nests its g-net under ``"g"`` in both trees.
 * ``MADE`` keeps lists ``w`` / ``u`` / ``b`` / ``bn`` and its masks in
   state, ``(in, out)`` there and ``(out, in)`` here (both transposed);
@@ -59,7 +61,7 @@ from .nets.conditioners import ResBlockLinear
 from .nets.core import Activation, Sequential
 from .nets.gated import GatedAttn, GatedConv2d, GatedLinear, LayerNormNet
 from .nets.layers import BatchNormNet, Conv2d, Dense
-from .nets.spectral import LipSwish, SpectralNormDense
+from .nets.spectral import LipSwish, SpectralNormConv2d, SpectralNormDense
 
 
 def _copy(dst: torch.Tensor, src, name: str, transpose=False) -> None:
@@ -174,7 +176,7 @@ def _load(module, params, state, path: str) -> None:
         _load(module.net, params["net"], state["net"], f"{path}.net")
         for k in ("a_log_scale", "a_bias"):
             _copy(getattr(module, k), params[k], f"{path}.{k}")
-    elif isinstance(module, SpectralNormDense):
+    elif isinstance(module, (SpectralNormDense, SpectralNormConv2d)):
         for k in ("w_bar", "b"):
             _copy(getattr(module, k), params[k], f"{path}.{k}")
         for k in ("u", "v"):

@@ -15,9 +15,10 @@ pass, run by ``FlowModel.data_dependent_init`` in train mode.
 where a layer draws noise (``takes_generator``: MAF's ``resample_masks``,
 FFJORD's Hutchinson probes, variational dequantization) and to ``inverse``
 where a layer draws noise while it samples (``inverse_takes_generator``:
-FFJORD), and ResFlow's log-det probes a ``probes`` argument
-(``takes_probes``); ``call_forward`` / ``call_inverse`` hand each layer
-what it takes.  ``dd_init`` takes the data-dependent init's generator.
+FFJORD), and ResFlow's log-det probes a ``probes`` argument of both
+directions (``takes_probes``); ``call_forward`` / ``call_inverse`` hand
+each layer what it takes.  ``dd_init`` takes the data-dependent init's
+generator.
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ def init_children(module: nn.Module, generator: torch.Generator) -> None:
 
 class Bijector(nn.Module):
     """Base class: subclasses implement ``forward`` and ``inverse``.
-    ``takes_probes``: ``forward`` takes ResFlow's log-det probes
-    (``ops/estimators.py``'s (V, n_terms)) as ``probes``;
+    ``takes_probes``: ``forward`` and ``inverse`` take ResFlow's log-det
+    probes (``ops/estimators.py``'s (V, n_terms)) as ``probes``;
     ``takes_generator``: ``forward`` takes the training step's
     ``torch.Generator`` as ``generator`` (None: the layer's own default);
     ``inverse_takes_generator``: ``inverse`` takes one too."""
@@ -83,20 +84,23 @@ def call_forward(layer: Bijector, x: torch.Tensor, probes=None,
 
 
 def call_inverse(layer: Bijector, y: torch.Tensor,
-                 generator: Optional[torch.Generator] = None):
-    """``layer.inverse(y)`` with the generator if it takes one."""
+                 generator: Optional[torch.Generator] = None, probes=None):
+    """``layer.inverse(y)`` with the probes and the generator it takes."""
+    kw = {}
+    if layer.takes_probes:
+        kw["probes"] = probes
     if layer.inverse_takes_generator:
-        return layer.inverse(y, generator=generator)
-    return layer.inverse(y)
+        kw["generator"] = generator
+    return layer.inverse(y, **kw)
 
 
 class Chain(Bijector):
     """Sequential composition: forward in order, inverse reversed, per-layer
-    logdets summed starting from zeros.  ``forward``'s ``probes`` go to
-    every layer that takes them (one probe set for every block: ResFlow's
-    serving semantics), and its ``generator`` (both directions, and
-    ``dd_init``) to every layer that takes one, each drawing from it in
-    turn."""
+    logdets summed starting from zeros.  The ``probes`` of either
+    direction go to every layer that takes them (one probe set for every
+    block: ResFlow's serving semantics), and the ``generator`` (both
+    directions, and ``dd_init``) to every layer that takes one, each
+    drawing from it in turn."""
 
     takes_probes = True
     takes_generator = True
@@ -113,10 +117,10 @@ class Chain(Bijector):
             logdet = logdet + ld
         return x, logdet
 
-    def inverse(self, y, generator=None):
+    def inverse(self, y, generator=None, probes=None):
         logdet = torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
         for layer in reversed(self.layers):
-            y, ld = call_inverse(layer, y, generator)
+            y, ld = call_inverse(layer, y, generator, probes)
             logdet = logdet + ld
         return y, logdet
 

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..bijectors.iresblock import InvertibleResBlock
 from ..core.bijector import Bijector, call_forward, call_inverse
 from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
                                      fused_flowpp, pack_flowpp)
@@ -142,7 +143,9 @@ class EvalProgram:
     sizes, or the ``probes`` given); with any
     other estimator the forward is the chain, and the inverse is the solve
     kernel followed by one chain forward at the solved x, negated, as
-    ``nf_tpu`` serves it."""
+    ``nf_tpu`` serves it.  A ResFlow chain that matches no kernel (the
+    image branch) runs eagerly, both directions handed the same probe
+    sets, of the data's shape."""
 
     def __init__(self, model: FlowModel, probes: Optional[Probes] = None):
         self.model = model.eval()
@@ -165,8 +168,17 @@ class EvalProgram:
             return
         spec = extract_resflow_spec(bij, model.dims)
         if spec is None:
-            self._fwd = bij
-            self._inv = bij.inverse
+            estimators = {m.estimator for m in bij.modules()
+                          if isinstance(m, InvertibleResBlock)}
+            if not estimators:
+                self._fwd = bij
+                self._inv = bij.inverse
+                return
+            if len(estimators) > 1:
+                raise ValueError(f"one log-det estimator per program, got {estimators}")
+            (self.estimator,) = estimators
+            self._fwd = lambda x: bij(x, self._probes(x))
+            self._inv = lambda z: bij.inverse(z, probes=self._probes(z))
             return
         self.stack = PackedResFlow(spec, pack_resflow(bij, spec))
         self.estimator = spec.estimator
@@ -178,23 +190,29 @@ class EvalProgram:
             self._inv = self._solve_and_replay
 
     def _probes(self, x) -> Optional[Probes]:
-        """The ResFlow estimator's probes for the batch x: the given set,
-        or the serving set of x's batch size: a seeded draw, so one drawn
-        again after its eviction is the same set."""
+        """The ResFlow estimator's probes for the batch x, of x's shape
+        (S, *x.shape): the given set, or the serving set of x's batch size:
+        a seeded draw, so one drawn again after its eviction is the same
+        set."""
         B = x.shape[0]
         if self.probes is not None:
             if self.probes[0].shape[1] != B:
                 raise ValueError(f"the program's probes are for a batch of "
                                  f"{self.probes[0].shape[1]}, got {B}")
-            return self.probes
-        sets = self._probe_sets
-        if B in sets:
-            sets.move_to_end(B)
+            probes = self.probes
         else:
-            sets[B] = eval_probes(self.estimator, B, x[0].numel(), self.device)
-            if len(sets) > PROBE_SETS_KEPT:
-                sets.popitem(last=False)
-        return sets[B]
+            sets = self._probe_sets
+            if B in sets:
+                sets.move_to_end(B)
+            else:
+                sets[B] = eval_probes(self.estimator, B, x[0].numel(), self.device)
+                if len(sets) > PROBE_SETS_KEPT:
+                    sets.popitem(last=False)
+            probes = sets[B]
+        if probes is None:          # the 'exact' estimator draws none
+            return None
+        V, n_terms = probes
+        return V.reshape((V.shape[0],) + tuple(x.shape)), n_terms
 
     def _solve_and_replay(self, z):
         x = fused_resflow(self.stack, z, "solve")

@@ -20,7 +20,6 @@ from torch import nn
 from .core import Net
 
 _WN_EPS = 1.0e-5
-_TRAINING = "training lands in a later slice"
 
 
 def _weight_normed(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

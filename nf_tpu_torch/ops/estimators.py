@@ -1,5 +1,6 @@
-"""Log-det estimators for residual maps f(x) = x + g(x), eval mode, and
-FFJORD's trace estimators (counterpart of ``nf_tpu/ops/estimators.py``).
+"""Log-det estimators for residual maps f(x) = x + g(x), ResFlow's
+memory-saved training gradient, and FFJORD's trace estimators
+(counterpart of ``nf_tpu/ops/estimators.py``).
 
 * ``logdet_exact``: log|det(I + J)| from D vector-Jacobian products per
   sample and ``slogdet``;
@@ -18,17 +19,25 @@ draw them from a caller's ``torch.Generator`` with ``nf_tpu``'s structure
 (4 probes; a series length per probe for 'unbias'), and ``eval_probes``
 is the serving set: ``nf_tpu``'s eval blocks all use ``PRNGKey(0)``, the
 port a generator seeded 0 on the data's device, so every block and every
-call at one batch size sees the same probes.
+call at one batch size sees the same probes.  The estimators take probes
+of the data's shape, (S, *x.shape); a (S, B, D) set is reshaped to it, so
+one draw serves NHWC images too.
+
+``iresblock_forward`` is the training forward of a residual block: one
+Russian-roulette value (``n_exact = 1``) and, for the gradient, the
+Neumann-series probe u = v sum_k (-J)^k weighted as the roulette, both
+formed without keeping a graph; ``draw_train_probes`` draws its two
+(series length, probe) pairs in ``nf_tpu``'s structure.
 
 ``trace_exact`` / ``trace_hutchinson`` (FFJORD's CNF) return the map's
 value with its trace; they take the Hutchinson probes as a tensor too.
-``iresblock_forward`` (ResFlow training) waits for its slice.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 # Cap for Russian-roulette series length: n_exact + Geom(p), G <= 32
 SERIES_CAP = 32
@@ -38,9 +47,14 @@ N_SAMPLES = 4
 N_POWER_SERIES = 8
 N_EXACT = 8
 P = 0.5
+# training: the value's roulette keeps one exact term (nf_tpu/ops/estimators.py
+# iresblock_forward), the Neumann series' draw is 1 + G as well
+TRAIN_N_EXACT = 1
 
-# (V (S, B, D), n_terms (S,) int CPU tensor or None)
+# (V (S, B, D) or (S, *x.shape), n_terms (S,) int CPU tensor or None)
 Probes = Tuple[torch.Tensor, Optional[torch.Tensor]]
+# ((n_val, v_val), (n_grad, v_grad)): series lengths and probes of x's shape
+TrainProbes = Tuple[Tuple[int, torch.Tensor], Tuple[int, torch.Tensor]]
 
 
 def geometric(u: torch.Tensor, p: float) -> torch.Tensor:
@@ -88,6 +102,23 @@ def eval_probes(estimator: str, B: int, D: int, device) -> Optional[Probes]:
     raise ValueError(f"unknown log-det estimator {estimator!r}")
 
 
+def draw_train_probes(x_shape, generator: torch.Generator) -> TrainProbes:
+    """The training draws of one residual block, in ``nf_tpu``'s structure:
+    the value series' length ``1 + G`` then its normal probe of x's shape,
+    then the Neumann series' pair the same way.  The lengths are read to
+    the host together (one synchronization)."""
+    def probe():
+        return torch.randn(tuple(x_shape), generator=generator, device=generator.device,
+                           dtype=torch.float32)
+
+    u_val = _uniform_tiny(generator)
+    v_val = probe()
+    u_grad = _uniform_tiny(generator)
+    v_grad = probe()
+    n_val, n_grad = (TRAIN_N_EXACT + geometric(torch.stack([u_val, u_grad]), P)).tolist()
+    return (n_val, v_val), (n_grad, v_grad)
+
+
 def _dot_per_sample(a, b):
     return (a.reshape(a.shape[0], -1) * b.reshape(b.shape[0], -1)).sum(dim=1)
 
@@ -105,10 +136,12 @@ def logdet_exact(g_fn: Callable, x: torch.Tensor) -> torch.Tensor:
 
 def logdet_fixed(g_fn: Callable, x: torch.Tensor, v: torch.Tensor,
                  n_power_series: int = 8) -> torch.Tensor:
-    """Truncated power series with the Hutchinson probes v (S, B, ...)."""
+    """Truncated power series with the Hutchinson probes v (S, *x.shape)
+    or (S, B, D)."""
     _, vjp = torch.func.vjp(g_fn, x)
     est = []
     for vs in v:
+        vs = vs.reshape(x.shape)
         w, acc = vs, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for k in range(1, n_power_series + 1):
             w = vjp(w)[0]
@@ -126,18 +159,88 @@ def roulette_coefficient(k: int, p: float, n_exact: int) -> float:
 
 def logdet_unbias(g_fn: Callable, x: torch.Tensor, v: torch.Tensor,
                   n_terms: Sequence[int], p: float = 0.5, n_exact: int = 1) -> torch.Tensor:
-    """Unbiased Russian-roulette series with probes v (S, B, ...) and series
-    lengths n_terms (S,); the terms past a probe's length count 0, as
-    ``nf_tpu``'s fixed-cap loop masks them."""
+    """Unbiased Russian-roulette series with probes v (S, *x.shape) or
+    (S, B, D) and series lengths n_terms (S,); the terms past a probe's
+    length count 0, as ``nf_tpu``'s fixed-cap loop masks them."""
     _, vjp = torch.func.vjp(g_fn, x)
     est = []
     for vs, nt in zip(v, [int(n) for n in n_terms]):
+        vs = vs.reshape(x.shape)
         w, acc = vs, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for k in range(1, nt + 1):
             w = vjp(w)[0]
             acc = acc + roulette_coefficient(k, p, n_exact) * _dot_per_sample(w, vs)
         est.append(acc)
     return torch.stack(est).mean(dim=0)
+
+
+def neumann_coefficient(k: int) -> float:
+    """(-1)^k / (1-p)^max(0, k - n_exact - 1) at training's p and n_exact:
+    the weight of v J^k in the Neumann probe (no 1/k, unlike the log-det's
+    terms)."""
+    sign = -1.0 if k % 2 == 1 else 1.0
+    return sign / (1.0 - P) ** max(0, k - TRAIN_N_EXACT - 1)
+
+
+class _MemorySavedResBlock(torch.autograd.Function):
+    """(g, logdet) of a residual block with ResFlow's memory-saved gradient.
+
+    forward: g(x), the roulette log-det over (n_val, v_val) and the Neumann
+    probe u over (n_grad, v_grad), every J^T product from one local graph
+    of g that is dropped on return: only x, u and v_grad are saved.
+    backward: the gradient, with respect to x and g's parameters, of
+    <g, dL/dg> + sum_b (dL/dlogdet_b u_b) . (J_b v_b), the second term a
+    double VJP: <(w u)^T J, v> with (w u)^T J formed under create_graph.
+    The log-det cotangent w weights each sample (``nf_tpu``'s per-sample
+    form, not the reference's uniform one)."""
+
+    @staticmethod
+    def forward(ctx, g_fn, draws, x, *params):
+        (n_val, v_val), (n_grad, v_grad) = draws
+        v_val = v_val.to(device=x.device, dtype=x.dtype).reshape(x.shape)
+        v_grad = v_grad.to(device=x.device, dtype=x.dtype).reshape(x.shape)
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_()
+            g = g_fn(xx)
+
+        def vjp(w):
+            return torch.autograd.grad(g, xx, w, retain_graph=True)[0]
+
+        w, logdet = v_val, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for k in range(1, int(n_val) + 1):
+            w = vjp(w)
+            logdet = logdet + roulette_coefficient(k, P, TRAIN_N_EXACT) * _dot_per_sample(w, v_val)
+        w, u = v_grad, v_grad
+        for k in range(1, int(n_grad) + 1):
+            w = vjp(w)
+            u = u + neumann_coefficient(k) * w
+        ctx.g_fn = g_fn
+        ctx.params = params
+        ctx.save_for_backward(x, u, v_grad)
+        return g.detach(), logdet
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dg, dlogdet):
+        x, u, v = ctx.saved_tensors
+        params = list(ctx.params)
+        wu = dlogdet.reshape((-1,) + (1,) * (u.dim() - 1)) * u
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_()
+            g = ctx.g_fn(xx)
+            wu_j = torch.autograd.grad(g, xx, wu, create_graph=True)[0]
+            grads = torch.autograd.grad([g, wu_j], [xx] + params, [dg, v], allow_unused=True)
+        return (None, None) + tuple(grads)
+
+
+def iresblock_forward(g_fn: Callable, params: Sequence[torch.Tensor], x: torch.Tensor,
+                      draws: TrainProbes):
+    """(g, logdet) for f(x) = x + g(x) in training, g = ``g_fn(x)`` a map
+    whose parameters are ``params``.  The value is one Russian-roulette
+    estimate (n_exact = 1, p = 0.5) over ``draws``' first pair; its
+    gradient the Neumann-series estimate over the second, with no series
+    graph kept (``_MemorySavedResBlock``)."""
+    return _MemorySavedResBlock.apply(g_fn, draws, x, *params)
 
 
 # --------------------------------------------------------------------- trace

@@ -63,10 +63,14 @@ def test_spectral_norm_init_warm_starts_sigma():
     sn = SpectralNormDense(5, 9, device="cpu")
     sn.init(torch.Generator().manual_seed(0))
     w = sn.w_bar.detach()
+    norm = float(torch.linalg.matrix_norm(w, ord=2))
     sigma = float(sn.u @ (w.T @ sn.v))
-    assert abs(sigma - float(torch.linalg.matrix_norm(w, ord=2))) < 1e-3
-    with pytest.raises(NotImplementedError):
-        sn.train()(torch.zeros(2, 5))
+    assert abs(sigma - norm) < 1e-3
+    # a train-mode forward runs one more power iteration on the warm pair
+    u = sn.u.clone()
+    sn.train()(torch.zeros(2, 5))
+    assert not torch.equal(sn.u, u)
+    assert abs(float(sn.u @ (w.T @ sn.v)) - norm) < 1e-3
 
 
 def test_lipswish():
@@ -275,8 +279,15 @@ def test_eval_program_exact_matches_nf_tpu_full_depth():
 
 
 def test_image_mode_not_in_this_slice():
+    """Image data without ``allow_image`` raises nf_tpu's message (the
+    branch itself: test_torch_resflow_image.py)."""
+    from nf_tpu.config import NetworkConfig as JNetworkConfig
+    from nf_tpu.models import build_model as jbuild_model
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError):
-        build_model("resflow", (8, 8, 1), "image", NetworkConfig(), device="cpu")
+    with pytest.raises(NotImplementedError) as jerr:
+        jbuild_model("resflow", (8, 8, 1), "image", JNetworkConfig(name="resflow"))
+    with pytest.raises(NotImplementedError, match="allow_image") as terr:
+        build_model("resflow", (8, 8, 1), "image", NetworkConfig(name="resflow"), device="cpu")
+    assert str(terr.value) == str(jerr.value)
