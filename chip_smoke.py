@@ -187,7 +187,30 @@ Phases, each of which exits non-zero when it fails:
      trips per block of an inverse, the series lengths the training drew
      and the serving probes', and a profiled step's (and image forward's)
      device idle share and longest kernels;
-  9. time each kernel (CUDA events over back-to-back launches, warm L2 as
+  9. nf_tpu's production image shape: realnvp-img32x1 and glow-img32x3
+     built as bench.py:239-243 builds them (scan=True, remat=True: each
+     32-coupling stage folded into 16 ScannedChain blocks, the last stage
+     16 blocks and a plain tail of one coupling), each: build_model ->
+     Trainer.init_state (161 coupling_fwd) -> the first step's gradients
+     and buffers on the same weights and batch against the unrolled,
+     non-rematted model (cuDNN deterministic: relative L2 within 1e-6,
+     the buffers equal, moved once) -> K = 4 Adam steps at B = 1024 (321
+     coupling_fwd and 161 coupling_bwd per step: every rematted coupling's
+     forward runs again in the backward, the tail's once) with their peak
+     memory -> eval_program -> log_prob / sample at B = 1024 (161
+     coupling_fwd / coupling_inv), the round trip within 1e-3 (nf_tpu's
+     own); then realnvp-img32x1 with compute_dtype="bfloat16" (scan +
+     remat) the same way, its first loss within 5e-2 (relative) of the
+     f32 model's on the same weights and batch, its trained log p on 16
+     samples within 1e-2 of the largest |log p| of the CPU port's bf16
+     path, and one forward with matmul_precision="bfloat16" against f32
+     (the largest difference printed, the precision set back to f32
+     after); then a checkpoint round trip: realnvp-img32x1 (scan + remat)
+     trains 2 steps and saves in nf_tpu's format, a fresh model loads the
+     file (its fingerprint the port's), and step 3 on both (cuDNN
+     deterministic) leaves the same parameters, buffers and Adam moments
+     within 1e-6 (bitwise printed);
+ 10. time each kernel (CUDA events over back-to-back launches, warm L2 as
      in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
      and by their profiler records; the coupling kernels by their own
      device time per launch, the mean over a profiler window's records,
@@ -207,7 +230,9 @@ Phases, each of which exits non-zero when it fails:
      solve launches the profiler kept); for each image
      tier eval_fwd_inv_samples_per_s = 1024 / (t_fwd + t_inv) and
      train_samples_per_s = K B / t_chunk
-     (bench.py:269, :327), each with its device idle share and the
+     (bench.py:269, :327) and the same for phase 9's three trainings
+     beside the unrolled tier's numbers of this run, each with its device
+     idle share and the
      coupling kernels' share of device time; for flowpp-img32x1
      eval_fwd_inv_samples_per_s with its device idle share and the
      attention kernels' share of device time (these from profiler
@@ -230,7 +255,7 @@ Phases, each of which exits non-zero when it fails:
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
      phase 3);
- 10. print {"ok": true, "device": {...}} as the last line.
+ 11. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -238,9 +263,11 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1163,7 +1190,8 @@ def device_breakdown(wall_us, kernels, records, launched, calls, mine=COUPLING_K
 
 def image_timing(img, smi, tc):
     """The image model's serving and training rates, idle shares, the
-    coupling kernels' share of device time and the longest kernels."""
+    coupling kernels' share of device time and the longest kernels;
+    prints its main_path line and returns it."""
     prog, trainer, x, z = img["prog"], img["trainer"], img["x"], img["z"]
     t_fwd = wall_ms(lambda: prog.forward(x), IMG_ITERS)
     t_inv = wall_ms(lambda: prog.inverse(z), IMG_ITERS)
@@ -1198,6 +1226,7 @@ def image_timing(img, smi, tc):
         "train_peak_memory_bytes": img["peak"], "losses": img["losses"],
         "round_trip": img["round_trip"], "cpu_parity": img["parity"], "card": smi}
     print(json.dumps({"main_path": line}))
+    return line
 
 
 def coupling_entries(tc, launches, errs, sfu_per_s, device, per_call):
@@ -2429,6 +2458,353 @@ def resflow_image_main_path(device, counters, launches_of, smi):
         "inverse_card_vs_cpu_max_abs": e_inv, "cpu_parity": parity, "card": smi}}))
 
 
+# ---- phase 9: nf_tpu's production image shape (bench.py:239-243 builds every
+# image tier with scan=True, remat=True): the image tiers folded into
+# ScannedChain blocks, each block rematerialized
+SCAN_FWD_PER_STEP = 2 * IMG_COUPLINGS - 1   # 321: the forward and the recompute of the
+SCAN_BWD_PER_STEP = IMG_COUPLINGS           # 160 rematted couplings, the tail's once
+SCAN_GRAD_REL = 1e-6     # remat and scan against the unrolled step, cuDNN deterministic
+ROUND_TRIP_ATOL = 1e-3   # nf_tpu's own (tests/test_zoo_image_optin.py:30), in float64
+ROUND_TRIP_FACTOR = 2.0  # the card's f32 round trip over the CPU's on the same samples
+ROUND_TRIP_SAMPLES = 16
+BF16_LOSS_REL = 5e-2     # the first bf16 loss against the f32 model's, of |loss|
+BF16_LOGP_REL = 1e-2     # bf16 log p, card vs CPU, of the largest |log p|
+BF16_PARITY = 16
+CKPT_ATOL = 1e-6         # step 3 after a save and load against step 3 run on
+
+
+class deterministic_cudnn:
+    """cuDNN's deterministic algorithms for the block."""
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.was
+
+
+def scan_config(network, **kw):
+    from nf_tpu_torch.config import NetworkConfig
+
+    return NetworkConfig(name=network, layers=32, scan=True, remat=True, **kw)
+
+
+def copy_state(model, state):
+    """``state`` (tensors in module order) into ``model``: an unrolled and a
+    scanned model hold the same layers in the same order."""
+    with torch.no_grad():
+        for dst, src in zip(model.state_dict().values(), state, strict=True):
+            dst.copy_(src)
+
+
+def one_step_grads(cfg, dims, state, batch, device):
+    """A fresh model of ``cfg`` on ``state``: one train-mode loss and
+    backward on ``batch`` (no update) under deterministic cuDNN; returns
+    (loss, the gradients flat, the buffers before and after it)."""
+    model = image_model(cfg, device, dims=dims)
+    copy_state(model, state)
+    before = [b.detach().clone() for b in model.buffers()]
+    model.train()
+    with deterministic_cudnn():
+        loss = -model.log_prob(batch).mean()
+        loss.backward()
+    grads = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    buffers = [b.detach().clone() for b in model.buffers()]
+    loss = float(loss.detach())
+    del model
+    torch.cuda.empty_cache()
+    return loss, grads, before, buffers
+
+
+def remat_grad_check(tier, cfg, state, batch, device):
+    """The first step's gradients and buffers of the scan + remat model
+    against the unrolled, non-rematted model on the same weights and
+    batch: the same kernels on the same inputs (cuDNN deterministic), so
+    the gradients agree within SCAN_GRAD_REL and the batch-norm running
+    statistics and ActNorm state move once, as the unrolled step moves
+    them."""
+    from nf_tpu_torch.config import NetworkConfig
+
+    label = tier["label"]
+    plain = NetworkConfig(name=tier["network"], layers=32)
+    ref_loss, ref, _, ref_bufs = one_step_grads(plain, tier["dims"], state, batch, device)
+    loss, got, before, bufs = one_step_grads(cfg, tier["dims"], state, batch, device)
+    rel = float((got - ref).norm() / ref.norm())
+    buf_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(bufs, ref_bufs))
+    moved = sum(not torch.equal(a, b) for a, b in zip(bufs, before))
+    out = {"grad_rel_l2": rel, "grad_max_abs_diff": float((got - ref).abs().max()),
+           "grads_bitwise": bool(torch.equal(got, ref)), "buffers_max_abs_diff": buf_diff,
+           "buffers_moved": moved, "buffers": len(bufs), "loss": loss,
+           "unrolled_loss": ref_loss}
+    print(f"{label} scan+remat vs unrolled, first step on the same weights and batch "
+          f"(cuDNN deterministic): gradients relative L2 {rel:.3e} (bitwise "
+          f"{out['grads_bitwise']}), buffers max|d| {buf_diff:.3e} ({moved} of {len(bufs)} "
+          f"moved by the step), loss {loss:.6f} vs {ref_loss:.6f}")
+    check(rel <= SCAN_GRAD_REL, f"{label}: scan+remat gradients differ from the unrolled step")
+    check(buf_diff == 0.0 and moved > 0,
+          f"{label}: scan+remat buffers do not move as the unrolled step moves them")
+    return out
+
+
+def scan_remat_main_path(tier, device, counters, launches_of, cfg_kw=None, tag="scan+remat",
+                         grad_check=True):
+    """One image tier built as bench.py builds it (scan=True, remat=True)
+    through Trainer and EvalProgram, each call's launches counted: 161
+    coupling_fwd per init_state and per forward, 321 coupling_fwd and 161
+    coupling_bwd per Adam step, 161 coupling_inv per inverse.  Returns
+    what the timing phase needs."""
+    from nf_tpu_torch.bijectors.coupling import AffineCoupling
+    from nf_tpu_torch.config import OptimizerConfig
+    from nf_tpu_torch.train import Trainer
+
+    label, dims = f"{tier['label']} {tag}", tier["dims"]
+    cfg = scan_config(tier["network"], **(cfg_kw or {}))
+    model = image_model(cfg, None, dims=dims)
+    n_couplings = sum(isinstance(m, AffineCoupling) for m in model.modules())
+    n_params = sum(p.numel() for p in model.parameters())
+    blocks = sum(type(m).__name__ == "ScannedChain" for m in model.modules())
+    print(f"{label}: {n_couplings} couplings, {n_params} parameters, {blocks} scanned stages")
+    check(model.device.type == "cuda", "build_model did not default to the card")
+    check((n_couplings, n_params) == (IMG_COUPLINGS, tier["params"]),
+          f"{label} has {n_couplings} couplings and {n_params} parameters")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def pixels(*shape):   # as bench.py:248-259 makes its batches
+        return 0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)
+
+    batch0 = pixels(IMG_BATCH, *dims)
+    chunk = pixels(IMG_TRAIN_CHUNK, IMG_BATCH, *dims)
+    x = pixels(IMG_BATCH, *dims)
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    n, K = IMG_COUPLINGS, IMG_TRAIN_CHUNK
+
+    def counted(what, fn, want):
+        return counted_call(f"{label} {what}", fn, want, counters, launches_of, totals)
+
+    ts = counted("init_state", lambda: trainer.init_state(batch0), {"coupling_fwd": n})
+    state = [t.detach().clone() for t in model.state_dict().values()]
+    grads = (remat_grad_check(tier, cfg, state, chunk[0], device) if grad_check else None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()      # counted_call ends in a synchronize
+    ts, losses = counted(f"train_steps K={K}", lambda: trainer.train_steps(ts, chunk),
+                         {"coupling_fwd": K * SCAN_FWD_PER_STEP,
+                          "coupling_bwd": K * SCAN_BWD_PER_STEP})
+    t_chunk = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.tolist()
+    print(f"{label} losses {losses}; train peak memory {peak / 2**30:.2f} GiB")
+    check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss")
+    prog = model.eval_program()
+    check(prog.stack is None, f"{label}: an image model matched a fused stack")
+    log_px = counted("log_prob", lambda: prog.log_prob(x), {"coupling_fwd": n})
+    y_s, log_py = counted("sample", lambda: prog.sample(IMG_BATCH, gen), {"coupling_inv": n})
+    for t, what in ((log_px, "log_prob"), (y_s, "sample"), (log_py, "sample log p")):
+        check(bool(torch.isfinite(t).all()), f"{label} {what}: non-finite values")
+    z, ld = prog.forward(x)
+    xr, ldi = prog.inverse(z)
+    round_trip = {"max": float((xr - x).abs().max()), "ld_max": max_diff(ld, -ldi),
+                  "ld_max_abs": float(ld.abs().max())}
+    print(f"{label} round trip: max|x - inv(fwd(x))|={round_trip['max']:.3e} "
+          f"max|ld_fwd + ld_inv|={round_trip['ld_max']:.3e}")
+    round_trip.update(cpu_round_trip(label, model, cfg, dims, x, xr))
+    return dict(tier=tier, label=label, model=model, prog=prog, trainer=trainer, ts=ts,
+                chunk=chunk, x=x, z=z, totals=totals, losses=losses, peak=peak,
+                t_chunk=t_chunk, round_trip=round_trip, parity=grads, n_params=n_params,
+                state=state, cfg=cfg)
+
+
+def scan_timing(img, unrolled, smi, tc):
+    """A phase 9 training's rates beside the unrolled tier's of this run:
+    ms per Adam step from the main path's K = 4 steps (timed there, after
+    init_state warmed the forward), one more call per direction (the main
+    path warmed both), and one profiled step's device idle share (CUDA
+    activity alone); prints its main_path line."""
+    prog, trainer, x, z = img["prog"], img["trainer"], img["x"], img["z"]
+    t_fwd = wall_ms(lambda: prog.forward(x), 1, warmup=0)
+    t_inv = wall_ms(lambda: prog.inverse(z), 1, warmup=0)
+    step = device_breakdown(*profile_window(
+        lambda: trainer.train_step(img["ts"], img["chunk"][0]), 1, (tc,), warmup=False,
+        cpu=False), 1)
+    K, B = IMG_TRAIN_CHUNK, IMG_BATCH
+    tier = img["tier"]
+    line = {
+        "model": f"{img['label']}: {'x'.join(map(str, tier['dims']))} image, "
+                 f"{IMG_COUPLINGS} couplings, base_filters=32, {img['n_params']} parameters, "
+                 f"scan=True, remat=True (bench.py:239-243)",
+        "batch": B, "train_chunk": K,
+        "eval_program_forward_ms": t_fwd, "eval_program_inverse_ms": t_inv,
+        "eval_fwd_inv_samples_per_s": B / ((t_fwd + t_inv) / 1e3),
+        "train_chunk_ms": img["t_chunk"], "train_step_ms": img["t_chunk"] / K,
+        "train_samples_per_s": K * B / (img["t_chunk"] / 1e3),
+        "train_profile_step": step, "train_peak_memory_bytes": img["peak"],
+        "losses": img["losses"], "round_trip": img["round_trip"],
+        ("bf16_checks" if "bf16" in img["label"] else "remat_grad_check"): img["parity"],
+        "unrolled_this_run": {k: unrolled[k] for k in (
+            "train_step_ms", "train_samples_per_s", "train_peak_memory_bytes",
+            "eval_program_forward_ms", "eval_program_inverse_ms",
+            "eval_fwd_inv_samples_per_s")} | {
+            "train_device_idle_share": unrolled["train_profile_step"]["device_idle_share"]},
+        "card": smi}
+    print(json.dumps({"main_path": line}))
+
+
+def cpu_round_trip(label, model, cfg, dims, x, xr):
+    """The round trip x -> z -> x of the trained state on ROUND_TRIP_SAMPLES
+    samples on the CPU in f32 and float64: float64 within ROUND_TRIP_ATOL
+    (the model is invertible; at full depth f32 rounding, amplified
+    through the 161 inverses, dominates the f32 round trip), and the
+    card's f32 round trip on the same samples within ROUND_TRIP_FACTOR of
+    the CPU's f32 one or within ROUND_TRIP_ATOL."""
+    n = ROUND_TRIP_SAMPLES
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = {"card_f32_samples": float((xr[:n] - x[:n]).abs().max())}
+    for name, dtype in (("cpu_f32", torch.float32), ("cpu_f64", torch.float64)):
+        cpu = image_model(cfg, "cpu", state, dims).to(dtype).eval()
+        xs = x[:n].cpu().to(dtype)
+        with torch.no_grad():
+            z, _ = cpu(xs)
+            out[name] = float((cpu.inverse(z)[0] - xs).abs().max())
+    print(f"{label} round trip on {n} samples: card f32 {out['card_f32_samples']:.3e}, CPU f32 "
+          f"{out['cpu_f32']:.3e}, CPU float64 {out['cpu_f64']:.3e}")
+    check(out["cpu_f64"] <= ROUND_TRIP_ATOL, f"{label}: float64 round trip")
+    check(out["card_f32_samples"] <= max(ROUND_TRIP_FACTOR * out["cpu_f32"], ROUND_TRIP_ATOL),
+          f"{label}: the card's round trip is less accurate than the CPU's")
+    return out
+
+
+def bf16_checks(img, device):
+    """realnvp-img32x1 with compute_dtype="bfloat16": the first step's loss
+    against the f32 model's on the same weights and batch (BF16_LOSS_REL),
+    the trained state's log p on BF16_PARITY samples against the CPU
+    port's bf16 path (BF16_LOGP_REL of the largest |log p|), then one
+    forward with matmul_precision="bfloat16" against f32 on the init
+    weights (the largest difference printed)."""
+    from nf_tpu_torch.ops.precision import set_matmul_precision
+
+    tier, label, x = img["tier"], img["label"], img["x"]
+    f32_cfg = scan_config(tier["network"])
+    f32 = image_model(f32_cfg, device, dims=tier["dims"])
+    copy_state(f32, img["state"])
+    f32.train()
+    with torch.no_grad():
+        loss32 = float(-f32.log_prob(img["chunk"][0]).mean())
+    loss_rel = abs(img["losses"][0] - loss32) / abs(loss32)
+    print(f"{label}: first loss {img['losses'][0]:.6f} against the f32 model's {loss32:.6f} "
+          f"(relative {loss_rel:.3e})")
+    check(loss_rel <= BF16_LOSS_REL, f"{label}: bf16 loss far from f32")
+    n = BF16_PARITY
+    card = img["prog"].log_prob(x[:n]).double().cpu()
+    cpu = image_model(img["cfg"], "cpu", {k: v.cpu() for k, v in img["model"].state_dict().items()},
+                      dims=tier["dims"])
+    t0 = time.perf_counter()
+    lp_cpu = cpu.eval_program().log_prob(x[:n].cpu()).double()
+    diff, top = max_diff(card, lp_cpu), float(lp_cpu.abs().max())
+    print(f"{label} card vs CPU bf16, {n} samples: max|dlog p|={diff:.3e} (max|log p|={top:.1f};"
+          f" {time.perf_counter() - t0:.1f} s on the CPU)")
+    check(diff <= BF16_LOGP_REL * top, f"{label}: bf16 log p on the card disagrees with the CPU")
+    # matmul_precision="bfloat16": the f32 model's products on bf16 operands
+    f32.eval()
+    copy_state(f32, img["state"])
+    with torch.no_grad():
+        z32, ld32 = f32(x)
+    mp = image_model(scan_config(tier["network"], matmul_precision="bfloat16"), device,
+                     dims=tier["dims"])
+    try:
+        copy_state(mp, img["state"])
+        with torch.no_grad():
+            zb, ldb = mp.eval()(x)
+    finally:
+        set_matmul_precision(None)
+    matmul = {"z_max_abs_diff": max_diff(zb, z32), "logdet_max_abs_diff": max_diff(ldb, ld32),
+              "logdet_max_abs": float(ld32.abs().max())}
+    print(f"realnvp-img32x1 matmul_precision=bfloat16 forward against f32 (init weights, "
+          f"B={IMG_BATCH}): max|dz|={matmul['z_max_abs_diff']:.3e} max|dlogdet|="
+          f"{matmul['logdet_max_abs_diff']:.3e} (max|logdet|={matmul['logdet_max_abs']:.1f})")
+    check(bool(torch.isfinite(zb).all() and torch.isfinite(ldb).all()),
+          "matmul_precision=bfloat16: non-finite forward")
+    check(matmul["z_max_abs_diff"] > 0.0, "matmul_precision=bfloat16 changed nothing")
+    del f32, mp, cpu
+    torch.cuda.empty_cache()
+    return {"first_loss_f32": loss32, "first_loss_rel_diff": loss_rel,
+            "cpu_bf16_logp_max_abs_diff": diff, "cpu_bf16_logp_max_abs": top,
+            "matmul_precision_bf16": matmul}
+
+
+def checkpoint_round_trip(tier, device):
+    """realnvp-img32x1 (scan + remat) trains 2 steps and saves; a fresh
+    model loads the file; step 3 on both (cuDNN deterministic) leaves the
+    same parameters, buffers and optimizer state (CKPT_ATOL; bitwise
+    printed), and the file's fingerprint is the one the port computes."""
+    from nf_tpu_torch.config import OptimizerConfig
+    from nf_tpu_torch.train import Trainer, load_checkpoint, save_checkpoint
+    from nf_tpu_torch.train.checkpoint import structure_fingerprint, train_state_tree
+
+    cfg = scan_config(tier["network"])
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    batches = 0.05 + 0.9 * torch.rand((4, IMG_BATCH) + tier["dims"], generator=gen,
+                                      device=device)
+    model = image_model(cfg, device, dims=tier["dims"])
+    trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+    ts = trainer.init_state(batches[0])
+    ts, _ = trainer.train_steps(ts, batches[1:3])
+    fresh = image_model(cfg, device, dims=tier["dims"])
+    ftrainer = Trainer(fresh, OptimizerConfig(), seed=SEED + 1)
+    fts = ftrainer.init_state()
+    with tempfile.TemporaryDirectory() as folder:
+        path = f"{folder}/realnvp-img32x1.npz"
+        t0 = time.perf_counter()
+        save_checkpoint(path, model, ts)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = load_checkpoint(path, fresh, fts)
+        t_load = time.perf_counter() - t0
+        with np.load(path) as data:
+            saved = json.loads(str(data["__structure__"]))
+            n_leaves = len(data.files) - 2
+        size = os.path.getsize(path)
+    check(step == 2 and fts.step == 2, f"checkpoint: resumed at step {step}")
+    check(saved == structure_fingerprint(train_state_tree(fresh, fts)),
+          "checkpoint: the file's fingerprint is not the port's")
+    with deterministic_cudnn():
+        ts, loss_a = trainer.train_step(ts, batches[3])
+        fts, loss_b = ftrainer.train_step(fts, batches[3])
+    pairs = list(zip(model.state_dict().values(), fresh.state_dict().values()))
+    pairs += [(ts.optimizer.state[p][k], fts.optimizer.state[q][k])
+              for p, q in zip(model.parameters(), fresh.parameters())
+              for k in ("exp_avg", "exp_avg_sq")]
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs) and torch.equal(loss_a, loss_b)
+    out = {"leaves": n_leaves, "file_bytes": size, "save_s": t_save, "load_s": t_load,
+           "step3_max_abs_diff": diff, "step3_bitwise": bitwise,
+           "loss3": [float(loss_a), float(loss_b)]}
+    print(f"checkpoint round trip, realnvp-img32x1 scan+remat: {n_leaves} leaves, {size} bytes, "
+          f"save {t_save:.2f} s, load {t_load:.2f} s; step 3 after the load against step 3 run "
+          f"on (cuDNN deterministic): max|d| {diff:.3e}, bitwise {bitwise}")
+    check(diff <= CKPT_ATOL, "checkpoint: step 3 after a load differs")
+    del model, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def production_shape_phase(device, counters, launches_of):
+    """Phase 9: realnvp-img32x1 and glow-img32x3 with scan=True, remat=True,
+    realnvp-img32x1 in bf16, and a checkpoint round trip.  Returns the
+    tiers for the timing phase and the coupling launches counted."""
+    t0 = time.perf_counter()
+    imgs = [scan_remat_main_path(tier, device, counters, launches_of) for tier in IMAGE_TIERS]
+    bf16 = scan_remat_main_path(IMAGE_TIERS[0], device, counters, launches_of,
+                                cfg_kw=dict(compute_dtype="bfloat16"),
+                                tag="scan+remat bf16", grad_check=False)
+    bf16["parity"] = bf16_checks(bf16, device)
+    imgs.append(bf16)
+    ckpt = checkpoint_round_trip(IMAGE_TIERS[0], device)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    totals = {k: sum(img["totals"][k] for img in imgs) for k in KERNEL_SOURCES}
+    return imgs, ckpt, totals
+
+
 def reset_all(modules):
     for m in modules:
         m.reset_launches()
@@ -2671,9 +3047,15 @@ def main():
     print(f"phase 8 (ResFlow training) starts at {time.perf_counter() - t_start:.1f} s")
     for k, v in resflow_train_main_path(dev, counters, launches_of, smi, rf, errs).items():
         launches[k] += v
-    print(f"phase 9 (timing) starts at {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 9 (scan + remat, bf16, checkpoints) starts at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    scanned, ckpt, totals = production_shape_phase(dev, counters, launches_of)
+    for k, v in totals.items():
+        if v:
+            launches[k] += v
+    print(f"phase 10 (timing) starts at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 6. timing and bounds
+    # ---- 10. timing and bounds
     kernels = []
     for model_name, (prog, x, gen) in programs.items():
         stack = prog.stack
@@ -2779,8 +3161,10 @@ def main():
             "calls": EAGER_ITERS, "fwd_inv_samples_per_s": BATCH / ((t_fwd + t_inv) / 1e3),
             "card": smi}}))
     t_img = time.perf_counter()
-    for img in images:
-        image_timing(img, smi, tc)
+    unrolled = {img["tier"]["label"]: image_timing(img, smi, tc) for img in images}
+    for img in scanned:
+        scan_timing(img, unrolled[img["tier"]["label"]], smi, tc)
+    print(json.dumps({"checkpoint": {**ckpt, "card": smi}}))
     kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev, coupling_per_call)
     print(f"image timing took {time.perf_counter() - t_img:.1f} s")
     t_img = time.perf_counter()

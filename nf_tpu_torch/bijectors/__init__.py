@@ -1,7 +1,7 @@
 from .cnf import CNF, ODENet  # noqa: F401
 from .conv1x1 import InvertibleConv1x1  # noqa: F401
-from .coupling import AffineCoupling, merge1d, split1d  # noqa: F401
-from .elementwise import Logit  # noqa: F401
+from .coupling import AdditiveCoupling, AffineCoupling, merge1d, split1d  # noqa: F401
+from .elementwise import Arctanh, Identity, Logit, Sigmoid, Tanh  # noqa: F401
 from .flowpp_coupling import MixLogAttnCoupling  # noqa: F401
 from .made import MADE, AutoregressiveTransform  # noqa: F401
 from .norm import ActNorm, BatchNorm  # noqa: F401

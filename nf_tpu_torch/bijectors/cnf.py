@@ -33,6 +33,7 @@ from torch import nn
 
 from ..core.bijector import Bijector
 from ..nets.layers import uniform
+from ..ops import precision as pm
 from ..ops.estimators import trace_exact, trace_hutchinson
 from ..ops.odeint import SolveStats, check_solver, odeint, odeint_adjoint
 
@@ -82,9 +83,9 @@ class ODENet(nn.Module):
             tt = torch.full(h.shape[:-1] + (1,), t, dtype=h.dtype, device=h.device)
             h_in = torch.cat([tt, h], dim=-1)
             if self.is_image:
-                h = F.conv2d(h_in.permute(0, 3, 1, 2), ws[i], padding="same").permute(0, 2, 3, 1)
+                h = pm.conv2d(h_in.permute(0, 3, 1, 2), ws[i], padding="same").permute(0, 2, 3, 1)
             else:
-                h = h_in @ ws[i]
+                h = pm.matmul(h_in, ws[i])
             h = h + bs[i]
             if i != n - 1:
                 h = F.softplus(h)

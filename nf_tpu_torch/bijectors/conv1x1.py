@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..core.bijector import Bijector
+from ..ops import precision as pm
 from .norm import _num_pixels
 
 
@@ -69,11 +70,11 @@ class InvertibleConv1x1(Bijector):
         return (sign * self.log_s.sum() * _num_pixels(x)).expand(x.shape[0])
 
     def forward(self, x):
-        return x @ self.weight().T, self._logdet(x, 1.0)
+        return pm.matmul(x, self.weight().T), self._logdet(x, 1.0)
 
     def inverse(self, y):
         P, L, U = self.factors()
         eye = torch.eye(self.num_channels, dtype=L.dtype, device=L.device)
         l_inv = torch.linalg.solve_triangular(L, eye, upper=False, unitriangular=True)
         u_inv = torch.linalg.solve_triangular(U, eye, upper=True)
-        return y @ (u_inv @ l_inv @ P.T).T, self._logdet(y, -1.0)
+        return pm.matmul(y, (u_inv @ l_inv @ P.T).T), self._logdet(y, -1.0)

@@ -1,4 +1,6 @@
-"""Affine coupling (counterpart of ``nf_tpu/bijectors/coupling.py``).
+"""Additive and affine coupling (counterpart of
+``nf_tpu/bijectors/coupling.py``).  ``AdditiveCoupling`` (NICE):
+``z0' = z0 + t(z1)``, volume preserving.
 
 ``s = tanh(raw_s) * s_log_scale + s_bias`` with a learned scalar gain and
 bias; forward ``z0' = z0 * exp(s) + t``, logdet ``sum(s)``.  The split
@@ -13,6 +15,10 @@ The transform goes through ``ops/cuda/coupling.py``'s dispatchers on the
 flattened halves: a half a multiple of 128 wide (every image coupling of
 the zoo) runs the CUDA kernels on the card, with the analytic backward;
 narrower halves (2-D density) take the plain math, as in ``nf_tpu``.
+
+``compute_dtype="bfloat16"`` runs the conditioner in bf16; its output is
+cast back to f32 before the flow math, so the transform, its log-det and
+the kernels stay f32.
 """
 from __future__ import annotations
 
@@ -87,15 +93,39 @@ def _flat2d(x):
     return x.reshape(x.shape[0], -1)
 
 
+def _conditioner(coupling, out_mult: int, base_filters: int, device, compute_dtype):
+    """The net mapping z1 to ``out_mult`` x z0's channels: an MLP for 1-D
+    data, a ConvNet for images."""
+    coupling.out_chs, in_chs = coupling.half_dims()
+    net = MLP if len(coupling.dims) == 1 else ConvNet
+    return net(in_chs, out_mult * coupling.out_chs, base_filters=base_filters, device=device,
+               compute_dtype=compute_dtype)
+
+
+class AdditiveCoupling(_CouplingBase):
+    """z0' = z0 + t(z1); log-det 0."""
+
+    def __init__(self, dims, masking="checkerboard", odd=False,
+                 base_filters=32, device=None, compute_dtype=None):
+        super().__init__(dims, masking, odd)
+        self.net = _conditioner(self, 1, base_filters, device, compute_dtype)
+
+    def _transform(self, z0, z1):
+        t = self.net(z1).to(torch.float32)
+        return z0 + t, torch.zeros(z0.shape[0], dtype=torch.float32, device=z0.device)
+
+    def _inverse_transform(self, y0, y1):
+        t = self.net(y1).to(torch.float32)
+        return y0 - t, torch.zeros(y0.shape[0], dtype=torch.float32, device=y0.device)
+
+
 class AffineCoupling(_CouplingBase):
     """z0' = z0 * exp(s) + t, with s = tanh(raw_s) * s_log_scale + s_bias."""
 
     def __init__(self, dims, masking="checkerboard", odd=False,
-                 base_filters=32, device=None):
+                 base_filters=32, device=None, compute_dtype=None):
         super().__init__(dims, masking, odd)
-        self.out_chs, in_chs = self.half_dims()
-        net = MLP if len(self.dims) == 1 else ConvNet
-        self.net = net(in_chs, 2 * self.out_chs, base_filters=base_filters, device=device)
+        self.net = _conditioner(self, 2, base_filters, device, compute_dtype)
         kw = dict(device=device, dtype=torch.float32)
         self.s_log_scale = nn.Parameter(torch.zeros(1, **kw))
         self.s_bias = nn.Parameter(torch.zeros(1, **kw))
@@ -108,7 +138,7 @@ class AffineCoupling(_CouplingBase):
             p.copy_(z * 0.01)
 
     def _shift_raw(self, z1):
-        raw = self.net(z1)
+        raw = self.net(z1).to(torch.float32)
         return _flat2d(raw[..., :self.out_chs]), _flat2d(raw[..., self.out_chs:])
 
     def _transform(self, z0, z1):

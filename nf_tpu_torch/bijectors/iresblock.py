@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from ..core.bijector import Bijector
+from ..core.bijector import Bijector, replaying
 from ..nets.core import Sequential
 from ..nets.spectral import LipSwish, SpectralNormConv2d, SpectralNormDense
 from ..ops import estimators as est
@@ -78,8 +78,9 @@ class InvertibleResBlock(Bijector):
         return est.logdet_unbias(self._g_eval, x, v, n_terms, p=est.P, n_exact=est.N_EXACT)
 
     def _train_forward(self, x, generator: Optional[torch.Generator]):
-        with torch.no_grad():
-            self.g_net(x)
+        if not replaying():         # a recompute finds u, v already moved
+            with torch.no_grad():
+                self.g_net(x)
         draws = self.injected_train_probes
         if draws is None:
             if generator is None:

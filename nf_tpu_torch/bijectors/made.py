@@ -25,12 +25,12 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..core.bijector import Bijector
 from ..nets.core import Net
 from ..nets.layers import BatchNormNet
+from ..ops import precision as pm
 
 
 def made_degrees(d: int, hidden_dims, rng: np.random.Generator):
@@ -126,9 +126,9 @@ class MADE(Net):
         return masks
 
     def _dense(self, i, x, mask):
-        h = F.linear(x, self.w[i] * mask, self.b[i])
+        h = pm.linear(x, self.w[i] * mask, self.b[i])
         if self.u is not None:
-            h = h + F.linear(torch.ones_like(x), self.u[i] * mask)
+            h = h + pm.linear(torch.ones_like(x), self.u[i] * mask)
         return h
 
     def forward(self, z, generator: Optional[torch.Generator] = None):

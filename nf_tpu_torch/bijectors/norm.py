@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..core.bijector import Bijector
+from ..core.bijector import Bijector, replaying
 from ..nets.layers import batch_moments, update_running
 
 
@@ -109,9 +109,10 @@ class BatchNorm(Bijector):
         if self.training:
             mean, var, centered = batch_moments(x)
             var = var + self.eps
-            update_running(self, mean, var)
-            self.batch_mean.copy_(mean.detach())
-            self.batch_var.copy_(var.detach())
+            if not replaying():
+                update_running(self, mean, var)
+                self.batch_mean.copy_(mean.detach())
+                self.batch_var.copy_(var.detach())
         else:
             var, centered = self.running_var, x - self.running_mean
         y = centered * torch.rsqrt(var)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.bijector import Bijector
+from ..ops import precision as pm
 from ..ops.bisect import bisect_monotone
 from ..ops.math import deriv_tanh
 
@@ -48,13 +49,13 @@ class PlanarTransform(Bijector):
 
     def forward(self, z):
         u, wu = self._constrained()
-        affine = z @ self.w + self.b
+        affine = pm.matmul(z, self.w) + self.b
         return z + u[None, :] * torch.tanh(affine)[:, None], self._logdet(affine, wu)
 
     def inverse(self, y):
         u, wu = self._constrained()
         b = self.b[0]
-        wy = y @ self.w
+        wy = pm.matmul(y, self.w)
         a = bisect_monotone(lambda a: a + wu * torch.tanh(a + b), wy,
                             torch.full_like(wy, -1.0e3), torch.full_like(wy, 1.0e3))
         affine = a + b

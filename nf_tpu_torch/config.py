@@ -44,12 +44,15 @@ class NetworkConfig:
     resample_masks: bool = False
     # conditioner width (reference MLP/ConvNet base_filters=32)
     base_filters: int = 32
-    # matmul / conv precision: None, "float32" or "highest" run f32 (TF32
-    # off on the card); "bfloat16" is not ported yet and raises on the card
+    # matmul / conv precision of the library products: None, "float32" or
+    # "highest" run f32 (TF32 off on the card); "bfloat16" takes bf16
+    # operands and f32 sums on the card (ops/precision.py), f32 on the CPU
     matmul_precision: Optional[str] = None
-    # conditioner compute dtype; only "float32" is ported
+    # conditioner compute dtype ("bfloat16": RealNVP's and Glow's coupling
+    # nets in bf16, the flow math f32; the other families ignore it)
     compute_dtype: str = "float32"
-    # nf_tpu's rematerialization and lax.scan composition: not ported
+    # rematerialization (checkpointed layers or scanned blocks) and the
+    # scan composition (repeated stages as ScannedChain blocks)
     remat: bool = False
     scan: bool = False
 

@@ -1,1 +1,2 @@
-from .bijector import Bijector, Chain, Inverted, call_forward, init_children  # noqa: F401
+from .bijector import (Bijector, Chain, Inverted, ScannedChain, call_forward,  # noqa: F401
+                       init_children, replaying, scan_repeated)

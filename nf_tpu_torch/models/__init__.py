@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..config import NETWORK_DEFAULTS, NetworkConfig
+from ..ops.precision import PRECISIONS, set_matmul_precision
 from .base import EvalProgram, FlowModel  # noqa: F401
 from .ffjord import build_ffjord
 from .flowpp import build_flowpp
@@ -42,21 +43,22 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _apply_matmul_precision(cfg, device: torch.device):
-    """Set the card's f32 matmul / conv precision for this process, as
-    ``nf_tpu`` sets XLA's default.  ``None``, "float32" and "highest" run
-    full f32: TF32 off for cuBLAS and for cuDNN, whose own default is TF32
-    on for convolutions.  "bfloat16" is not ported: it raises on the card
-    (the CPU computes f32 whatever is asked, as XLA on the CPU does)."""
+    """Set the f32 matmul / conv precision of the models' library products
+    for this process (``ops/precision.py``), as ``nf_tpu`` sets XLA's
+    default; the last model built sets it for every model.  ``None`` (the
+    port's default: ``nf_tpu``'s automatic bf16 applies on a TPU only),
+    "float32" and "highest" run full f32; "bfloat16" gives the products
+    bf16-rounded operands with f32 sums on the card.  The card's own
+    defaults are turned off for everything else: TF32 for cuBLAS and
+    cuDNN, whose own default is TF32 on for convolutions.  The CPU
+    computes f32 whatever is asked, as XLA on the CPU does."""
     p = getattr(cfg, "matmul_precision", None)
-    if p not in (None, "float32", "highest", "bfloat16"):
+    if p not in PRECISIONS:
         raise ValueError(f"unknown matmul_precision {p!r}")
-    if device.type != "cuda":
-        return
-    if p == "bfloat16":
-        raise NotImplementedError("matmul_precision='bfloat16' is not ported yet: "
-                                  "no measurement on the card backs it")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(p)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def build_model(name: str, dims, datatype=None, cfg=None,
@@ -65,12 +67,6 @@ def build_model(name: str, dims, datatype=None, cfg=None,
         raise ValueError(f"unknown network {name!r}; available: {available_models()}")
     if cfg is None:
         cfg = NetworkConfig(name=name, **NETWORK_DEFAULTS[name])
-    if getattr(cfg, "compute_dtype", "float32") not in (None, "float32"):
-        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r} is not ported "
-                                  "yet; the port computes in float32")
-    for flag in ("scan", "remat"):     # nf_tpu's ScannedChain and rematerialization
-        if getattr(cfg, flag, False):
-            raise NotImplementedError(f"{name} with {flag}=True is not ported yet")
     device = resolve_device(device)
     _apply_matmul_precision(cfg, device)
     return _REGISTRY[name](dims, datatype=datatype, cfg=cfg, device=device)

@@ -7,7 +7,9 @@
   n x [ActNorm -> CNF with the conv ODENet over NHWC].
 
 ``nf_tpu`` runs no Pallas kernel here, so the port runs the eager chain:
-every solve is ATen ops on the card.
+every solve is ATen ops on the card.  ``cfg.scan`` folds the density
+stack into ``scan_repeated`` over [ActNorm, CNF] pairs; the image opt-in
+ignores it, and ``cfg.remat`` rematerializes, by ``nf_tpu``'s rules.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from ..bijectors.elementwise import Logit
 from ..bijectors.norm import ActNorm
 from ..core.bijector import Chain
 from .base import FlowModel
+from .multiscale import stage_folder, top_bijector
 
 
 def time_grid(cfg) -> np.ndarray:
@@ -39,4 +42,6 @@ def build_ffjord(dims, datatype=None, cfg=None, device=None) -> FlowModel:
         layers.append(CNF(dims, times, solver=cfg.solver, trace_estimator=cfg.trace,
                           backprop=cfg.backprop, base_filters=cfg.base_filters,
                           rtol=cfg.rtol, atol=cfg.atol, device=device))
-    return FlowModel("ffjord", Chain(layers), dims, device)
+    if is_image:
+        return FlowModel("ffjord", Chain(layers, remat=cfg.remat), dims, device)
+    return FlowModel("ffjord", top_bijector(stage_folder(cfg, 2)(layers), cfg), dims, device)

@@ -7,6 +7,9 @@
   ``VariationalDequant`` comes before the skeleton's Logit: a training
   objective that draws noise on every forward, so a forward without a
   generator (an ``EvalProgram``'s) raises, as ``nf_tpu``'s does.
+
+``cfg.scan`` / ``cfg.remat`` as RealNVP's, the scan period 4 in density
+mode and 6 for images; ``compute_dtype`` is not read, as in ``nf_tpu``.
 """
 from __future__ import annotations
 
@@ -14,9 +17,8 @@ from ..bijectors.conv1x1 import InvertibleConv1x1
 from ..bijectors.flowpp_coupling import MixLogAttnCoupling
 from ..bijectors.norm import ActNorm
 from ..bijectors.vardequant import VariationalDequant
-from ..core.bijector import Chain
 from .base import FlowModel
-from .multiscale import multiscale
+from .multiscale import multiscale, stage_folder, top_bijector
 
 
 def build_flowpp(dims, datatype=None, cfg=None, device=None) -> FlowModel:
@@ -27,7 +29,8 @@ def build_flowpp(dims, datatype=None, cfg=None, device=None) -> FlowModel:
             ActNorm(dims[-1], device=device),
             MixLogAttnCoupling(dims, odd=i % 2 != 0, base_filters=bf, n_mixtures=K,
                                device=device))]
-        return FlowModel("flow++", Chain(layers), dims, device)
+        return FlowModel("flow++", top_bijector(stage_folder(cfg, 4)(layers), cfg), dims,
+                         device)
     def block(n, dims, masking):
         """n x [ActNorm -> InvertibleConv1x1 -> MixLogAttnCoupling], the
         coupling parity alternating."""
@@ -39,4 +42,5 @@ def build_flowpp(dims, datatype=None, cfg=None, device=None) -> FlowModel:
 
     head = ([VariationalDequant(dims, base_filters=bf, device=device)]
             if getattr(cfg, "var_dequant", False) else [])
-    return FlowModel("flow++", Chain(head + multiscale(dims, n, block)), dims, device)
+    layers = head + multiscale(dims, n, block, stage_folder(cfg, 6))
+    return FlowModel("flow++", top_bijector(layers, cfg), dims, device)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import precision as pm
 from ..ops.attention import attention
 from .core import Net
 from .layers import Conv2d, Dense, uniform
@@ -113,13 +114,13 @@ class GatedAttn(Net):
         D = f // h
         xr = (x + self.pos_emb).reshape(B, -1, C)                  # (B, L, C)
         L = xr.shape[1]
-        v_, k_, q_ = (xr @ self.w_qkv + self.b_qkv).split(f, dim=-1)
+        v_, k_, q_ = (pm.matmul(xr, self.w_qkv) + self.b_qkv).split(f, dim=-1)
 
         def heads_of(t):   # (B, L, f) -> (B * h, L, D)
             return t.reshape(B, L, h, D).transpose(1, 2).reshape(B * h, L, D)
 
         A = attention(heads_of(k_), heads_of(v_), heads_of(q_))
         A = A.reshape(B, h, L, D).transpose(1, 2).reshape(B, L, f)
-        y = A @ self.w_out + self.b_out                             # (B, L, 2C)
+        y = pm.matmul(A, self.w_out) + self.b_out                             # (B, L, 2C)
         out = y[..., :C] * torch.sigmoid(y[..., C:])
         return x + out.reshape(x.shape)

@@ -8,15 +8,25 @@ norm is the same parameterization: ``g`` holds one norm per input feature
 (dense, ``(in,)``) or per (input channel, tap) (conv, ``(in, kh, kw)``;
 ``nf_tpu``'s ``(kh, kw, in)``), the norm taken over the out axis (dim 0
 here) and the eps added to the norm, ``w = v * g / (||v|| + 1e-5)``.
+
+``compute_dtype`` (``"bfloat16"``, ``nf_tpu``'s mixed precision): ``Dense``
+and ``Conv2d`` form the weight-norm weight in f32, then cast the weight,
+the input and the bias to bf16, and take the product and the bias add in
+bf16; ``BatchNormNet`` takes its statistics in f32 and returns its input's
+dtype.  Master parameters and running statistics stay f32.  In f32 the
+products go through ``ops/precision.py`` (``matmul_precision``).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.bijector import replaying
+from ..ops import precision as pm
 from .core import Net
 
 _WN_EPS = 1.0e-5
@@ -25,6 +35,13 @@ _WN_EPS = 1.0e-5
 def _weight_normed(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """v * g / (||v|| + eps), the norm over the out axis (dim 0)."""
     return v * (g / (torch.linalg.vector_norm(v, dim=0) + _WN_EPS))[None]
+
+
+def as_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """``compute_dtype`` as a torch dtype; None (or float32) for f32."""
+    if compute_dtype in (None, "float32", torch.float32):
+        return None
+    return getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
 
 
 def uniform(generator: torch.Generator, shape, bound: float, device) -> torch.Tensor:
@@ -39,11 +56,12 @@ class Dense(Net):
     """y = x @ W.T + b with optional weight-norm parameterization."""
 
     def __init__(self, in_features: int, out_features: int,
-                 weight_norm: bool = True, device=None):
+                 weight_norm: bool = True, device=None, compute_dtype=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         self.weight_norm = weight_norm
+        self.compute_dtype = as_dtype(compute_dtype)
         kw = dict(device=device, dtype=torch.float32)
         if weight_norm:
             self.g = nn.Parameter(torch.ones(in_features, **kw))
@@ -70,7 +88,10 @@ class Dense(Net):
         return _weight_normed(self.v, self.g) if self.weight_norm else self.w
 
     def forward(self, x):
-        return F.linear(x, self.weight(), self.b)
+        d = self.compute_dtype
+        if d is None:
+            return pm.linear(x, self.weight(), self.b)
+        return F.linear(x.to(d), self.weight().to(d)) + self.b.to(d)
 
 
 class Conv2d(Net):
@@ -82,12 +103,13 @@ class Conv2d(Net):
     layout around it (PERF.md)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 weight_norm: bool = True, device=None):
+                 weight_norm: bool = True, device=None, compute_dtype=None):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel_size = kernel_size
         self.weight_norm = weight_norm
+        self.compute_dtype = as_dtype(compute_dtype)
         k = kernel_size
         kw = dict(device=device, dtype=torch.float32)
         if weight_norm:
@@ -117,14 +139,19 @@ class Conv2d(Net):
         return _weight_normed(self.v, self.g) if self.weight_norm else self.w
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight(), self.b, padding="same")
-        return y.permute(0, 2, 3, 1)
+        d = self.compute_dtype
+        if d is None:
+            y = pm.conv2d(x.permute(0, 3, 1, 2), self.weight(), self.b, padding="same")
+            return y.permute(0, 2, 3, 1)
+        y = F.conv2d(x.to(d).permute(0, 3, 1, 2), self.weight().to(d), padding="same")
+        return y.permute(0, 2, 3, 1) + self.b.to(d)
 
 
 class BatchNormNet(Net):
     """Standard batch norm over all-but-channel axes (channel last).
 
-    Training normalizes by the batch mean and the BIASED batch variance
+    Statistics are taken in f32 whatever the input's dtype, and the output
+    has the input's.  Training normalizes by the batch mean and the BIASED batch variance
     and moves the running statistics by ``momentum`` toward them
     (detached), as ``nf_tpu`` does; ``F.batch_norm`` would move
     ``running_var`` toward the unbiased variance.  Eval normalizes by the
@@ -150,13 +177,14 @@ class BatchNormNet(Net):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
+        xf = x.to(torch.float32)
         if self.training:
-            mean, var, centered = batch_moments(x)
+            mean, var, centered = batch_moments(xf)
             update_running(self, mean, var)
         else:
-            var, centered = self.running_var, x - self.running_mean
+            var, centered = self.running_var, xf - self.running_mean
         y = centered * torch.rsqrt(var + self.eps)
-        return y * self.gamma + self.beta
+        return (y * self.gamma + self.beta).to(x.dtype)
 
 
 def batch_moments(x: torch.Tensor):
@@ -170,7 +198,10 @@ def batch_moments(x: torch.Tensor):
 
 @torch.no_grad()
 def update_running(module, mean: torch.Tensor, var: torch.Tensor) -> None:
-    """running <- (1 - momentum) * running + momentum * batch, in place."""
+    """running <- (1 - momentum) * running + momentum * batch, in place;
+    nothing while a rematerialized forward is recomputed."""
+    if replaying():
+        return
     m = module.momentum
     module.running_mean.copy_((1 - m) * module.running_mean + m * mean)
     module.running_var.copy_((1 - m) * module.running_var + m * var)

@@ -21,16 +21,18 @@ Both spectral norms scale ``w = w_bar * coeff / (sigma + eps)`` only where
 that factor is below 1, and the gradient flows through sigma into
 ``w_bar``.  In train mode a forward first runs ``power_iterations`` (1)
 steps on the detached ``w_bar`` and writes ``u`` / ``v`` back; eval mode
-(and ``weight()``) reuses the stored vectors.
+(and ``weight()``) reuses the stored vectors, and so does the recompute of a
+rematerialized forward (``core.bijector.replaying``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..core.bijector import replaying
+from ..ops import precision as pm
 from .core import Net
 from .layers import uniform
 
@@ -69,7 +71,7 @@ class _SpectralNorm(Net):
         self.v.copy_(v)
 
     def forward(self, x):
-        if self.training:
+        if self.training and not replaying():
             self.power_iterate()
         return self._transform(self.weight(), x) + self.b
 
@@ -112,7 +114,7 @@ class SpectralNormDense(_SpectralNorm):
 
     @staticmethod
     def _transform(w, x):
-        return x @ w
+        return pm.matmul(x, w)
 
 
 class SpectralNormConv2d(_SpectralNorm):
@@ -147,13 +149,13 @@ class SpectralNormConv2d(_SpectralNorm):
 
     def _transform(self, w, x):
         """NHWC x conv HWIO w, SAME padding, no bias."""
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+        y = pm.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                      padding=self.kernel_size // 2)
         return y.permute(0, 2, 3, 1)
 
     def _transform_t(self, w, y):
         """The adjoint of ``_transform(w, .)``: the conv's VJP on an NHWC y."""
-        x = F.conv_transpose2d(y.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+        x = pm.conv_transpose2d(y.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                                padding=self.kernel_size // 2)
         return x.permute(0, 2, 3, 1)
 

@@ -15,13 +15,14 @@ import math
 
 import torch
 
+from . import precision as pm
 from .cuda import attention as cuda_attention
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Standard attention, unfused: (BH, L, D) -> (BH, L, D)."""
-    scores = torch.einsum("bld,bmd->blm", q, k) / math.sqrt(q.shape[-1])
-    return torch.einsum("blm,bmd->bld", torch.softmax(scores, dim=-1), v)
+    scores = pm.matmul(q, k.transpose(1, 2)) / math.sqrt(q.shape[-1])
+    return pm.matmul(torch.softmax(scores, dim=-1), v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,23 @@ def deriv_tanh(x: torch.Tensor) -> torch.Tensor:
     return 1.0 - y * y
 
 
+def log_cosh(x: torch.Tensor) -> torch.Tensor:
+    """Numerically stable log cosh(x)."""
+    s = torch.abs(x)
+    return s + torch.log1p(torch.exp(-2.0 * s)) - math.log(2.0)
+
+
+def log_deriv_tanh(x: torch.Tensor) -> torch.Tensor:
+    """log tanh'(x) = log(1 - tanh(x)^2) = -2 log cosh(x)."""
+    return -2.0 * log_cosh(x)
+
+
+def log_deriv_arctanh(x: torch.Tensor, eps: float = 1.0e-8) -> torch.Tensor:
+    """log arctanh'(x) = -log(1 - x^2), x clamped away from |x| = 1."""
+    x = torch.clamp(x, -1.0 + eps, 1.0 - eps)
+    return -(torch.log1p(-x) + torch.log1p(x))
+
+
 def logistic_logpdf(x: torch.Tensor, mu: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """log pdf of Logistic(mu, exp(s)) at x (s is the log-scale)."""
     z = (x - mu) * torch.exp(-s)

@@ -31,8 +31,9 @@ generator of its own, seeded from ``(seed, "dd")`` (``nf_tpu``'s
 ``sample`` hands its generator to the layers that draw.  The two
 frameworks' draws differ, so parity tests inject the noise.
 
-Not ported yet: ``mesh`` (data parallelism), multi-process start-up and
-checkpoints.
+Checkpoints: ``train/checkpoint.py`` writes and reads ``nf_tpu``'s file
+format, the optimizer state in ``optax``'s form.  Not ported yet: ``mesh``
+(data parallelism) and multi-process start-up.
 """
 from __future__ import annotations
 

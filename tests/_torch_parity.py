@@ -192,36 +192,39 @@ def resflow_block_pair(conv: bool, coeff: float, seed: int = 3):
     return jb, var, tb, shape
 
 
-def jax_resflow(dims, datatype, layers, filters, seed=0):
+def jax_resflow(dims, datatype, layers, filters, seed=0, **cfg_kw):
     """nf_tpu's ResFlow (``allow_image`` for image data) and its init var."""
     from nf_tpu.config import NetworkConfig
     from nf_tpu.models import build_model
 
     cfg = NetworkConfig(name="resflow", layers=layers, base_filters=filters,
-                        allow_image=datatype == "image")
+                        allow_image=datatype == "image", **cfg_kw)
     model = build_model("resflow", dims, datatype=datatype, cfg=cfg)
     return model, model.init(jax.random.PRNGKey(seed))
 
 
-def torch_resflow(dims, datatype, layers, filters, var=None):
+def torch_resflow(dims, datatype, layers, filters, var=None, **cfg_kw):
     """The port's ResFlow on the CPU, with ``var`` loaded when given."""
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.convert import load_jax_variables
     from nf_tpu_torch.models import build_model
 
     cfg = NetworkConfig(name="resflow", layers=layers, base_filters=filters,
-                        allow_image=datatype == "image")
+                        allow_image=datatype == "image", **cfg_kw)
     model = build_model("resflow", dims, datatype, cfg, device="cpu")
     if var is not None:
         load_jax_variables(model, to_numpy(var))
     return model
 
 
-def resflow_trainer_parity(dims, datatype, layers, filters, batches, logp_atol):
+def resflow_trainer_parity(dims, datatype, layers, filters, batches, logp_atol, port_kw=None,
+                           **cfg_kw):
     """Three Trainer steps of the port's ResFlow against nf_tpu's, every
     block handed nf_tpu's draws (the data-dependent init's key
     ``fold_in(PRNGKey(0), 1)``, each step's ``fold_in(PRNGKey(0), step)``,
-    folded with the block's chain index): the first step's gradients
+    folded along the block's key path, ``nf_layer_keys``; ``cfg_kw`` such
+    as ``scan`` / ``remat`` goes to both configs, ``port_kw`` to the port's
+    alone): the first step's gradients
     within 1e-5 + 1e-5 relative, the losses within rtol 1e-5, every
     parameter and u / v within 1e-5 after the steps, and u, v and the
     LipSwish betas moved by them; then the trained state served by both
@@ -236,7 +239,7 @@ def resflow_trainer_parity(dims, datatype, layers, filters, batches, logp_atol):
     from nf_tpu_torch.convert import load_jax_variables
     from nf_tpu_torch.train import Trainer
 
-    jm, var0 = jax_resflow(dims, datatype, layers, filters)
+    jm, var0 = jax_resflow(dims, datatype, layers, filters, **cfg_kw)
     key = jax.random.PRNGKey(0)
     jt = JTrainer(jm, JOptimizerConfig(), seed=0)
     jts = jt.init_state(key, batches[0])
@@ -251,37 +254,43 @@ def resflow_trainer_parity(dims, datatype, layers, filters, batches, logp_atol):
         jts, lj = jt.train_step(jts, batches[k])
         jlosses.append(float(lj))
 
-    tm = torch_resflow(dims, datatype, layers, filters)
-    blocks = [(i, m) for i, m in enumerate(tm.bijector.layers)
-              if isinstance(m, InvertibleResBlock)]
+    # ``twin`` has nf_tpu's structure; the port's model (``port_kw`` may
+    # scan it) takes the twin's state and nf_tpu's keys in module order
+    twin = torch_resflow(dims, datatype, layers, filters, **cfg_kw)
+    tm = torch_resflow(dims, datatype, layers, filters, **cfg_kw, **(port_kw or {}))
+    blocks = [m for m in tm.modules() if isinstance(m, InvertibleResBlock)]
+
+    def inject(key):
+        keys = [k for m, k in nf_layer_keys(twin.bijector, key)
+                if isinstance(m, InvertibleResBlock)]
+        for m, k in zip(blocks, keys, strict=True):
+            m.injected_train_probes = nf_train_draws(k, inner)
+
     inner = (batches.shape[1],) + ((dims[0] // 2, dims[1] // 2, 4 * dims[2])
                                    if datatype == "image" else tuple(dims))
     tt = Trainer(tm, OptimizerConfig(), seed=0)
-    dd_key = jax.random.fold_in(key, 1)
-    for i, m in blocks:
-        m.injected_train_probes = nf_train_draws(jax.random.fold_in(dd_key, i), inner)
+    inject(jax.random.fold_in(key, 1))
+    load_jax_variables(twin, to_numpy(var0))
     ts = tt.init_state(torch.from_numpy(batches[0]),
-                       params=load_jax_variables(tm, to_numpy(var0)))
-    start = {k: v.clone() for k, v in tm.state_dict().items()}
+                       params=dict(zip(tm.state_dict(), twin.state_dict().values())))
+    start = [v.clone() for v in tm.state_dict().values()]
     losses = []
     for k in range(1, 4):
-        step_key = jax.random.fold_in(key, ts.step)
-        for i, m in blocks:
-            m.injected_train_probes = nf_train_draws(jax.random.fold_in(step_key, i), inner)
+        inject(jax.random.fold_in(key, ts.step))
         ts, lt = tt.train_step(ts, torch.from_numpy(batches[k]))
         losses.append(float(lt))
         if k == 1:
             want = torch_resflow(dims, datatype, layers, filters,
-                                 {"params": jgrads, "state": jts.state})
-            want = dict(want.named_parameters())
-            for name, p in tm.named_parameters():
-                close(p.grad, want[name].detach(), 1e-5, 1e-5)
+                                 {"params": jgrads, "state": jts.state}, **cfg_kw)
+            for p, w in zip(tm.parameters(), want.parameters(), strict=True):
+                close(p.grad, w.detach(), 1e-5, 1e-5)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
-    ref = torch_resflow(dims, datatype, layers, filters, jts.var).state_dict()
-    for name, got in tm.state_dict().items():
-        close(got.float(), ref[name].float(), 1e-5)
+    ref = torch_resflow(dims, datatype, layers, filters, jts.var, **cfg_kw).state_dict()
+    for (name, want), got, was in zip(ref.items(), tm.state_dict().values(), start,
+                                      strict=True):
+        close(got.float(), want.float(), 1e-5)
         if name.endswith((".u", ".v", ".beta")):
-            assert not torch.equal(got, start[name]), name
+            assert not torch.equal(got, was), name
 
     prog = tm.eval_program(probes=nf_eval_draws(inner))
     jprog = jm.eval_program(jts.var)
@@ -290,3 +299,198 @@ def resflow_trainer_parity(dims, datatype, layers, filters, batches, logp_atol):
     jz, _ = jprog.forward(x)
     close(prog.inverse(torch.from_numpy(np.array(jz)))[0], jprog.inverse(jz)[0], 1e-4)
     return prog
+
+
+# ------------------------------------------------------- scan / remat / flags
+def nf_layer_keys(bij, key):
+    """(layer, nf_tpu's PRNG key of that layer) for every layer under the
+    port's ``bij``, on nf_tpu's key path: a ``Chain`` folds in the layer's
+    index (``Ctx.child``), a ``ScannedChain`` the block's, then the block's
+    ``Chain`` the layer's index inside the block."""
+    from nf_tpu_torch.core.bijector import Chain, ScannedChain
+
+    if isinstance(bij, Chain):
+        subs = bij.layers
+    elif isinstance(bij, ScannedChain):
+        subs = bij.blocks
+    else:
+        yield bij, key
+        return
+    for i, m in enumerate(subs):
+        yield from nf_layer_keys(m, jax.random.fold_in(key, i))
+
+
+def bijector_structure(bij):
+    """Class names and remat flags of a bijector tree, for either package
+    (``Chain.layers``, ``ScannedChain.blocks``)."""
+    name = type(bij).__name__
+    if name in ("Chain", "ScannedChain"):
+        subs = bij.layers if name == "Chain" else bij.blocks
+        return name, bool(bij.remat), tuple(bijector_structure(m) for m in subs)
+    return name
+
+
+def assert_trees_equal(a, b, path=""):
+    """Two numpy pytrees of one structure, leaf for leaf: same shape,
+    dtype and values."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, sorted(a), sorted(b))
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_trees_equal(x, y, f"{path}[{i}]")
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, (path, a.shape, b.shape, a.dtype,
+                                                           b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+def flag_parity(name, dims, datatype, atol=1e-4, logp=True, seed=0, batch=8, eager=False,
+                **cfg_kw):
+    """nf_tpu's model and the port's built with the same config (``scan``,
+    ``remat``, ``compute_dtype``, ...): the same bijector structure, nf_tpu's
+    init variables loaded and exported back unchanged, and (``logp``) the
+    serving log p of ``batch`` samples within ``atol``, nf_tpu's program
+    run op by op with ``eager`` (``jax.disable_jit``: under jit XLA's CPU
+    keeps bf16 intermediates in f32, so a bf16 model is held to nf_tpu's
+    own bf16 roundings op by op).  Returns (nf_tpu model, numpy var, port
+    model)."""
+    from nf_tpu.config import NetworkConfig as JNC
+    from nf_tpu.models import build_model as jbuild
+    from nf_tpu_torch.config import NetworkConfig
+    from nf_tpu_torch.convert import export_jax_variables, load_jax_variables
+    from nf_tpu_torch.models import build_model
+
+    jm = jbuild(name, dims, datatype=datatype, cfg=JNC(name=name, **cfg_kw))
+    tm = build_model(name, dims, datatype, NetworkConfig(name=name, **cfg_kw), device="cpu")
+    assert bijector_structure(tm.bijector) == bijector_structure(jm.bijector)
+    var = to_numpy(jm.init(jax.random.PRNGKey(seed)))
+    load_jax_variables(tm, var)
+    assert_trees_equal(export_jax_variables(tm), var)
+    if logp:
+        x = (uniform(seed + 7, (batch,) + tuple(dims)) if datatype == "image"
+             else normal(seed + 7, (batch,) + tuple(dims)))
+        with jax.disable_jit(eager):
+            want = np.asarray(jm.eval_program(var).log_prob(x))
+        close(tm.eval_program().log_prob(torch.from_numpy(x)), want, atol, 1e-6)
+    return jm, var, tm
+
+
+# ------------------------------------------------------------ Trainer parity
+def _grads_in_port_layout(tmodel_factory, grads, state):
+    """nf_tpu's gradient pytree loaded into a fresh port model, whose
+    parameters then hold the gradients in the port's layouts."""
+    from nf_tpu_torch.convert import load_jax_variables
+
+    m = tmodel_factory()
+    load_jax_variables(m, to_numpy({"params": grads, "state": state}))
+    return dict(m.named_parameters())
+
+
+NOISE_DRIVEN = 1e-3      # 2 x 3 steps x lr (1e-4), with a margin
+MEANS = 2e-3             # a few noise-driven shifts added up
+
+
+def _f64_grads(make_model, state, batch):
+    """The first step's gradients of the same state in float64."""
+    m = make_model()
+    m.load_state_dict(state)
+    m = m.double().train()
+    (-m.log_prob(torch.from_numpy(batch).double()).mean()).backward()
+    return {n: p.grad for n, p in m.named_parameters()}
+
+
+def trainer_parity(dims, datatype, layers, filters, batches, name="realnvp",
+                   f64_arbiter=False, inject=None, **cfg_kw):
+    """Three Adam steps of the same model in both packages on the same
+    batches, after the same init and data-dependent init (the rules in
+    ``tests/test_torch_train.py``'s docstring).  ``cfg_kw`` goes to both
+    configs (``scan``, ``remat``, ...); nf_tpu's gradients are taken with
+    its first step's key, and ``inject(model, key)``, when given, hands the
+    port's model nf_tpu's draws for a key before the data-dependent init
+    (``fold_in(PRNGKey(0), 1)``) and before each step
+    (``fold_in(PRNGKey(0), step)``).  Returns the port's model."""
+    from nf_tpu.config import NetworkConfig as JNetworkConfig
+    from nf_tpu.config import OptimizerConfig as JOptimizerConfig
+    from nf_tpu.core import Ctx
+    from nf_tpu.models import build_model as jbuild
+    from nf_tpu.train import Trainer as JTrainer
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.convert import load_jax_variables
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    kw = dict(name=name, layers=layers, base_filters=filters, mixtures=2, **cfg_kw)
+
+    def tmodel():
+        return build_model(name, dims, datatype, NetworkConfig(**kw), device="cpu")
+
+    jmodel = jbuild(name, dims, datatype=datatype, cfg=JNetworkConfig(**kw))
+    key = jax.random.PRNGKey(0)
+    var0 = jmodel.init(key)
+    jt = JTrainer(jmodel, JOptimizerConfig(), seed=0)
+    jts = jt.init_state(key, batches[0])
+
+    def loss(params, batch):
+        v = {"params": params, "state": jts.state}
+        ctx = Ctx(rng=jax.random.fold_in(jt.base_key, 0), train=True)
+        return -jmodel.log_prob(v, batch, ctx)[0].mean()
+
+    jgrads = jax.grad(loss)(jts.params, batches[1])
+    jlosses = []
+    for k in range(1, 4):
+        jts, lj = jt.train_step(jts, batches[k])
+        jlosses.append(float(lj))
+
+    model = tmodel()
+    tt = Trainer(model, OptimizerConfig(), seed=0)
+    params = load_jax_variables(model, to_numpy(var0))
+    if inject is not None:
+        inject(model, jax.random.fold_in(key, 1))
+    ts = tt.init_state(torch.from_numpy(batches[0]), params=params)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    losses = []
+    for k in range(1, 4):
+        if inject is not None:
+            inject(model, jax.random.fold_in(jt.base_key, ts.step))
+        ts, lt = tt.train_step(ts, torch.from_numpy(batches[k]))
+        losses.append(float(lt))
+        if k == 1:
+            first = _grads_in_port_layout(tmodel, jgrads, jts.state)
+            g64 = {}
+            for pname, p in model.named_parameters():
+                want = first[pname].detach()
+                off = (p.grad - want).abs() > 1e-5 + 1e-5 * want.abs()
+                if not (f64_arbiter and off.any()):
+                    close(p.grad, want, 1e-5, 1e-5)
+                    continue
+                # an entry past 1e-5 of nf_tpu's: held to the same 1e-5 of the
+                # float64 gradient, or to nf_tpu's own f32 distance from it
+                g64 = g64 or _f64_grads(tmodel, start, batches[1])
+                ref = g64[pname]
+                err = (p.grad.double() - ref).abs()
+                bound = torch.maximum((want.double() - ref).abs(), 1e-5 + 1e-5 * ref.abs())
+                assert (err <= bound)[off].all(), pname
+    assert ts.step == 3
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+
+    ref = tmodel()
+    load_jax_variables(ref, to_numpy(jts.var))
+    want = ref.state_dict()
+    params = dict(model.named_parameters())
+    for key, got in model.state_dict().items():
+        diff = (got.float() - want[key].float()).abs()
+        if key in params:
+            real = first[key].detach().abs() > 1e-4
+            assert not real.any() or diff[real].max() <= 1e-5, key
+            assert diff.max() <= NOISE_DRIVEN, key
+        elif key.endswith("_var"):
+            assert diff.max() <= 1e-5, key
+        elif key.endswith("_mean"):
+            assert diff.max() <= MEANS, key
+        else:
+            assert diff.max() == 0, key
+    return model

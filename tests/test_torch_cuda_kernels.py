@@ -12,7 +12,9 @@ of 16 samples, the solve up to F = 64 per warp of 8, the plain version on
 the whole batch).  The coupling
 kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 (up to 1536 terms summed in another order), dgain and dbias rtol 1e-4
-(B x N terms), the backward one launch and the same bits on every run.
+(B x N terms), the backward one launch and the same bits on every run;
+under torch.utils.checkpoint the same gradients bit for bit, the ticket
+reset.
 Attention: out atol / rtol 1e-5 against the plain version (and
 PyTorch's SDPA) at D = 2 to 128 and L = 2 to 1500, its gradient through
 the Function 1e-5; D = 129 raises.  The
@@ -307,6 +309,41 @@ def test_coupling_autograd_on_the_card_matches_the_cpu(cuda):
         grads.append([a.grad.cpu() for a in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_coupling_kernels_under_checkpoint_match_and_reset_the_ticket(cuda):
+    """torch.utils.checkpoint (non-reentrant, as remat runs it) over the
+    coupling kernels: the same gradients bit for bit as without it, the
+    forward kernel launched twice (the pass and its recompute) and the
+    backward once, and the backward's ticket left at 0."""
+    from torch.utils.checkpoint import checkpoint
+
+    from nf_tpu_torch.ops.cuda import coupling as tc
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    base = [torch.randn(256, 512, generator=g, device=cuda) for _ in range(3)] + [
+        torch.tensor([0.7], device=cuda), torch.tensor([-0.1], device=cuda)]
+
+    def step(remat):
+        leaves = [a.detach().clone().requires_grad_() for a in base]
+
+        def f(*xs):
+            y, ld = tc.coupling_fwd(*xs)
+            return y.square().sum() + 3.0 * ld.sum()
+
+        loss = checkpoint(f, *leaves, use_reentrant=False) if remat else f(*leaves)
+        loss.backward()
+        return [a.grad for a in leaves]
+
+    plain = step(False)
+    tc.reset_launches()
+    got = step(True)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES["coupling_fwd"] == 2 and tc.LAUNCHES["coupling_bwd"] == 1
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    ticket = tc._ticket(base[0].device, torch.cuda.current_stream().cuda_stream)
+    assert int(ticket.item()) == 0
 
 
 def test_image_realnvp_launches_161_per_pass(cuda):

@@ -80,10 +80,14 @@ def test_image_flowpp_matches_nf_tpu(dims):
 
 
 def test_unported_options_raise():
-    # var_dequant is ported (tests/test_torch_vardequant.py)
+    """scan and remat, refused before the port had them, build nf_tpu's
+    structure (two 6-layer blocks and a tail) and serve its log p within
+    3e-4 (var_dequant: tests/test_torch_vardequant.py)."""
+    from _torch_parity import flag_parity
+
     for kw in (dict(scan=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            _torch_flowpp_image((8, 8, 1), **kw)
+        flag_parity("flow++", (8, 8, 1), "image", 3e-4, layers=4, base_filters=8, mixtures=2,
+                    **kw)
 
 
 def test_flowpp_img32x1_structure_and_conversion():

@@ -106,14 +106,13 @@ def test_image_glow_matches_nf_tpu(small_glow):
 
 
 def test_unported_options_raise():
-    from nf_tpu_torch.config import NetworkConfig
-    from nf_tpu_torch.models import build_model
+    """scan and remat, refused before the port had them, build nf_tpu's
+    structure and serve its log p (3e-4 image, 1e-4 2-D)."""
+    from _torch_parity import flag_parity
 
-    for datatype, dims in (("image", (8, 8, 3)), ("2d", (2,))):
+    for datatype, dims, atol in (("image", (8, 8, 3), 3e-4), ("2d", (2,), 1e-4)):
         for kw in (dict(scan=True), dict(remat=True)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                build_model("glow", dims, datatype, NetworkConfig(name="glow", layers=2, **kw),
-                            device="cpu")
+            flag_parity("glow", dims, datatype, atol, layers=4, base_filters=8, **kw)
 
 
 def test_glow_img32x3_structure_and_conversion():

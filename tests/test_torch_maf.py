@@ -22,7 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_parity import close, normal, to_numpy, uniform
+from _torch_parity import close, flag_parity, normal, to_numpy, uniform
 
 from nf_tpu.bijectors import made as jmade
 from nf_tpu.core import Ctx
@@ -240,9 +240,8 @@ def test_maf_image_needs_allow_image():
     with pytest.raises(NotImplementedError) as terr:
         _torch_maf((4, 4, 1), "image")
     assert str(terr.value) == str(jerr.value)
-    for kw in (dict(scan=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _torch_maf((2,), "2d", **kw)
+    for kw in (dict(scan=True), dict(remat=True)):       # built as nf_tpu builds them
+        flag_parity("maf", (2,), "2d", 1e-4, layers=2, base_filters=8, **kw)
 
 
 def test_resample_masks_with_injected_masks(monkeypatch):

@@ -196,7 +196,9 @@ def test_image_coupling_not_in_this_slice():
 def test_new_families_build(name, dims, datatype, kw):
     """FFJORD at NETWORK_DEFAULTS (3 x [ActNorm -> CNF], dopri5, adjoint,
     Hutchinson, rtol / atol 1e-4, the grid of stepsize 0.1) and Flow++
-    with variational dequantization build; scan still raises."""
+    with variational dequantization build; with scan they build nf_tpu's
+    structure (FFJORD 2-D as a ScannedChain) and its variables."""
+    from _torch_parity import flag_parity
     from nf_tpu.config import NETWORK_DEFAULTS as JDEFAULTS
     from nf_tpu_torch.bijectors import CNF, VariationalDequant
     from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
@@ -216,6 +218,62 @@ def test_new_families_build(name, dims, datatype, kw):
         close(c.times, np.linspace(0.0, 1.0, 11, dtype=np.float32), 0.0)
     else:
         assert isinstance(layers[0], VariationalDequant)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(name, dims, datatype, NetworkConfig(**{**cfg.__dict__, "scan": True}),
-                    device="cpu")
+    kw = {k: v for k, v in cfg.__dict__.items() if k != "name"}
+    flag_parity(name, dims, datatype, logp=False, **{**kw, "scan": True})
+
+
+@pytest.mark.parametrize("name", ["Identity", "Sigmoid", "Tanh", "Arctanh"])
+def test_elementwise_bijectors(name):
+    """The parameter-free bijectors no model uses: forward and inverse
+    against nf_tpu's, within ATOL (log-dets rtol 1e-6), including inputs
+    at and past the clamps."""
+    from nf_tpu.bijectors import elementwise as je
+    from nf_tpu_torch.bijectors import elementwise as te
+
+    jb, tb = getattr(je, name)(), getattr(te, name)()
+    var = jb.init(jax.random.PRNGKey(0))
+    x = normal(40, (16, 6), 2.0)
+    inside = np.tanh(x) if name in ("Tanh", "Arctanh") else 1.0 / (1.0 + np.exp(-x))
+    inside[0, :3] = (1.0, -1.0, 0.0) if name != "Sigmoid" else (1.0, 0.0, 1e-9)
+    for direction, inp in (("forward", x), ("inverse", inside)):
+        if name == "Arctanh":                    # its forward takes (-1, 1)
+            inp = inside if direction == "forward" else x
+        y, ld = getattr(tb, direction)(_t(inp))
+        jy, jld, _ = getattr(jb, direction)(var, inp, EVAL)
+        close(y, jy, ATOL, 1e-6)
+        close(ld, jld, ATOL, 1e-6)
+    assert tb.init(torch.Generator()) is None and not list(tb.parameters())
+
+
+@pytest.mark.parametrize("dims,masking", [((3,), "checkerboard"), ((4, 4, 2), "checkerboard"),
+                                          ((4, 4, 2), "channelwise")])
+def test_additive_coupling(dims, masking):
+    """NICE's coupling against nf_tpu's, in train and eval mode, its
+    variables carried across and exported back; log-det 0."""
+    from nf_tpu.bijectors.coupling import AdditiveCoupling as JAdd
+    from nf_tpu_torch.bijectors.coupling import AdditiveCoupling
+    from nf_tpu_torch.convert import export_jax_variables
+
+    from _torch_parity import assert_trees_equal
+
+    jc = JAdd(dims, masking=masking, odd=True, base_filters=8)
+    var = jc.init(jax.random.PRNGKey(6))
+    x = normal(41, (8,) + dims)
+    _, _, st = jc.forward(var, x * 1.5, TRAIN)       # running statistics off init
+    var = to_numpy({"params": var["params"], "state": st})
+    tc = _load(AdditiveCoupling(dims, masking=masking, odd=True, base_filters=8,
+                                device="cpu"), var)
+    assert_trees_equal(export_jax_variables(tc), var)
+    with torch.no_grad():
+        y, ld = tc(_t(x))
+        jy, jld, _ = jc.forward(var, x, EVAL)
+        close(y, jy, ATOL)
+        assert not ld.any() and not np.asarray(jld).any()
+        xr, _ = tc.inverse(y)
+        close(xr, x, ATOL)
+        tc.train()
+        y, _ = tc(_t(x))
+        jy, _, jst = jc.forward(var, x, TRAIN)
+        close(y, jy, ATOL)
+    moved = export_jax_variables(tc)["state"]
+    jax.tree.map(lambda a, b: close(a, b, ATOL), moved, to_numpy(jst))

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import close, normal, to_numpy
+from _torch_parity import close, flag_parity, normal, to_numpy
 
 from nf_tpu.core import Ctx
 
@@ -111,6 +111,5 @@ def test_planar_model_matches_nf_tpu():
     jy, jldi = jprog.inverse(zin)
     close(y, jy, 1e-4)
     close(ldi, jldi, 1e-4)
-    for kw in (dict(scan=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model("planar", (2,), "2d", NetworkConfig(name="planar", **kw), device="cpu")
+    for kw in (dict(scan=True), dict(remat=True)):       # built as nf_tpu builds them
+        flag_parity("planar", (2,), "2d", 1e-4, layers=4, **kw)

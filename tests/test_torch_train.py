@@ -30,14 +30,12 @@ leave the loss unchanged in train mode but shift the means downstream.
 So those entries are held within 2 x 3 steps x lr (+ margin) = 1e-3, and
 the running / batch means, which add up a few such shifts, within 2e-3.
 """
-import jax
 import numpy as np
 import optax
 import pytest
 import torch
-from _torch_parity import close, normal, to_numpy, uniform
+from _torch_parity import close, normal, trainer_parity, uniform
 
-from nf_tpu.config import NetworkConfig as JNetworkConfig
 from nf_tpu.config import OptimizerConfig as JOptimizerConfig
 
 
@@ -83,120 +81,15 @@ def test_optimizer_matches_optax(name, weight_decay):
             close(p.detach(), jp[key], 1e-6)
 
 
-def _jax_start(name, dims, datatype, layers, filters):
-    from nf_tpu.models import build_model
-
-    cfg = JNetworkConfig(name=name, layers=layers, base_filters=filters, mixtures=2)
-    model = build_model(name, dims, datatype=datatype, cfg=cfg)
-    return model, model.init(jax.random.PRNGKey(0))
-
-
-def _grads_in_port_layout(tmodel_factory, grads, state):
-    """nf_tpu's gradient pytree loaded into a fresh port model, whose
-    parameters then hold the gradients in the port's layouts."""
-    from nf_tpu_torch.convert import load_jax_variables
-
-    m = tmodel_factory()
-    load_jax_variables(m, to_numpy({"params": grads, "state": state}))
-    return dict(m.named_parameters())
-
-
-NOISE_DRIVEN = 1e-3      # 2 x 3 steps x lr (1e-4), with a margin
-MEANS = 2e-3             # a few noise-driven shifts added up
-
-
-def _f64_grads(make_model, state, batch):
-    """The first step's gradients of the same state in float64."""
-    m = make_model()
-    m.load_state_dict(state)
-    m = m.double().train()
-    (-m.log_prob(torch.from_numpy(batch).double()).mean()).backward()
-    return {n: p.grad for n, p in m.named_parameters()}
-
-
-def _trainer_parity(dims, datatype, layers, filters, batches, name="realnvp",
-                    f64_arbiter=False):
-    from nf_tpu.core import Ctx
-    from nf_tpu.train import Trainer as JTrainer
-    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
-    from nf_tpu_torch.convert import load_jax_variables
-    from nf_tpu_torch.models import build_model
-    from nf_tpu_torch.train import Trainer
-
-    def tmodel():
-        return build_model(name, dims, datatype,
-                           NetworkConfig(name=name, layers=layers, base_filters=filters,
-                                         mixtures=2), device="cpu")
-
-    jmodel, var0 = _jax_start(name, dims, datatype, layers, filters)
-    jt = JTrainer(jmodel, JOptimizerConfig(), seed=0)
-    jts = jt.init_state(jax.random.PRNGKey(0), batches[0])
-
-    def loss(params, batch):
-        v = {"params": params, "state": jts.state}
-        return -jmodel.log_prob(v, batch, Ctx(rng=None, train=True))[0].mean()
-
-    jgrads = jax.grad(loss)(jts.params, batches[1])
-    jlosses = []
-    for k in range(1, 4):
-        jts, lj = jt.train_step(jts, batches[k])
-        jlosses.append(float(lj))
-
-    model = tmodel()
-    tt = Trainer(model, OptimizerConfig(), seed=0)
-    ts = tt.init_state(torch.from_numpy(batches[0]),
-                       params=load_jax_variables(model, to_numpy(var0)))
-    start = {k: v.clone() for k, v in model.state_dict().items()}
-    losses = []
-    for k in range(1, 4):
-        ts, lt = tt.train_step(ts, torch.from_numpy(batches[k]))
-        losses.append(float(lt))
-        if k == 1:
-            first = _grads_in_port_layout(tmodel, jgrads, jts.state)
-            g64 = {}
-            for pname, p in model.named_parameters():
-                want = first[pname].detach()
-                off = (p.grad - want).abs() > 1e-5 + 1e-5 * want.abs()
-                if not (f64_arbiter and off.any()):
-                    close(p.grad, want, 1e-5, 1e-5)
-                    continue
-                # an entry past 1e-5 of nf_tpu's: held to the same 1e-5 of the
-                # float64 gradient, or to nf_tpu's own f32 distance from it
-                g64 = g64 or _f64_grads(tmodel, start, batches[1])
-                ref = g64[pname]
-                err = (p.grad.double() - ref).abs()
-                bound = torch.maximum((want.double() - ref).abs(), 1e-5 + 1e-5 * ref.abs())
-                assert (err <= bound)[off].all(), pname
-    assert ts.step == 3
-    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
-
-    ref = tmodel()
-    load_jax_variables(ref, to_numpy(jts.var))
-    want = ref.state_dict()
-    params = dict(model.named_parameters())
-    for key, got in model.state_dict().items():
-        diff = (got.float() - want[key].float()).abs()
-        if key in params:
-            real = first[key].detach().abs() > 1e-4
-            assert not real.any() or diff[real].max() <= 1e-5, key
-            assert diff.max() <= NOISE_DRIVEN, key
-        elif key.endswith("_var"):
-            assert diff.max() <= 1e-5, key
-        elif key.endswith("_mean"):
-            assert diff.max() <= MEANS, key
-        else:
-            assert diff.max() == 0, key
-
-
 def test_trainer_image_realnvp_matches_nf_tpu():
     dims = (16, 16, 1)
     batches = np.stack([uniform(30 + k, (16,) + dims) for k in range(4)])
-    _trainer_parity(dims, "image", 1, 8, batches)
+    trainer_parity(dims, "image", 1, 8, batches)
 
 
 def test_trainer_density_realnvp_matches_nf_tpu():
     batches = np.stack([normal(40 + k, (64, 2)) * 1.3 + 0.2 for k in range(4)])
-    _trainer_parity((2,), "2d", 2, 8, batches)
+    trainer_parity((2,), "2d", 2, 8, batches)
 
 
 @pytest.mark.parametrize("name,dims,layers", [("glow", (2,), 2), ("flow++", (2,), 2),
@@ -208,7 +101,7 @@ def test_trainer_matches_nf_tpu(name, dims, layers):
         batches = np.stack([uniform(60 + k, (16,) + dims) for k in range(4)])
     else:
         batches = np.stack([normal(70 + k, (64,) + dims) * 1.3 + 0.2 for k in range(4)])
-    _trainer_parity(dims, "image" if len(dims) == 3 else "2d", layers, 8, batches, name,
+    trainer_parity(dims, "image" if len(dims) == 3 else "2d", layers, 8, batches, name,
                     f64_arbiter=True)
 
 
@@ -241,17 +134,20 @@ def test_trainer_runs_train_mode_after_an_eval_program():
 
 
 def test_unported_options_raise():
+    """scan, remat and compute_dtype="bfloat16" (refused before the port
+    had them) build nf_tpu's structure and serve its log p within 3e-4
+    (bf16: nf_tpu's program op by op, tests/test_torch_mixed_precision.py);
+    an unknown matmul_precision and optimizer still raise."""
+    from _torch_parity import flag_parity
+
     from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
     from nf_tpu_torch.models import build_model
     from nf_tpu_torch.train import make_optimizer
 
-    for kw in (dict(scan=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model("realnvp", (16, 16, 1), "image", NetworkConfig(layers=1, **kw),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        build_model("realnvp", (16, 16, 1), "image",
-                    NetworkConfig(layers=1, compute_dtype="bfloat16"), device="cpu")
+    for kw in (dict(scan=True), dict(remat=True), dict(scan=True, remat=True)):
+        flag_parity("realnvp", (16, 16, 1), "image", 3e-4, layers=4, base_filters=8, **kw)
+    flag_parity("realnvp", (16, 16, 1), "image", 3e-4, layers=1, base_filters=8, eager=True,
+                compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="matmul_precision"):
         build_model("realnvp", (2,), "2d", NetworkConfig(matmul_precision="tf32"),
                     device="cpu")
