@@ -210,7 +210,32 @@ Phases, each of which exits non-zero when it fails:
      file (its fingerprint the port's), and step 3 on both (cuDNN
      deterministic) leaves the same parameters, buffers and Adam moments
      within 1e-6 (bitwise printed);
- 10. time each kernel (CUDA events over back-to-back launches, warm L2 as
+ 10. the training CLI (nf_tpu_torch/main.py), in a temporary working
+     directory: (a) main(["network=realnvp", "run.distrib=mnist",
+     "run.dequantize=true", "train.steps=4", "run.display=1",
+     "run.seed=0"]) on the card: realnvp-img32x1 at full width and the
+     CLI's default train.samples = 1024 on the synthetic MNIST images
+     (no data files: nf_tpu's fallback), its launches counted (for each
+     of the chain's 161 couplings one coupling_fwd in init_state and one
+     coupling_fwd and one coupling_bwd per step, no other kernel); the
+     three image metric tags in metrics.jsonl, every value finite;
+     then train.steps=6 run.resume=auto, which must re-enter the run
+     directory (init_state's forward and two steps counted the same way),
+     and latest.npz loaded back through the port at step 6, log p of 64
+     pixels finite; the host's ms per FlowDataLoader.next_batch at 1024
+     rows (moons, and synthetic MNIST dequantized) printed beside the data
+     tier; (b) main(["network=realnvp", "run.distrib=moons",
+     "run.display=1", "run.seed=0", "train.steps=100"]) (RealNVP 2-D at
+     the default width, B = 1024: the eager chain trains, no kernel), the
+     data tier (native or numpy) and the ms per step between the metric
+     records of steps 1 and 100 printed; (c) the same overrides through
+     "python -m nf_tpu_torch.parallel.launch nf_tpu_torch/main.py" in a
+     subprocess (300 s limit) under RANK=0 WORLD_SIZE=1 LOCAL_RANK=0
+     MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>: a one-rank NCCL group,
+     so the gradient all-reduce, the reduced batch moments and the init
+     broadcast run on the card; the child's backend, world size and
+     all-reduce count printed, its losses within rtol 1e-5 of (b)'s;
+ 11. time each kernel (CUDA events over back-to-back launches, warm L2 as
      in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
      and by their profiler records; the coupling kernels by their own
      device time per launch, the mean over a profiler window's records,
@@ -255,7 +280,7 @@ Phases, each of which exits non-zero when it fails:
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
      phase 3);
- 11. print {"ok": true, "device": {...}} as the last line.
+ 12. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -273,6 +298,7 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8192
 SEED = 0
 Z_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -309,7 +335,7 @@ IMAGE_TIERS = [
          parity=16)]
 IMG_LOGP_RTOL = 1e-4     # of the largest |log p|
 IMG_GRAD_FACTOR = 2.0    # the card's f32 gradient error over the CPU's
-IMG_ITERS = 2            # calls per direction timed, after 3 warm-up calls
+IMG_ITERS = 2            # calls per direction timed, after one warm-up call
 IMG_TRAIN_TIMED = 1      # train chunks timed (the main path has warmed the step)
 COUPLING_CASES = [(1024, 512), (1024, 1536), (1000, 384)]
 COUPLING_WIDTHS = {"realnvp-img32x1": 512, "glow-img32x3": 1536}   # each tier's halves
@@ -1193,10 +1219,13 @@ def image_timing(img, smi, tc):
     coupling kernels' share of device time and the longest kernels;
     prints its main_path line and returns it."""
     prog, trainer, x, z = img["prog"], img["trainer"], img["x"], img["z"]
-    t_fwd = wall_ms(lambda: prog.forward(x), IMG_ITERS)
-    t_inv = wall_ms(lambda: prog.inverse(z), IMG_ITERS)
-    eval_profile = device_breakdown(
-        *profile_window(lambda: (prog.forward(x), prog.inverse(z)), 1, (tc,)), 1)
+    # the main path warmed both directions; the windows record CUDA
+    # activity alone, as scan_timing's, so the image lines' idle shares
+    # compare
+    t_fwd = wall_ms(lambda: prog.forward(x), IMG_ITERS, warmup=1)
+    t_inv = wall_ms(lambda: prog.inverse(z), IMG_ITERS, warmup=1)
+    eval_profile = device_breakdown(*profile_window(
+        lambda: (prog.forward(x), prog.inverse(z)), 1, (tc,), warmup=False, cpu=False), 1)
     state = {"ts": img["ts"]}
 
     def chunk():
@@ -1208,9 +1237,9 @@ def image_timing(img, smi, tc):
         chunk()
     torch.cuda.synchronize()
     t_chunk = (time.perf_counter() - t0) * 1e3 / IMG_TRAIN_TIMED
-    train_profile = device_breakdown(
-        *profile_window(lambda: trainer.train_step(state["ts"], img["chunk"][0]), 1, (tc,)),
-        1)
+    train_profile = device_breakdown(*profile_window(   # the chunk warmed the step
+        lambda: trainer.train_step(state["ts"], img["chunk"][0]), 1, (tc,), warmup=False,
+        cpu=False), 1)
     K, B = IMG_TRAIN_CHUNK, IMG_BATCH
     tier = img["tier"]
     line = {
@@ -2805,6 +2834,185 @@ def production_shape_phase(device, counters, launches_of):
     return imgs, ckpt, totals
 
 
+# --------------------------------------------------------------------------
+# the training CLI (nf_tpu_torch/main.py): the data tier, the run loop with
+# resume, and a one-rank NCCL group through the launcher
+# --------------------------------------------------------------------------
+CLI_IMAGE = ["network=realnvp", "run.distrib=mnist", "run.dequantize=true", "run.display=1",
+             "run.seed=0"]           # realnvp-img32x1, train.samples 1024 (the CLI's default)
+CLI_STEPS, CLI_RESUMED = 4, 6
+CLI_MOONS = ["network=realnvp", "run.distrib=moons", "run.display=1", "run.seed=0",
+             "train.steps=100"]      # metric records at steps 1 and 100
+CLI_IMAGE_TAGS = {"image/train/loss", "image/train/bits_per_dim",
+                  "image/train/bits_per_dim_discrete"}
+CLI_RANK_RTOL = 1e-5                 # the one-rank NCCL run against the plain run
+CLI_CHILD_TIMEOUT = 300
+CLI_LOADER_BATCHES = 64              # batches timed per data set (host time)
+
+
+def cli_records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_ms_per_step(recs):
+    """ms per step between the first and the last loss record (the metric
+    records' host times)."""
+    loss = [r for r in recs if r["tag"].endswith("/train/loss")]
+    return (loss[-1]["t"] - loss[0]["t"]) * 1e3 / (loss[-1]["step"] - loss[0]["step"])
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_phase(device, counters, launches_of):
+    """Phase 10: the training CLI on the card.  (a) realnvp-img32x1 on the
+    synthetic MNIST images through nf_tpu_torch.main.main, its coupling
+    launches counted against the chain's couplings, then resumed;
+    (b) RealNVP 2-D on moons at the default width for 100 steps; (c) the
+    same through the launcher in a one-rank NCCL group, a subprocess.
+    Returns the coupling launches counted and the phase's numbers."""
+    from nf_tpu_torch import main as cli
+    from nf_tpu_torch.bijectors.coupling import AffineCoupling
+    from nf_tpu_torch.config import OptimizerConfig, parse_cli
+    from nf_tpu_torch.data import FlowDataLoader, native
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer, load_checkpoint
+
+    t_phase = time.perf_counter()
+    tier = "native" if native.available() else "numpy"
+    cfg = parse_cli(CLI_IMAGE).network
+    n = sum(isinstance(m, AffineCoupling)
+            for m in build_model("realnvp", IMG_DIMS, "image", cfg, device="cpu").modules())
+    check(n == IMG_COUPLINGS, f"cli: realnvp-img32x1 has {n} couplings")
+    totals = dict.fromkeys(KERNEL_SOURCES, 0)
+    out = {"data_tier": tier}
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            # the host's time per batch, on the synthetic images the CLI runs on
+            loader_ms = {}
+            for name, kw in (("moons", {}), ("mnist", dict(dequantize=True))):
+                dl = FlowDataLoader(name, batch_size=1024, seed=0, **kw)
+                dl.next_batch()
+                t0 = time.perf_counter()
+                for _ in range(CLI_LOADER_BATCHES):
+                    dl.next_batch()
+                loader_ms[name] = (time.perf_counter() - t0) * 1e3 / CLI_LOADER_BATCHES
+            out["next_batch_ms_at_1024"] = loader_ms
+            print(f"cli data tier {tier}: FlowDataLoader.next_batch at 1024 rows "
+                  f"{loader_ms['moons']:.3f} ms (moons), {loader_ms['mnist']:.3f} ms (synthetic "
+                  f"MNIST, dequantized)")
+
+            # (a) the image tier: init_state's forward, then a forward and a
+            # backward per step, for every coupling of the chain
+            runs = []
+            for extra, steps, start in (([f"train.steps={CLI_STEPS}"], CLI_STEPS, 0),
+                                        ([f"train.steps={CLI_RESUMED}", "run.resume=auto"],
+                                         CLI_RESUMED - CLI_STEPS, CLI_STEPS)):
+                t0 = time.perf_counter()
+                run_dir = counted_call(
+                    f"cli realnvp-img32x1 steps {start}->{start + steps}",
+                    lambda: cli.main(CLI_IMAGE + extra),
+                    {"coupling_fwd": n * (1 + steps), "coupling_bwd": n * steps},
+                    counters, launches_of, totals)
+                runs.append((run_dir, time.perf_counter() - t0))
+            (run_dir, t_first), (again, t_again) = runs
+            check(again == run_dir, f"cli: run.resume=auto went to {again}, not {run_dir}")
+            recs = cli_records(run_dir)
+            check({r["tag"] for r in recs} == CLI_IMAGE_TAGS, "cli: the image metric tags")
+            check([r["step"] for r in recs if r["tag"] == "image/train/loss"]
+                  == [1, CLI_STEPS + 1], "cli: the loss records' steps")
+            check(all(math.isfinite(r["value"]) for r in recs), "cli: a non-finite metric")
+            path = os.path.join(run_dir, "latest.npz")
+            model = build_model("realnvp", IMG_DIMS, "image", cfg, device=device)
+            trainer = Trainer(model, OptimizerConfig(), seed=SEED)
+            ts = trainer.init_state()
+            step = load_checkpoint(path, model, ts)
+            x = 0.05 + 0.9 * torch.rand((64,) + IMG_DIMS, device=device,
+                                        generator=torch.Generator(device=device).manual_seed(7))
+            logp = trainer.log_prob(ts, x)
+            check(step == CLI_RESUMED and bool(torch.isfinite(logp).all()),
+                  f"cli: latest.npz at step {step}, log p finite {bool(torch.isfinite(logp).all())}")
+            out["image"] = {"run_s": [t_first, t_again], "records": recs,
+                            "latest_step": step, "file_bytes": os.path.getsize(path),
+                            "reloaded_logp_mean": float(logp.mean())}
+            print(f"cli realnvp-img32x1: {CLI_STEPS} steps in {t_first:.1f} s, resumed to "
+                  f"{CLI_RESUMED} in {t_again:.1f} s (the same run directory); metrics "
+                  f"{[(r['tag'], r['step'], round(r['value'], 4)) for r in recs]}; latest.npz "
+                  f"step {step}, log p of 64 pixels {float(logp.mean()):.1f} on reload")
+            del model, trainer, ts
+            torch.cuda.empty_cache()
+
+            # (b) RealNVP 2-D on moons at the default width, no kernel (the
+            # eager chain trains, as in nf_tpu)
+            t0 = time.perf_counter()
+            plain_dir = counted_call("cli realnvp 2d moons", lambda: cli.main(CLI_MOONS), {},
+                                     counters, launches_of, totals)
+            t_plain = time.perf_counter() - t0
+            plain = cli_records(plain_dir)
+            check(len(plain) >= 2 and all(math.isfinite(r["value"]) for r in plain),
+                  f"cli moons: records {plain}")
+
+            # (c) the same through the launcher, a one-rank NCCL group
+            rank_dir = os.path.join(work, "rank")
+            os.makedirs(rank_dir)
+            env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                       PYTHONPATH=os.pathsep.join(
+                           [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                                     if p]))
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, "-m", "nf_tpu_torch.parallel.launch",
+                 os.path.join(ROOT, "nf_tpu_torch", "main.py")] + CLI_MOONS,
+                cwd=rank_dir, env=env, capture_output=True, text=True, timeout=CLI_CHILD_TIMEOUT)
+            t_child = time.perf_counter() - t0
+            if child.returncode != 0:
+                print(child.stdout[-4000:], child.stderr[-4000:], file=sys.stderr)
+            check(child.returncode == 0, f"cli launch: exit {child.returncode}")
+            group = re.search(r"process group: backend (\w+), world (\d+), (\d+) all-reduces, "
+                              r"(\d+) broadcasts", child.stdout)
+            check(group is not None, "cli launch: the child printed no process group line")
+            backend, world, reduces, broadcasts = group.groups()
+            check((backend, world) == ("nccl", "1"), f"cli launch: {backend}, world {world}")
+            ranked_dir = [os.path.join(rank_dir, "logs", d)
+                          for d in os.listdir(os.path.join(rank_dir, "logs"))]
+            check(len(ranked_dir) == 1, f"cli launch: run directories {ranked_dir}")
+            ranked = cli_records(ranked_dir[0])
+            check([(r["tag"], r["step"]) for r in ranked] == [(r["tag"], r["step"]) for r in plain],
+                  "cli launch: other metric records than the plain run's")
+            a = np.array([r["value"] for r in plain])
+            b = np.array([r["value"] for r in ranked])
+            rel = float(np.max(np.abs(a - b) / np.abs(a)))
+            tier_line = re.search(r"data tier (\w+)", child.stdout)
+            out["moons"] = {
+                "plain": {"run_s": t_plain, "ms_per_step": cli_ms_per_step(plain),
+                          "records": plain},
+                "one_rank_nccl": {"run_s": t_child, "ms_per_step": cli_ms_per_step(ranked),
+                                  "records": ranked, "backend": backend, "world": int(world),
+                                  "all_reduces": int(reduces), "broadcasts": int(broadcasts),
+                                  "data_tier": tier_line and tier_line.group(1),
+                                  "max_rel_loss_diff": rel}}
+            print(f"cli realnvp 2d moons (data tier {tier}): plain {t_plain:.1f} s, "
+                  f"{cli_ms_per_step(plain):.2f} ms per step; one-rank NCCL through the launcher "
+                  f"{t_child:.1f} s, {cli_ms_per_step(ranked):.2f} ms per step, backend {backend}, "
+                  f"world {world}, {reduces} all-reduces, {broadcasts} broadcasts; losses "
+                  f"{a.tolist()} against {b.tolist()}, max rel diff {rel:.3e}")
+            check(rel <= CLI_RANK_RTOL, f"cli launch: losses off by {rel} (relative)")
+        finally:
+            os.chdir(here)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 10 took {out['phase_s']:.1f} s")
+    return totals, out
+
+
 def reset_all(modules):
     for m in modules:
         m.reset_launches()
@@ -3053,9 +3261,14 @@ def main():
     for k, v in totals.items():
         if v:
             launches[k] += v
-    print(f"phase 10 (timing) starts at {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 10 (the CLI) starts at {time.perf_counter() - t_start:.1f} s")
+    totals, cli_out = cli_phase(dev, counters, launches_of)
+    for k, v in totals.items():
+        if v:
+            launches[k] += v
+    print(f"phase 11 (timing) starts at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 10. timing and bounds
+    # ---- 11. timing and bounds
     kernels = []
     for model_name, (prog, x, gen) in programs.items():
         stack = prog.stack
@@ -3165,6 +3378,7 @@ def main():
     for img in scanned:
         scan_timing(img, unrolled[img["tier"]["label"]], smi, tc)
     print(json.dumps({"checkpoint": {**ckpt, "card": smi}}))
+    print(json.dumps({"cli": {**cli_out, "card": smi}}))
     kernels += coupling_entries(tc, launches, errs, sfu_per_s, dev, coupling_per_call)
     print(f"image timing took {time.perf_counter() - t_img:.1f} s")
     t_img = time.perf_counter()

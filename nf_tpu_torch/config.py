@@ -1,13 +1,19 @@
-"""Configuration fields the ported model builders read.
+"""Configuration: nested dataclasses and dotted ``key=value`` overrides
+(counterpart of ``nf_tpu/config.py``).
 
-Counterpart of ``nf_tpu/config.py``: the port keeps its own copy of the
-``NetworkConfig`` fields that its builders use and of
-``OptimizerConfig``, with the same names and defaults, and
-``NETWORK_DEFAULTS`` for the ported networks.
+The port keeps its own copy of nf_tpu's tree with the same field names,
+defaults and errors: ``NetworkConfig`` (with ``NETWORK_DEFAULTS`` per
+network), ``TrainConfig``, ``OptimizerConfig``, ``RunConfig`` and
+``Config``.  ``parse_cli`` reads ``network=<name>`` first, so that
+network's defaults apply before the overrides, then every ``a.b=value``
+token, its value coerced by ``_coerce`` (bool, None, int, float, then
+str).  ``run.platform`` names the device: None or "cuda" the card, "cpu"
+the CPU (``platform_device``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -82,3 +88,97 @@ NETWORK_DEFAULTS = {
                    backprop="adjoint", trace="hutchinson",
                    rtol=1e-4, atol=1e-4),
 }
+
+
+@dataclass
+class TrainConfig:
+    steps: int = 100000
+    samples: int = 1024  # the batch size (per rank under data parallelism)
+    # optimizer steps taken per loop iteration (``Trainer.train_steps``);
+    # the log, metric and checkpoint cadences coarsen to it
+    chunk: int = 1
+
+
+@dataclass
+class RunConfig:
+    debug: bool = False
+    distrib: str = "circles"
+    ckpt_path: Optional[str] = None
+    output: str = "outputs"
+    display: int = 1
+    seed: int = 42
+    data_root: str = "data"
+    save_all_reports: bool = False
+    # uniform dequantization of 8-bit image data: y = (255 x + u) / 256
+    dequantize: bool = False
+    # the device: None or "cuda" the card, "cpu" the CPU
+    platform: Optional[str] = None
+    # "auto" resumes from the newest logs/<network>_<distrib>_*/latest.npz
+    # and continues in that run directory; a run directory resumes that
+    # run; None starts afresh (``ckpt_path`` loads one file and wins)
+    resume: Optional[str] = None
+
+
+@dataclass
+class Config:
+    network: NetworkConfig = field(default_factory=NetworkConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+
+def _coerce(current, value: str):
+    if isinstance(current, bool) or value.lower() in ("true", "false"):
+        return value.lower() == "true"
+    if value.lower() in ("null", "none"):
+        return None
+    for typ in (int, float):
+        try:
+            return typ(value)
+        except ValueError:
+            continue
+    return value
+
+
+def parse_cli(argv) -> Config:
+    """Parse ``key=value`` overrides (e.g. network=glow run.distrib=moons)."""
+    cfg = Config()
+    # first pass: the network group, so its defaults apply before overrides
+    for tok in argv:
+        if tok.startswith("network="):
+            name = tok.split("=", 1)[1]
+            if name not in NETWORK_DEFAULTS:
+                raise ValueError(f"unknown network {name!r}; "
+                                 f"choose from {sorted(NETWORK_DEFAULTS)}")
+            cfg.network = NetworkConfig(name=name, **NETWORK_DEFAULTS[name])
+    for tok in argv:
+        if "=" not in tok:
+            raise ValueError(f"override must be key=value, got {tok!r}")
+        path, value = tok.split("=", 1)
+        if path == "network":
+            continue
+        parts = path.split(".")
+        obj = cfg
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        leaf = parts[-1]
+        if not hasattr(obj, leaf):
+            raise ValueError(f"unknown config key {path!r}")
+        setattr(obj, leaf, _coerce(getattr(obj, leaf), value))
+    return cfg
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+PLATFORMS = (None, "cuda", "cpu")
+
+
+def platform_device(platform: Optional[str]) -> Optional[str]:
+    """``run.platform`` as a device for ``build_model``: None (the card,
+    which raises there without one) for None or "cuda", "cpu" for the
+    CPU; anything else raises ``ValueError``."""
+    if platform not in PLATFORMS:
+        raise ValueError(f"run.platform must be one of {PLATFORMS}, got {platform!r}")
+    return "cpu" if platform == "cpu" else None

@@ -31,6 +31,13 @@ stateful pass) read to leave them as the first pass left them, and the
 generator handed in is set back to its state before the first pass, so
 the recompute draws the same noise and leaves the generator where the
 forward left it.  Inverse and ``dd_init`` are never rematerialized.
+
+Debug probes (``utils/debug.py::check_chain``, ``run.debug``): a layer
+whose ``debug_tag`` is set has its output and log-det checked finite by
+``call_forward`` / ``call_inverse`` after every call, and a non-finite
+value raises ``FloatingPointError`` naming ``{debug_tag}.forward`` or
+``.inverse``.  The tag is a plain attribute: the module tree, the state
+dict and the checkpoint's structure stay as they are.
 """
 from __future__ import annotations
 
@@ -102,6 +109,7 @@ class Bijector(nn.Module):
     takes_probes = False
     takes_generator = False
     inverse_takes_generator = False
+    debug_tag: Optional[str] = None
 
     def init(self, generator: torch.Generator) -> None:
         """Re-draw this bijector's parameters in place."""
@@ -125,25 +133,42 @@ class Bijector(nn.Module):
         return call_forward(self, x, generator=generator)[0]
 
 
+def check_finite(tag: str, out):
+    """``out`` = (x, logdet), or raise ``FloatingPointError`` naming
+    ``tag`` when either holds a non-finite value."""
+    bad_x = not bool(torch.isfinite(out[0]).all())
+    bad_ld = not bool(torch.isfinite(out[1]).all())
+    if bad_x or bad_ld:
+        raise FloatingPointError(f"non-finite output in {tag}: tensor_bad={bad_x} "
+                                 f"logdet_bad={bad_ld}")
+    return out
+
+
 def call_forward(layer: Bijector, x: torch.Tensor, probes=None,
                  generator: Optional[torch.Generator] = None):
-    """``layer(x)`` with the probes and the generator it takes."""
+    """``layer(x)`` with the probes and the generator it takes (probed
+    when the layer has a ``debug_tag``)."""
     kw = {}
     if layer.takes_probes:
         kw["probes"] = probes
     if layer.takes_generator:
         kw["generator"] = generator
+    if layer.debug_tag is not None:
+        return check_finite(f"{layer.debug_tag}.forward", layer(x, **kw))
     return layer(x, **kw)
 
 
 def call_inverse(layer: Bijector, y: torch.Tensor,
                  generator: Optional[torch.Generator] = None, probes=None):
-    """``layer.inverse(y)`` with the probes and the generator it takes."""
+    """``layer.inverse(y)`` with the probes and the generator it takes
+    (probed when the layer has a ``debug_tag``)."""
     kw = {}
     if layer.takes_probes:
         kw["probes"] = probes
     if layer.inverse_takes_generator:
         kw["generator"] = generator
+    if layer.debug_tag is not None:
+        return check_finite(f"{layer.debug_tag}.inverse", layer.inverse(y, **kw))
     return layer.inverse(y, **kw)
 
 

@@ -18,6 +18,7 @@ products go through ``ops/precision.py`` (``matmul_precision``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -27,6 +28,7 @@ from torch import nn
 
 from ..core.bijector import replaying
 from ..ops import precision as pm
+from ..parallel.distributed import all_reduce_sum
 from .core import Net
 
 _WN_EPS = 1.0e-5
@@ -154,8 +156,11 @@ class BatchNormNet(Net):
     has the input's.  Training normalizes by the batch mean and the BIASED batch variance
     and moves the running statistics by ``momentum`` toward them
     (detached), as ``nf_tpu`` does; ``F.batch_norm`` would move
-    ``running_var`` toward the unbiased variance.  Eval normalizes by the
-    running statistics.  Both use ``rsqrt(var + eps)``."""
+    ``running_var`` toward the unbiased variance.  Under a mesh
+    (``global_batch``) both are the statistics of all ranks' batches, the
+    variance biased over the global count, as ``nf_tpu``'s over a sharded
+    batch.  Eval normalizes by the running statistics.  Both use
+    ``rsqrt(var + eps)``."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1.0e-5, device=None):
@@ -187,13 +192,45 @@ class BatchNormNet(Net):
         return (y * self.gamma + self.beta).to(x.dtype)
 
 
+# the mesh whose ranks' batches make one batch, while a Trainer steps
+_GLOBAL_BATCH = None
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Within it, ``batch_moments`` takes its statistics over the batches
+    of all of ``mesh``'s ranks (nf_tpu's mean over a batch sharded on its
+    mesh); ``mesh=None`` changes nothing."""
+    global _GLOBAL_BATCH
+    outer, _GLOBAL_BATCH = _GLOBAL_BATCH, mesh
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH = outer
+
+
 def batch_moments(x: torch.Tensor):
     """Per-channel (last axis) mean and biased variance over all other
-    axes, and x - mean (computed once: autograd keeps one copy of it)."""
+    axes, and x - mean (computed once: autograd keeps one copy of it).
+
+    Within ``global_batch(mesh)``, over every rank's batch: the local
+    mean is summed over the ranks by an all-reduce that carries the
+    gradient and divided by the world size (the ranks' batches are of one
+    size), then the local mean of the squared deviations from that global
+    mean the same way: two all-reduces forward and two backward, so the
+    gradient flows through the statistics as in one process over the
+    whole batch, and one rank computes bit for bit what one process does
+    without a mesh."""
     axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes)
+    mesh = _GLOBAL_BATCH
+    if mesh is None:
+        mean = x.mean(dim=axes)
+        centered = x - mean
+        return mean, (centered * centered).mean(dim=axes), centered
+    mean = all_reduce_sum(x.mean(dim=axes), mesh.group) / mesh.world
     centered = x - mean
-    return mean, (centered * centered).mean(dim=axes), centered
+    var = all_reduce_sum((centered * centered).mean(dim=axes), mesh.group) / mesh.world
+    return mean, var, centered
 
 
 @torch.no_grad()

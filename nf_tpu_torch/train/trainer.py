@@ -32,8 +32,20 @@ generator of its own, seeded from ``(seed, "dd")`` (``nf_tpu``'s
 frameworks' draws differ, so parity tests inject the noise.
 
 Checkpoints: ``train/checkpoint.py`` writes and reads ``nf_tpu``'s file
-format, the optimizer state in ``optax``'s form.  Not ported yet: ``mesh``
-(data parallelism) and multi-process start-up.
+format, the optimizer state in ``optax``'s form.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): R ranks at b rows each
+take the step one process takes at R·b rows.  Each rank's loss is its
+local mean; its forward and backward run under ``global_batch(mesh)``, so
+every batch norm's statistics are those of all ranks' rows, their
+gradient flowing through the reduction; the gradients are then averaged
+by ONE all-reduce of a flat buffer (``average_gradients``), and the loss
+returned is the global mean, reduced on the device.  ``init_state`` runs
+the data-dependent init on each rank's own batch, then broadcasts rank
+0's parameters and buffers (``replicate``), as ``nf_tpu``'s
+``broadcast_one_to_all``.  The step generator folds the rank into its
+seed when the world is larger than one (``host_seed``), so per-step noise
+differs by rank, as ``nf_tpu``'s multi-process trainer folds its key.
 """
 from __future__ import annotations
 
@@ -44,6 +56,9 @@ import numpy as np
 import torch
 
 from ..models.base import FlowModel
+from ..nets.layers import global_batch
+from ..parallel.distributed import host_seed
+from ..parallel.sharding import average_gradients, global_mean, replicate
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:
@@ -102,11 +117,15 @@ class TrainState:
 
 
 class Trainer:
-    def __init__(self, model: FlowModel, opt_cfg, seed: int = 42):
+    def __init__(self, model: FlowModel, opt_cfg, mesh=None, seed: int = 42):
         self.model = model
         self.opt_cfg = opt_cfg
+        self.mesh = mesh
         self.seed = seed
         self.schedule = lr_schedule(opt_cfg)
+        # the per-step generators' seed: the rank folded in past one rank
+        self.step_seed = (host_seed(seed, mesh.rank) if mesh is not None and mesh.world > 1
+                          else seed)
 
     # ------------------------------------------------------------------ init
     def init_state(self, sample_batch: Optional[torch.Tensor] = None,
@@ -114,14 +133,17 @@ class Trainer:
         """Draw the parameters from the trainer's seed (or load ``params``,
         a state dict as ``FlowModel.init`` or ``convert.load_jax_variables``
         return it), run the data-dependent init on ``sample_batch`` when
-        given, with ``dd_generator()``, and make the optimizer."""
+        given, with ``dd_generator()``, and make the optimizer.  Under a
+        mesh every rank then takes rank 0's parameters and buffers."""
         model = self.model
         if params is None:
             model.init(torch.Generator(device=model.device).manual_seed(self.seed))
         else:
             model.load_state_dict(params)
         if sample_batch is not None:
-            model.data_dependent_init(sample_batch, self.dd_generator())
+            model.data_dependent_init(self._batch(sample_batch), self.dd_generator())
+        if self.mesh is not None:
+            replicate(model, self.mesh)
         return TrainState(0, make_optimizer(self.opt_cfg, list(model.parameters())))
 
     def _generator(self, seq: np.random.SeedSequence) -> torch.Generator:
@@ -135,9 +157,10 @@ class Trainer:
     # ----------------------------------------------------------------- steps
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of update ``step``, on the model's device: seeded
-        from ``(seed, step)``, so each step draws anew and a step run again
-        draws the same."""
-        return self._generator(np.random.SeedSequence((self.seed, step)))
+        from ``(seed, step)`` (the seed with the rank folded in past one
+        rank), so each step draws anew and a step run again draws the
+        same."""
+        return self._generator(np.random.SeedSequence((self.step_seed, step)))
 
     def _batch(self, batch) -> torch.Tensor:
         return torch.as_tensor(batch).to(device=self.model.device, dtype=torch.float32)
@@ -145,13 +168,18 @@ class Trainer:
     def train_step(self, ts: TrainState, batch):
         """One update; returns (ts, loss) with the loss a 0-d device tensor.
         The model is put in train mode first (``eval_program`` leaves it in
-        eval mode)."""
+        eval mode).  Under a mesh ``batch`` is this rank's rows and the
+        loss the mean over all ranks' rows."""
         model = self.model
         model.train()
         opt = ts.optimizer
         opt.zero_grad(set_to_none=True)
-        loss = -model.log_prob(self._batch(batch), self.step_generator(ts.step)).mean()
-        loss.backward()
+        with global_batch(self.mesh):
+            loss = -model.log_prob(self._batch(batch), self.step_generator(ts.step)).mean()
+            loss.backward()
+        if self.mesh is not None:
+            average_gradients(model.parameters(), self.mesh)
+            loss = global_mean(loss, self.mesh)
         lr = self.schedule(ts.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -178,6 +206,12 @@ class Trainer:
         dequantization sample per call; FFJORD's probes)."""
         self.model.eval()
         return self.model.log_prob(self._batch(batch), generator)
+
+    @torch.no_grad()
+    def forward(self, ts: TrainState, batch):
+        """Eval-mode (z, log|det dz/dx|) of ``batch``, each (B, ...)."""
+        self.model.eval()
+        return self.model(self._batch(batch))
 
     @torch.no_grad()
     def sample(self, ts: TrainState, n: int, generator: torch.Generator):
