@@ -216,25 +216,36 @@ Phases, each of which exits non-zero when it fails:
      "run.seed=0"]) on the card: realnvp-img32x1 at full width and the
      CLI's default train.samples = 1024 on the synthetic MNIST images
      (no data files: nf_tpu's fallback), its launches counted (for each
-     of the chain's 161 couplings one coupling_fwd in init_state and one
-     coupling_fwd and one coupling_bwd per step, no other kernel); the
-     three image metric tags in metrics.jsonl, every value finite;
-     then train.steps=6 run.resume=auto, which must re-enter the run
-     directory (init_state's forward and two steps counted the same way),
-     and latest.npz loaded back through the port at step 6, log p of 64
-     pixels finite; the host's ms per FlowDataLoader.next_batch at 1024
-     rows (moons, and synthetic MNIST dequantized) printed beside the data
-     tier; (b) main(["network=realnvp", "run.distrib=moons",
-     "run.display=1", "run.seed=0", "train.steps=100"]) (RealNVP 2-D at
-     the default width, B = 1024: the eager chain trains, no kernel), the
-     data tier (native or numpy) and the ms per step between the metric
-     records of steps 1 and 100 printed; (c) the same overrides through
-     "python -m nf_tpu_torch.parallel.launch nf_tpu_torch/main.py" in a
-     subprocess (300 s limit) under RANK=0 WORLD_SIZE=1 LOCAL_RANK=0
-     MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>: a one-rank NCCL group,
-     so the gradient all-reduce, the reduced batch moments and the init
-     broadcast run on the card; the child's backend, world size and
-     all-reduce count printed, its losses within rtol 1e-5 of (b)'s;
+     of the chain's 161 couplings one coupling_fwd in init_state, one
+     coupling_fwd and one coupling_bwd per step, and one coupling_inv for
+     the report's 64 samples at step 1, no other kernel); the three image
+     metric tags in metrics.jsonl, every value finite; the report's
+     y_data_000001.jpg and y_image_000001.jpg and their _latest copies
+     read by the port's own JPEG header parse (SOI, SOF0 265 x 265 x 1,
+     EOI); then train.steps=6 run.resume=auto, which must re-enter the run
+     directory (init_state's forward, two steps and the step-5 report
+     counted the same way, its files at step 5), and latest.npz loaded
+     back through the port at step 6, log p of 64 pixels finite;
+     utils/profiling.trace round one forward of the reloaded model, its
+     trace file written and naming coupling_fwd; the host's ms per
+     FlowDataLoader.next_batch at 1024 rows (moons, and synthetic MNIST
+     dequantized) printed beside the data tier; (b) main(["network=realnvp",
+     "run.distrib=moons", "run.display=0.6", "run.seed=0",
+     "train.steps=60"]) (RealNVP 2-D at the default width, B = 1024: the
+     eager chain trains, no kernel), its four report panels at step 1
+     read back (600 x 600 x 3), the data tier and the ms per step between
+     the metric records of steps 1 and 60 printed; (c) the same
+     overrides through "python -m nf_tpu_torch.parallel.launch
+     nf_tpu_torch/main.py" in a subprocess (300 s limit) under RANK=0
+     WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>:
+     a one-rank NCCL group, which forms no mesh (nf_tpu's main.py forms
+     one only past one device): 0 all-reduces and 0 broadcasts, the
+     losses (b)'s bit for bit; (d) a one-rank NCCL group in this process
+     and Trainer(mesh=make_mesh()) on RealNVP 2-D at the default width,
+     5 Adam steps on moons at B = 1024 (the gradient all-reduce, the
+     reduced batch moments and the init broadcast on the card) against
+     the plain Trainer's steps: losses and every parameter and buffer
+     bit for bit;
  11. time each kernel (CUDA events over back-to-back launches, warm L2 as
      in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
      and by their profiler records; the coupling kernels by their own
@@ -279,7 +290,10 @@ Phases, each of which exits non-zero when it fails:
      RealNVP and Glow entries their kernel variant, the blocks one SM
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
-     phase 3);
+     phase 3); and utils/profiling.roofline_estimate of the RealNVP 2-D
+     serving pair (forward and inverse at B = 8192, 32 couplings),
+     counted on the CPU, beside stack_work's count and the kernels' and
+     the EvalProgram's measured time on the card;
  12. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -2841,11 +2855,13 @@ def production_shape_phase(device, counters, launches_of):
 CLI_IMAGE = ["network=realnvp", "run.distrib=mnist", "run.dequantize=true", "run.display=1",
              "run.seed=0"]           # realnvp-img32x1, train.samples 1024 (the CLI's default)
 CLI_STEPS, CLI_RESUMED = 4, 6
-CLI_MOONS = ["network=realnvp", "run.distrib=moons", "run.display=1", "run.seed=0",
-             "train.steps=100"]      # metric records at steps 1 and 100
+CLI_MOONS = ["network=realnvp", "run.distrib=moons", "run.display=0.6", "run.seed=0",
+             "train.steps=60"]       # metric records and reports at steps 1 and 60
+CLI_MOONS_PANELS = ("y_data", "z_sample", "y_sample", "y_dist")
+CLI_IMAGE_GRID = (8 * 33 + 1, 8 * 33 + 1, 1)   # 64 images of 32 x 32 x 1, 8 a row
+CLI_MESH_STEPS = 5                   # Trainer(mesh=make_mesh()) on one NCCL rank
 CLI_IMAGE_TAGS = {"image/train/loss", "image/train/bits_per_dim",
                   "image/train/bits_per_dim_discrete"}
-CLI_RANK_RTOL = 1e-5                 # the one-rank NCCL run against the plain run
 CLI_CHILD_TIMEOUT = 300
 CLI_LOADER_BATCHES = 64              # batches timed per data set (host time)
 
@@ -2860,6 +2876,84 @@ def cli_ms_per_step(recs):
     records' host times)."""
     loss = [r for r in recs if r["tag"].endswith("/train/loss")]
     return (loss[-1]["t"] - loss[0]["t"]) * 1e3 / (loss[-1]["step"] - loss[0]["step"])
+
+
+def report_files(run_dir, names, step, shape):
+    """Read each report panel's JPEG (the step's and the _latest copy) with
+    the port's header parse; returns their sizes in bytes."""
+    from nf_tpu_torch.utils import jpeg
+
+    sizes = {}
+    for name in names:
+        for tag in (f"{step:06d}", "latest"):
+            path = os.path.join(run_dir, f"{name}_{tag}.jpg")
+            check(os.path.exists(path), f"cli report: no {os.path.basename(path)}")
+            with open(path, "rb") as f:
+                raw = f.read()
+            got = jpeg.read_header(raw)
+            check(got == shape, f"cli report: {os.path.basename(path)} is {got}, not {shape}")
+            sizes[os.path.basename(path)] = len(raw)
+    return sizes
+
+
+def trace_names_coupling(model, trainer, ts, x, folder):
+    """utils/profiling.trace round one forward of ``model``: the trace file
+    written, and the coupling forward named in it."""
+    from nf_tpu_torch.utils import profiling
+
+    with profiling.trace(folder) as prof:
+        trainer.log_prob(ts, x)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    named = sum(e.get("name") == "coupling_fwd" for e in events)
+    check(named > 0, f"trace: {prof.trace_path} does not name coupling_fwd")
+    return {"file_bytes": os.path.getsize(prof.trace_path), "events": len(events),
+            "coupling_fwd_ranges": named}
+
+
+def mesh_trainer_bitwise(device):
+    """A one-rank NCCL group in this process: Trainer(mesh=make_mesh()) on
+    RealNVP 2-D at the default width against the plain Trainer, the same
+    steps on moons; returns the losses and the collectives counted."""
+    import torch.distributed as dist
+
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.data import FlowDataLoader
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.parallel import COLLECTIVES, init_distributed, make_mesh
+    from nf_tpu_torch.train import Trainer
+
+    dl = FlowDataLoader("moons", batch_size=1024, seed=0)
+    batches = [dl.next_batch() for _ in range(CLI_MESH_STEPS + 1)]
+    cfg = NetworkConfig(name="realnvp", **NETWORK_DEFAULTS["realnvp"])
+    check(init_distributed(None, f"tcp://127.0.0.1:{free_port()}", 0, 1),
+          "mesh trainer: no process group")
+    try:
+        check(dist.get_backend() == "nccl", f"mesh trainer: backend {dist.get_backend()}")
+        runs = {}
+        for label, mesh in (("plain", None), ("mesh", make_mesh())):
+            before = dict(COLLECTIVES)
+            model = build_model("realnvp", (2,), "2d", cfg, device=device)
+            tr = Trainer(model, OptimizerConfig(), mesh=mesh, seed=SEED)
+            ts = tr.init_state(batches[0])
+            losses = []
+            for b in batches[1:]:
+                ts, loss = tr.train_step(ts, b)
+                losses.append(float(loss))
+            runs[label] = (losses, {k: t.clone() for k, t in model.state_dict().items()},
+                           {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES})
+    finally:
+        dist.destroy_process_group()
+    (plain, ps, _), (meshed, ms, counted) = runs["plain"], runs["mesh"]
+    same = all(torch.equal(ps[k], ms[k]) for k in ps)
+    print(f"mesh trainer (one NCCL rank, RealNVP 2-D, {CLI_MESH_STEPS} steps at B = 1024): "
+          f"losses {meshed} against the plain {plain}; state bit for bit {same}; "
+          f"collectives {counted}")
+    check(meshed == plain and same, "mesh trainer: not the plain steps bit for bit")
+    check(counted["all_reduce"] > 0 and counted["broadcast"] > 0,
+          f"mesh trainer: the collectives did not run ({counted})")
+    return {"losses": meshed, "plain_losses": plain, "collectives": counted,
+            "state_bitwise": same}
 
 
 def free_port():
@@ -2917,14 +3011,19 @@ def cli_phase(device, counters, launches_of):
                                         ([f"train.steps={CLI_RESUMED}", "run.resume=auto"],
                                          CLI_RESUMED - CLI_STEPS, CLI_STEPS)):
                 t0 = time.perf_counter()
+                # the report samples 64 images at the run's first step
                 run_dir = counted_call(
                     f"cli realnvp-img32x1 steps {start}->{start + steps}",
                     lambda: cli.main(CLI_IMAGE + extra),
-                    {"coupling_fwd": n * (1 + steps), "coupling_bwd": n * steps},
+                    {"coupling_fwd": n * (1 + steps), "coupling_bwd": n * steps,
+                     "coupling_inv": n},
                     counters, launches_of, totals)
                 runs.append((run_dir, time.perf_counter() - t0))
             (run_dir, t_first), (again, t_again) = runs
             check(again == run_dir, f"cli: run.resume=auto went to {again}, not {run_dir}")
+            jpegs = {**report_files(run_dir, ("y_data", "y_image"), 1, CLI_IMAGE_GRID),
+                     **report_files(run_dir, ("y_data", "y_image"), CLI_STEPS + 1,
+                                    CLI_IMAGE_GRID)}
             recs = cli_records(run_dir)
             check({r["tag"] for r in recs} == CLI_IMAGE_TAGS, "cli: the image metric tags")
             check([r["step"] for r in recs if r["tag"] == "image/train/loss"]
@@ -2940,13 +3039,16 @@ def cli_phase(device, counters, launches_of):
             logp = trainer.log_prob(ts, x)
             check(step == CLI_RESUMED and bool(torch.isfinite(logp).all()),
                   f"cli: latest.npz at step {step}, log p finite {bool(torch.isfinite(logp).all())}")
+            traced = trace_names_coupling(model, trainer, ts, x, os.path.join(work, "trace"))
             out["image"] = {"run_s": [t_first, t_again], "records": recs,
                             "latest_step": step, "file_bytes": os.path.getsize(path),
-                            "reloaded_logp_mean": float(logp.mean())}
+                            "reloaded_logp_mean": float(logp.mean()), "report_jpegs": jpegs,
+                            "trace": traced}
             print(f"cli realnvp-img32x1: {CLI_STEPS} steps in {t_first:.1f} s, resumed to "
                   f"{CLI_RESUMED} in {t_again:.1f} s (the same run directory); metrics "
                   f"{[(r['tag'], r['step'], round(r['value'], 4)) for r in recs]}; latest.npz "
-                  f"step {step}, log p of 64 pixels {float(logp.mean()):.1f} on reload")
+                  f"step {step}, log p of 64 pixels {float(logp.mean()):.1f} on reload; report "
+                  f"files {jpegs}; trace of one forward {traced}")
             del model, trainer, ts
             torch.cuda.empty_cache()
 
@@ -2959,6 +3061,7 @@ def cli_phase(device, counters, launches_of):
             plain = cli_records(plain_dir)
             check(len(plain) >= 2 and all(math.isfinite(r["value"]) for r in plain),
                   f"cli moons: records {plain}")
+            moons_jpegs = report_files(plain_dir, CLI_MOONS_PANELS, 1, (600, 600, 3))
 
             # (c) the same through the launcher, a one-rank NCCL group
             rank_dir = os.path.join(work, "rank")
@@ -2982,6 +3085,9 @@ def cli_phase(device, counters, launches_of):
             check(group is not None, "cli launch: the child printed no process group line")
             backend, world, reduces, broadcasts = group.groups()
             check((backend, world) == ("nccl", "1"), f"cli launch: {backend}, world {world}")
+            check((reduces, broadcasts) == ("0", "0"),
+                  f"cli launch: one rank formed a mesh ({reduces} all-reduces, {broadcasts} "
+                  f"broadcasts)")
             ranked_dir = [os.path.join(rank_dir, "logs", d)
                           for d in os.listdir(os.path.join(rank_dir, "logs"))]
             check(len(ranked_dir) == 1, f"cli launch: run directories {ranked_dir}")
@@ -2994,7 +3100,7 @@ def cli_phase(device, counters, launches_of):
             tier_line = re.search(r"data tier (\w+)", child.stdout)
             out["moons"] = {
                 "plain": {"run_s": t_plain, "ms_per_step": cli_ms_per_step(plain),
-                          "records": plain},
+                          "records": plain, "report_jpegs": moons_jpegs},
                 "one_rank_nccl": {"run_s": t_child, "ms_per_step": cli_ms_per_step(ranked),
                                   "records": ranked, "backend": backend, "world": int(world),
                                   "all_reduces": int(reduces), "broadcasts": int(broadcasts),
@@ -3005,12 +3111,50 @@ def cli_phase(device, counters, launches_of):
                   f"{t_child:.1f} s, {cli_ms_per_step(ranked):.2f} ms per step, backend {backend}, "
                   f"world {world}, {reduces} all-reduces, {broadcasts} broadcasts; losses "
                   f"{a.tolist()} against {b.tolist()}, max rel diff {rel:.3e}")
-            check(rel <= CLI_RANK_RTOL, f"cli launch: losses off by {rel} (relative)")
+            check(rel == 0.0, f"cli launch: losses off by {rel} (relative), not bit for bit")
         finally:
             os.chdir(here)
+    # (d) Trainer(mesh=make_mesh()) on one NCCL rank, bit for bit the plain steps
+    out["mesh_trainer"] = mesh_trainer_bitwise(device)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10 took {out['phase_s']:.1f} s")
     return totals, out
+
+
+def serving_roofline(prog, x, zin, t_fwd, t_inv, kernel_fwd_ms, kernel_inv_ms, smi):
+    """utils/profiling.roofline_estimate of the RealNVP 2-D serving pair
+    (forward of x, inverse of zin), counted on a CPU copy of the program's
+    model (the plain versions' work), beside stack_work's count of the two
+    kernel calls and the card's measured times."""
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.utils import profiling
+
+    cfg = NetworkConfig(name="realnvp", **NETWORK_DEFAULTS["realnvp"])
+    cpu = build_model("realnvp", (2,), "2d", cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in prog.model.state_dict().items()})
+    cpu.eval()
+    xc, zc = x.cpu(), zin.cpu()
+    t0 = time.perf_counter()
+    est = profiling.roofline_estimate(lambda a, b: (cpu(a), cpu.inverse(b)), xc, zc,
+                                      measured_seconds=(kernel_fwd_ms + kernel_inv_ms) / 1e3)
+    count_s = time.perf_counter() - t0
+    work = stack_work(prog.stack, BATCH)
+    scanned = profiling.model_flops(cpu, xc)["flops"] + profiling.model_flops(
+        cpu, zc, "inverse")["flops"]
+    check(math.isfinite(est["flops"]) and est["flops"] > 0, "roofline: no flops counted")
+    line = {"model": f"realnvp 2d, {prog.stack.spec.n_repeats} couplings, "
+                     f"F={prog.stack.spec.filters}, forward + inverse", "batch": BATCH,
+            **est, "model_flops_fwd_plus_inv": scanned,
+            "stack_work_flop_fwd_plus_inv": 2 * work["flop"],
+            "stack_work_bytes_fwd_plus_inv": 2 * work["bytes"],
+            "kernel_ms_fwd_plus_inv": kernel_fwd_ms + kernel_inv_ms,
+            "eval_program_ms_fwd_plus_inv": t_fwd + t_inv,
+            "eval_program_flops_per_s": est["flops"] / ((t_fwd + t_inv) / 1e3),
+            "counted_on": "cpu (the plain versions), "
+                          f"{count_s:.1f} s", "card": smi}
+    print(json.dumps({"roofline": line}))
+    return line
 
 
 def reset_all(modules):
@@ -3329,6 +3473,9 @@ def main():
                     + (f", K={spec.n_mixtures}" if flowpp else ""))
         t_fwd = wall_ms(lambda: prog.forward(x), 200)
         t_inv = wall_ms(lambda: prog.inverse(zin), 200)
+        if model_name == "realnvp":
+            serving_roofline(prog, x, zin, t_fwd, t_inv, kernels[-2]["ms"], kernels[-1]["ms"],
+                             smi)
         busy = launch_busy(lambda: (prog.forward(x), prog.inverse(zin)), 50, counters,
                            launches_of, {e["name"]: e["ms"] for e in kernels})
         host = {}

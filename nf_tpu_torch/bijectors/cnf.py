@@ -36,6 +36,7 @@ from ..nets.layers import uniform
 from ..ops import precision as pm
 from ..ops.estimators import trace_exact, trace_hutchinson
 from ..ops.odeint import SolveStats, check_solver, odeint, odeint_adjoint
+from ..parallel.distributed import draw_rows
 
 BACKPROPS = ("normal", "adjoint")
 EVAL_PROBES = 4
@@ -130,8 +131,8 @@ class CNF(Bijector):
             return torch.zeros((1,) + x.shape, dtype=x.dtype, device=x.device)
         if generator is None:
             generator = torch.Generator(device=x.device).manual_seed(0)
-        v = torch.randn((n_probes,) + x.shape, generator=generator, device=generator.device,
-                        dtype=torch.float32)
+        # this rank's rows of the host's draw in a data-parallel step
+        v = draw_rows((n_probes,) + x.shape, generator, axis=1)
         return v.to(device=x.device, dtype=x.dtype)
 
     def _dynamics(self, exact: bool):
@@ -160,8 +161,9 @@ class CNF(Bijector):
         fn = self._dynamics(exact)
         state0 = (x, torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
         if self.backprop == "adjoint":
+            # the net's parameters are shared by the batch, the probes per sample
             return odeint_adjoint(fn, params, state0, times, self.solver, self.rtol,
-                                  self.atol, self.stats)
+                                  self.atol, self.stats, (True,) * (len(params) - 1) + (False,))
         return odeint(lambda t, s: fn(params, t, s), state0, times, self.solver,
                       self.rtol, self.atol, self.stats)
 

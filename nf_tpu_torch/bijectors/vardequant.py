@@ -27,6 +27,7 @@ from torch import nn
 from ..core.bijector import Bijector
 from ..nets.conditioners import ConvNet
 from ..ops.math import log_deriv_sigmoid, standard_normal_logprob, sum_except_batch
+from ..parallel.distributed import draw_rows
 
 
 def checker_mask(h: int, w: int, c: int, odd: bool, device=None) -> torch.Tensor:
@@ -81,9 +82,8 @@ class VariationalDequant(Bijector):
         nb = float(self.n_bins)
         xq = torch.floor(torch.clamp(x, 0.0, 1.0 - 1e-6) * nb)
         eps = self.injected_eps
-        if eps is None:
-            eps = torch.randn(x.shape, generator=generator, device=generator.device,
-                              dtype=torch.float32)
+        if eps is None:   # this rank's rows of the host's draw in a data-parallel step
+            eps = draw_rows(x.shape, generator)
         eps = eps.to(device=x.device, dtype=x.dtype)
         u, logq = self._flow(x, eps)
         d = math.prod(self.dims)

@@ -18,9 +18,21 @@ nf_tpu's checkpoint format.  ``run.resume=auto`` continues the newest run
 of the same network and data in its directory, ``run.resume=<dir>`` that
 run, ``run.ckpt_path`` loads one file.  The loop, its log, metric and
 checkpoint cadences and the metric tags are nf_tpu's; a resumed run
-starts the data stream from its first batch, as nf_tpu's does.
-Under a process group each rank draws its own data shard, and rank 0
-writes the run directory.
+starts the data stream from its first batch, as nf_tpu's does.  On every
+metric tick rank 0 writes nf_tpu's report panels (``train/report.py``):
+to TensorBoard, and as ``<name>_<step:06d>.jpg`` and ``<name>_latest.jpg``
+files on nf_tpu's ``save_files`` ticks (the first of a run, every
+``display * 1000`` steps, or every tick with ``run.save_all_reports``).
+
+Under a process group the ranks of one host act as nf_tpu's one process on
+that host (``LOCAL_WORLD_SIZE`` ranks a host, torchrun's variable; every
+rank when it is unset): each draws the host's stream at ``train.samples``
+rows (shard = host, shards = hosts, nf_tpu's one stream per host) and
+keeps its rows of every batch (``shard_batch``), so a step takes
+``train.samples`` rows a host in all, which must divide by the host's
+ranks.  ``init_state`` takes the host's whole first batch.  A mesh forms
+only past one rank, as nf_tpu's ``main.py`` forms one only past one
+device, and rank 0 writes the run directory.
 """
 from __future__ import annotations
 
@@ -37,10 +49,12 @@ import torch.distributed as dist
 from nf_tpu_torch.config import parse_cli, platform_device, to_dict
 from nf_tpu_torch.data import FlowDataLoader
 from nf_tpu_torch.models import build_model
-from nf_tpu_torch.parallel import COLLECTIVES, init_distributed, is_host0, make_mesh
-from nf_tpu_torch.parallel.distributed import rank, world_size
+from nf_tpu_torch.parallel import (COLLECTIVES, init_distributed, is_host0, local_world_size,
+                                   make_mesh, node, nodes, shard_batch)
+from nf_tpu_torch.parallel.distributed import world_size
 from nf_tpu_torch.train import Trainer, load_checkpoint, save_checkpoint
 from nf_tpu_torch.train.metrics import MetricWriter
+from nf_tpu_torch.train.report import report
 from nf_tpu_torch.utils import Logging
 from nf_tpu_torch.utils.debug import check_chain
 
@@ -108,6 +122,9 @@ def train(cfg, device: torch.device) -> str:
     run_dir, resume_ckpt = _run_dir(cfg)
     if is_host0():
         os.makedirs(run_dir, exist_ok=True)
+    if cfg.train.samples % local_world_size():
+        raise ValueError(f"train.samples={cfg.train.samples} does not split over the "
+                         f"{local_world_size()} ranks of a host")
 
     dataset = FlowDataLoader(
         cfg.run.distrib,
@@ -116,8 +133,8 @@ def train(cfg, device: torch.device) -> str:
         shuffle=True,
         seed=cfg.run.seed,
         data_root=cfg.run.data_root,
-        shard_id=rank(),
-        num_shards=world_size(),
+        shard_id=node(),
+        num_shards=nodes(),
         dequantize=cfg.run.dequantize,
     )
 
@@ -126,9 +143,13 @@ def train(cfg, device: torch.device) -> str:
     if cfg.run.debug:
         # every layer's output and log-det checked finite (utils/debug.py)
         check_chain(model.bijector)
-    mesh = make_mesh() if dist.is_initialized() else None
+    mesh = make_mesh() if world_size() > 1 else None
     trainer = Trainer(model, cfg.optimizer, mesh=mesh, seed=cfg.run.seed)
-    ts = trainer.init_state(dataset.next_batch())
+    ts = trainer.init_state(dataset.next_batch())   # the host's whole batch
+
+    def mine(batch):
+        """This rank's rows of the host's batch."""
+        return batch if mesh is None else shard_batch(batch, mesh)
 
     start_step = 0
     ckpt = cfg.run.ckpt_path or resume_ckpt
@@ -139,8 +160,10 @@ def train(cfg, device: torch.device) -> str:
     writer = MetricWriter(run_dir)
     display = cfg.run.display
     step = start_step
+    rows = cfg.train.samples // (1 if mesh is None else mesh.host_data)
     logger.info(f"training {cfg.network.name} on {cfg.run.distrib} ({world_size()} "
-                f"{device.type} devices, data tier {dataset.tier}, run dir {run_dir})")
+                f"{device.type} devices, {cfg.train.samples} rows a host a step, {rows} a "
+                f"rank, data tier {dataset.tier}, run dir {run_dir})")
 
     chunk = max(1, int(cfg.train.chunk))
     data_iter = iter(dataset)
@@ -152,7 +175,7 @@ def train(cfg, device: torch.device) -> str:
                 data = next(data_iter)
             except StopIteration:
                 break
-            ts, loss = trainer.train_step(ts, data)
+            ts, loss = trainer.train_step(ts, mine(data))
             step += 1
         else:
             stack = []
@@ -164,7 +187,8 @@ def train(cfg, device: torch.device) -> str:
                     break
             if not stack:
                 break
-            ts, losses = trainer.train_steps(ts, np.stack(stack))
+            data = stack[-1]
+            ts, losses = trainer.train_steps(ts, np.stack([mine(b) for b in stack]))
             loss = losses[-1]
             step += len(stack)
 
@@ -184,8 +208,11 @@ def train(cfg, device: torch.device) -> str:
                     # discrete 8-bit bits/dim: + log2(256) for the
                     # dequantization's change of measure
                     writer.scalar("image/train/bits_per_dim_discrete", bpd + 8.0, step)
-            # nf_tpu's report(...) (sample and density panels, image
-            # files) runs here; not ported yet (ROADMAP.md, queue 1, item 10)
+            save_files = (cfg.run.save_all_reports
+                          or step % (display * 1000) < chunk
+                          or step <= start_step + chunk)
+            report(trainer, ts, writer, data, step, run_dir,
+                   save_files=save_files, name=cfg.network.name)
             writer.flush()
 
         if step <= start_step + chunk or step % (display * 1000) < chunk:
@@ -193,8 +220,8 @@ def train(cfg, device: torch.device) -> str:
 
     save_checkpoint(os.path.join(run_dir, "latest.npz"), model, ts)
     writer.close()
-    if mesh is not None:
-        logger.info(f"process group: backend {dist.get_backend()}, world {mesh.world}, "
+    if dist.is_initialized():
+        logger.info(f"process group: backend {dist.get_backend()}, world {world_size()}, "
                     f"{COLLECTIVES['all_reduce']} all-reduces, "
                     f"{COLLECTIVES['broadcast']} broadcasts")
     logger.info("done")

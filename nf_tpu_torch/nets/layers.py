@@ -18,7 +18,6 @@ products go through ``ops/precision.py`` (``matmul_precision``).
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional
 
@@ -28,7 +27,7 @@ from torch import nn
 
 from ..core.bijector import replaying
 from ..ops import precision as pm
-from ..parallel.distributed import all_reduce_sum
+from ..parallel.distributed import all_reduce_sum, batch_mesh, global_batch  # noqa: F401
 from .core import Net
 
 _WN_EPS = 1.0e-5
@@ -157,8 +156,8 @@ class BatchNormNet(Net):
     and moves the running statistics by ``momentum`` toward them
     (detached), as ``nf_tpu`` does; ``F.batch_norm`` would move
     ``running_var`` toward the unbiased variance.  Under a mesh
-    (``global_batch``) both are the statistics of all ranks' batches, the
-    variance biased over the global count, as ``nf_tpu``'s over a sharded
+    (``global_batch``) both are the statistics of the data ranks' batches,
+    the variance biased over the global count, as ``nf_tpu``'s over a sharded
     batch.  Eval normalizes by the running statistics.  Both use
     ``rsqrt(var + eps)``."""
 
@@ -192,44 +191,28 @@ class BatchNormNet(Net):
         return (y * self.gamma + self.beta).to(x.dtype)
 
 
-# the mesh whose ranks' batches make one batch, while a Trainer steps
-_GLOBAL_BATCH = None
-
-
-@contextlib.contextmanager
-def global_batch(mesh):
-    """Within it, ``batch_moments`` takes its statistics over the batches
-    of all of ``mesh``'s ranks (nf_tpu's mean over a batch sharded on its
-    mesh); ``mesh=None`` changes nothing."""
-    global _GLOBAL_BATCH
-    outer, _GLOBAL_BATCH = _GLOBAL_BATCH, mesh
-    try:
-        yield
-    finally:
-        _GLOBAL_BATCH = outer
-
-
 def batch_moments(x: torch.Tensor):
     """Per-channel (last axis) mean and biased variance over all other
     axes, and x - mean (computed once: autograd keeps one copy of it).
 
-    Within ``global_batch(mesh)``, over every rank's batch: the local
-    mean is summed over the ranks by an all-reduce that carries the
-    gradient and divided by the world size (the ranks' batches are of one
-    size), then the local mean of the squared deviations from that global
-    mean the same way: two all-reduces forward and two backward, so the
-    gradient flows through the statistics as in one process over the
-    whole batch, and one rank computes bit for bit what one process does
-    without a mesh."""
+    Within ``global_batch(mesh)`` (``parallel/distributed.py``), over the
+    batches of the mesh's data group: the local mean is summed over the
+    group by an all-reduce that carries the gradient and divided by its
+    size (the ranks' batches are of one size), then the local mean of the
+    squared deviations from that global mean the same way: two all-reduces
+    forward and two backward, so the gradient flows through the statistics
+    as in one process over the whole batch, and one rank computes bit for
+    bit what one process does without a mesh.  The ranks of a model group
+    hold the same rows, so the data group is all that is reduced over."""
     axes = tuple(range(x.dim() - 1))
-    mesh = _GLOBAL_BATCH
+    mesh = batch_mesh()
     if mesh is None:
         mean = x.mean(dim=axes)
         centered = x - mean
         return mean, (centered * centered).mean(dim=axes), centered
-    mean = all_reduce_sum(x.mean(dim=axes), mesh.group) / mesh.world
+    mean = all_reduce_sum(x.mean(dim=axes), mesh.group) / mesh.data_size
     centered = x - mean
-    var = all_reduce_sum((centered * centered).mean(dim=axes), mesh.group) / mesh.world
+    var = all_reduce_sum((centered * centered).mean(dim=axes), mesh.group) / mesh.data_size
     return mean, var, centered
 
 

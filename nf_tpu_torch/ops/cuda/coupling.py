@@ -44,6 +44,7 @@ memory bounds them: 2.5 us per forward call at (1024, 512) at 3.35 TB/s.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -126,6 +127,14 @@ def _check(name, halves, scalars):
                              f"{ref.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def _labelled(name):
+    """A profiler range named for the kernel while a profiler records
+    (``utils/profiling.trace``); nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"{what} kernel failed to launch: CUDA error {err}")
@@ -140,7 +149,7 @@ def launch(a, t, raw_s, gain, bias, inverse: bool):
     ld = torch.empty(B, dtype=torch.float32, device=a.device)
     if B == 0:
         return out, ld
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(a.device), _labelled(name):
         err = _fn("nf_coupling", 7, 3)(
             a.data_ptr(), t.data_ptr(), raw_s.data_ptr(), gain.data_ptr(), bias.data_ptr(),
             out.data_ptr(), ld.data_ptr(), B, N, int(inverse),
@@ -174,7 +183,7 @@ def launch_bwd(z0, raw_s, gain, bias, gy, gld):
     partial = torch.empty(B, 2, dtype=torch.float32, device=z0.device)
     dgain = torch.empty_like(gain)
     dbias = torch.empty_like(bias)
-    with torch.cuda.device(z0.device):
+    with torch.cuda.device(z0.device), _labelled("coupling_bwd"):
         stream = torch.cuda.current_stream().cuda_stream
         ticket = _ticket(z0.device, stream)
         err = _fn("nf_coupling_bwd", 12, 2)(

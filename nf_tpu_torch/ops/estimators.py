@@ -39,6 +39,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..parallel.distributed import draw_rows
+
 # Cap for Russian-roulette series length: n_exact + Geom(p), G <= 32
 SERIES_CAP = 32
 TINY = torch.finfo(torch.float32).tiny
@@ -107,9 +109,8 @@ def draw_train_probes(x_shape, generator: torch.Generator) -> TrainProbes:
     the value series' length ``1 + G`` then its normal probe of x's shape,
     then the Neumann series' pair the same way.  The lengths are read to
     the host together (one synchronization)."""
-    def probe():
-        return torch.randn(tuple(x_shape), generator=generator, device=generator.device,
-                           dtype=torch.float32)
+    def probe():   # this rank's rows of the host's draw in a data-parallel step
+        return draw_rows(tuple(x_shape), generator)
 
     u_val = _uniform_tiny(generator)
     v_val = probe()

@@ -12,6 +12,14 @@
 * ``odeint_adjoint``: the reverse-time solve of the augmented state
   (adjoint, state, parameter adjoint) as a ``torch.autograd.Function``.
 
+In a data-parallel step (``parallel/distributed.py::global_batch``) the
+error norm is that of nf_tpu's one program over the whole batch: each
+rank's sum of squared ratios over its rows is summed over the data group
+in one all-reduce a trip, so every rank accepts the same steps.  A leaf
+that is a sum over the batch (the adjoint's parameter adjoints) has its
+error, value and increment summed over the ranks first, and its ratios
+formed from those sums.
+
 nf_tpu runs the adaptive loop as a fixed-trip ``fori_loop`` whose finished
 trips cost nothing.  Here it is a Python ``while`` that reads the step's
 error norm once per trip (one device read) and stops when the solve is
@@ -28,6 +36,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.distributed import all_reduce, batch_mesh
 
 State = Tuple[torch.Tensor, ...]
 F32 = np.float32
@@ -149,7 +159,49 @@ DOPRI5 = Tableau(
 )
 
 
-def _adaptive_step(tab: Tableau, func, t, x: State, dt):
+def _error_norm(tab: Tableau, x_err: State, x: State, dx: State, summed) -> torch.Tensor:
+    """rms(err / (atol + rtol max(|x|, |x + dx|))) over every element of the
+    state, the whole batch's within ``global_batch``: the per-sample
+    leaves' sums of squared ratios are summed over the data group, and the
+    ``summed`` leaves (sums over the batch) have their error, value and
+    increment summed before the ratio, in one all-reduce."""
+    mesh = batch_mesh()
+    summed = summed if summed is not None else (False,) * len(x)
+
+    def ratio_sq(e, xx, dd):
+        etol = tab.atol + tab.rtol * torch.maximum(xx.abs(), (xx + dd).abs())
+        r = e / etol
+        return (r * r).sum()
+
+    total, count = 0.0, 0
+    sums = []
+    for e, xx, dd, is_sum in zip(x_err, x, dx, summed):
+        xx, dd = xx.detach(), dd.detach()
+        if mesh is not None and is_sum:
+            sums.append((e, xx, dd))
+            continue
+        total = total + ratio_sq(e, xx, dd)
+        # a per-sample leaf counts the rows of every data rank (of one size)
+        count += e.numel() * (1 if mesh is None else mesh.data_size)
+    if sums:
+        flat = torch.cat([torch.as_tensor(total, dtype=torch.float32,
+                                          device=x[0].device).reshape(1)]
+                         + [t.reshape(-1) for trio in sums for t in trio])
+        all_reduce(flat, mesh.group)
+        total, offset = flat[0], 1
+        for e, _, _ in sums:
+            n = e.numel()
+            e_, xx_, dd_ = (flat[offset + k * n:offset + (k + 1) * n].view(e.shape)
+                            for k in range(3))
+            total = total + ratio_sq(e_, xx_, dd_)
+            count += n
+            offset += 3 * n
+    elif mesh is not None:
+        total = all_reduce(total.reshape(1).clone(), mesh.group)[0]
+    return torch.sqrt(torch.clamp(total / count, min=1e-24))
+
+
+def _adaptive_step(tab: Tableau, func, t, x: State, dt, summed=None):
     """One embedded RK step; returns (dx, err_norm, dt_new), the last two
     float32 on the host."""
     ks = [func(t, x)]
@@ -161,14 +213,7 @@ def _adaptive_step(tab: Tableau, func, t, x: State, dt):
     dx = tuple(float(dt) * k for k in _weighted_sum(tab.c_x[-1], ks[: len(tab.c_x[-1])]))
     with torch.no_grad():
         x_err = tuple(float(dt) * k for k in _weighted_sum(tab.c_err, ks[: len(tab.c_err)]))
-        total, count = 0.0, 0
-        for e, xx, dd in zip(x_err, x, dx):
-            xx, dd = xx.detach(), dd.detach()
-            etol = tab.atol + tab.rtol * torch.maximum(xx.abs(), (xx + dd).abs())
-            r = e / etol
-            total = total + (r * r).sum()
-            count += r.numel()
-        err = torch.sqrt(torch.clamp(total / count, min=1e-24))
+        err = _error_norm(tab, x_err, x, dx, summed)
     err_norm = F32(err.item())
     dt_new = dt * (F32(0.5) / max(err_norm, F32(1e-10))) ** F32(1.0 / tab.order)
     return dx, err_norm, dt_new
@@ -181,7 +226,7 @@ def max_trips(n_nominal: int) -> int:
 
 
 def _adaptive_integrate(tab: Tableau, func, x0: State, times: np.ndarray,
-                        stats: SolveStats):
+                        stats: SolveStats, summed=None):
     t_start, t_end = times[0], times[-1]
     n_nominal = times.shape[0] - 1
     dt0 = (t_end - t_start) / F32(n_nominal)
@@ -192,7 +237,7 @@ def _adaptive_integrate(tab: Tableau, func, x0: State, times: np.ndarray,
     for _ in range(max_trips(n_nominal)):
         remaining = t_end - t
         dt_eff = remaining if abs(dt) > abs(remaining) else dt
-        dx, err, dt_new = _adaptive_step(tab, func, t, x, dt_eff)
+        dx, err, dt_new = _adaptive_step(tab, func, t, x, dt_eff, summed)
         if err <= 1.0 or abs(dt_eff) <= dt_min * F32(1.001):
             x = tuple(a + d for a, d in zip(x, dx))
             t = t + dt_eff
@@ -236,14 +281,16 @@ def host_times(times) -> np.ndarray:
 
 def odeint(func: Callable, x0: Sequence[torch.Tensor], times, method: str = "dopri5",
            rtol: Optional[float] = None, atol: Optional[float] = None,
-           stats: Optional[SolveStats] = None) -> State:
+           stats: Optional[SolveStats] = None, summed: Optional[Sequence[bool]] = None) -> State:
     """Integrate dx/dt = func(t, x) from times[0] to times[-1].
 
     ``x0`` is a tuple of tensors and ``func(t, x)`` (t a Python float)
     returns a tuple of the same shapes.  Differentiable through the loop
     (backprop 'normal').  ``rtol`` / ``atol`` override the adaptive
     tableau's tolerances (fixed-step solvers ignore them).  ``stats``, when
-    given, has this solve's counts added to it."""
+    given, has this solve's counts added to it.  ``summed`` flags the
+    leaves of ``x0`` that are sums over the batch, not per sample (for the
+    error norm within ``global_batch``; default none)."""
     check_solver(method)
     own = SolveStats(solves=1)
     counted = _Counted(func, own)
@@ -251,7 +298,8 @@ def odeint(func: Callable, x0: Sequence[torch.Tensor], times, method: str = "dop
     if method in _FIXED:
         x = _fixed_integrate(_FIXED[method], counted, x0, times, own)
     else:
-        x = _adaptive_integrate(_resolve_tableau(method, rtol, atol), counted, x0, times, own)
+        x = _adaptive_integrate(_resolve_tableau(method, rtol, atol), counted, x0, times, own,
+                                summed)
     if stats is not None:
         stats.add(own)
     return x
@@ -263,11 +311,11 @@ class _Adjoint(torch.autograd.Function):
     solved again backward from x1 (no stored trajectory)."""
 
     @staticmethod
-    def forward(ctx, func, method, rtol, atol, times, stats, n_state, *tensors):
+    def forward(ctx, func, method, rtol, atol, times, stats, shared, n_state, *tensors):
         x0, params = tensors[:n_state], tensors[n_state:]
         x1 = odeint(lambda t, x: func(params, t, x), x0, times, method, rtol, atol, stats)
         ctx.func, ctx.method, ctx.rtol, ctx.atol = func, method, rtol, atol
-        ctx.times, ctx.stats, ctx.n_state = times, stats, n_state
+        ctx.times, ctx.stats, ctx.n_state, ctx.shared = times, stats, n_state, shared
         ctx.save_for_backward(*x1, *params)
         return x1
 
@@ -294,21 +342,25 @@ class _Adjoint(torch.autograd.Function):
         aug0 = (tuple(c.contiguous() for c in ct_x1) + tuple(x1)
                 + tuple(torch.zeros_like(p) for p in params))
         out = odeint(aug_dyn, aug0, ctx.times[::-1].copy(), ctx.method, ctx.rtol, ctx.atol,
-                     ctx.stats)
-        return (None,) * 7 + out[:n] + out[2 * n:]
+                     ctx.stats, (False,) * (2 * n) + ctx.shared)
+        return (None,) * 8 + out[:n] + out[2 * n:]
 
 
 def odeint_adjoint(func: Callable, params: Sequence[torch.Tensor],
                    x0: Sequence[torch.Tensor], times, method: str = "dopri5",
                    rtol: Optional[float] = None, atol: Optional[float] = None,
-                   stats: Optional[SolveStats] = None) -> State:
+                   stats: Optional[SolveStats] = None,
+                   shared: Optional[Sequence[bool]] = None) -> State:
     """``odeint`` of ``func(params, t, x)`` whose gradient for ``x0`` and
     every tensor of ``params`` comes from the adjoint: the augmented state
     integrated backward in time, with the same solver and tolerances, its
     error norm over every tensor of it (the parameter adjoints included).
     ``func`` must compute a VJP of its outputs with respect to ``params``
-    and ``x`` when grad mode is on."""
+    and ``x`` when grad mode is on.  ``shared`` flags the parameters shared
+    by the batch, whose adjoints are sums over it (default: all of them),
+    against per-sample ones such as FFJORD's probes."""
     check_solver(method)
     x0, params = tuple(x0), tuple(params)
-    return _Adjoint.apply(func, method, rtol, atol, host_times(times), stats, len(x0),
+    shared = (True,) * len(params) if shared is None else tuple(bool(s) for s in shared)
+    return _Adjoint.apply(func, method, rtol, atol, host_times(times), stats, shared, len(x0),
                           *x0, *params)

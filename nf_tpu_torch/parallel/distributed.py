@@ -9,12 +9,23 @@ NCCL on the card, each process on card ``LOCAL_RANK``; gloo for
 ``run.platform=cpu``.  Without that environment and without an
 ``init_method`` it does nothing, so a single process runs as before.
 
-``COLLECTIVES`` counts the collectives this process issued: ``all_reduce``
-and ``broadcast``, and ``all_reduce_sum``'s (one all-reduce in its
-forward, one in its backward).
+``COLLECTIVES`` counts the collectives this process issued: ``all_reduce``,
+``broadcast`` and ``all_gather``, and ``all_reduce_sum``'s (one all-reduce
+in its forward, one in its backward).
+
+The host: torchrun's ``LOCAL_WORLD_SIZE`` ranks share one (every rank, when
+it is unset), node ``RANK // LOCAL_WORLD_SIZE`` of ``WORLD_SIZE //
+LOCAL_WORLD_SIZE``.  The ranks of one host act as nf_tpu's one process on
+that host: they draw one data stream and one set of noise.
+
+``global_batch(mesh)`` marks a training step: within it the batch norms
+reduce over the mesh's data group, the adaptive ODE solvers agree on their
+steps, and the layers that draw noise per sample draw the host's rows and
+keep this rank's (``draw_rows``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -24,7 +35,7 @@ import torch.distributed as dist
 
 from ..config import platform_device
 
-COLLECTIVES = {"all_reduce": 0, "broadcast": 0}
+COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0}
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -67,17 +78,46 @@ def is_host0() -> bool:
     return rank() == 0
 
 
+def local_world_size() -> int:
+    """The ranks on this rank's host: ``LOCAL_WORLD_SIZE``, or the whole
+    world when it is unset."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size()))
+    if local < 1 or world_size() % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE={local} does not divide the world of "
+                         f"{world_size()} ranks")
+    return local
+
+
+def node() -> int:
+    """This rank's host, ``RANK // LOCAL_WORLD_SIZE``."""
+    return rank() // local_world_size()
+
+
+def nodes() -> int:
+    """The hosts, ``WORLD_SIZE // LOCAL_WORLD_SIZE``."""
+    return world_size() // local_world_size()
+
+
 def barrier() -> None:
     """A sync point across ranks (e.g. before reading a checkpoint)."""
     if world_size() > 1:
         dist.barrier()
 
 
-def host_seed(seed: int, rank_: Optional[int] = None) -> int:
-    """``host_key``'s counterpart: the rank folded into ``seed``, a
-    distinct seed per rank."""
-    r = rank() if rank_ is None else rank_
-    return int(np.random.SeedSequence((seed, r)).generate_state(1)[0])
+def host_seed(seed: int, node_: Optional[int] = None) -> int:
+    """``host_key``'s counterpart: the host folded into ``seed``, a
+    distinct seed per host (``node()`` by default)."""
+    n = node() if node_ is None else node_
+    return int(np.random.SeedSequence((seed, n)).generate_state(1)[0])
+
+
+def all_gather(tensor: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' tensors of ``group`` concatenated along ``dim``, in rank
+    order, counted."""
+    COLLECTIVES["all_gather"] += 1
+    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def all_reduce(tensor: torch.Tensor, group=None) -> torch.Tensor:
@@ -113,3 +153,40 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``x`` over the ranks, with its gradient: one all-reduce
     forward, one backward."""
     return _AllReduceSum.apply(x, group)
+
+
+# the mesh of the training step under way (``global_batch``)
+_BATCH_MESH = None
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Within it the ranks' batches of ``mesh`` make one batch (nf_tpu's
+    batch sharded on its mesh); ``mesh=None`` changes nothing."""
+    global _BATCH_MESH
+    outer, _BATCH_MESH = _BATCH_MESH, mesh
+    try:
+        yield
+    finally:
+        _BATCH_MESH = outer
+
+
+def batch_mesh():
+    """The mesh of ``global_batch``, or None outside one."""
+    return _BATCH_MESH
+
+
+def draw_rows(shape, generator: torch.Generator, axis: int = 0) -> torch.Tensor:
+    """Standard normals of ``shape`` on the generator's device, float32:
+    within ``global_batch``, this rank's rows (along ``axis``) of one draw
+    at the host's batch (``mesh.host_data`` times the rows), so the ranks
+    of a host draw what one process draws for the host's batch."""
+    mesh = _BATCH_MESH
+    if mesh is None or mesh.host_data == 1:
+        return torch.randn(tuple(shape), generator=generator, device=generator.device,
+                           dtype=torch.float32)
+    shape = list(shape)
+    n, i = shape[axis], mesh.host_data_index
+    shape[axis] = n * mesh.host_data
+    v = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return v.narrow(axis, i * n, n).contiguous()

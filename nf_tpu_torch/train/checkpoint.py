@@ -25,6 +25,11 @@ raises ``ValueError`` when the file's fingerprint differs from the
 model's (another configuration, or an unrolled file into a scanned
 model).  Writes are atomic (a temporary file, then ``os.replace``), and
 only rank 0 writes when ``torch.distributed`` is initialized.
+
+Under tensor parallelism (``parallel/sharding.py``) every rank holds its
+slice of each split leaf and of its moments: ``save_checkpoint`` gathers
+them over the model group into nf_tpu's full layout (every rank takes
+part; rank 0 writes), and ``load_checkpoint`` hands each rank its slice.
 """
 from __future__ import annotations
 
@@ -88,6 +93,52 @@ class Scalar(Leaf):
         self.put(int(a))
 
 
+class ShardedLeaf(Leaf):
+    """A leaf whose tensors are this rank's slices along ``dim`` of the
+    full tensors (tensor parallelism): nf_tpu's shape and array are the
+    full ones."""
+
+    def __init__(self, leaf: Leaf, dim: int, tp):
+        super().__init__(leaf.tensors, leaf.perm, leaf.dtype, leaf.stack)
+        self.dim, self.tp = dim, tp
+
+    def _full_shape(self):
+        s = list(self.tensors[0].shape)
+        s[self.dim] *= self.tp.mesh.model
+        return tuple(s)
+
+    @property
+    def shape(self):
+        s = self._full_shape()
+        return self.stack + (s if self.perm is None else tuple(s[i] for i in self.perm))
+
+    def with_tensors(self, tensors) -> "ShardedLeaf":
+        return ShardedLeaf(Leaf(tensors, self.perm, self.dtype, self.stack), self.dim, self.tp)
+
+    def to_jax(self) -> np.ndarray:
+        full = [self.tp.gather(t, self.dim) for t in self.tensors]
+        return Leaf(full, self.perm, self.dtype, self.stack).to_jax()
+
+    def load(self, a, name: str) -> None:
+        full = [torch.empty(self._full_shape(), dtype=t.dtype) for t in self.tensors]
+        Leaf(full, self.perm, self.dtype, self.stack).load(a, name)
+        for t, f in zip(self.tensors, full):
+            t.copy_(self.tp.slice_of(f, self.dim).to(t.device))
+
+
+def _sharded(tree, model):
+    """``tree`` with each leaf of split tensors as a ``ShardedLeaf``."""
+    tp = getattr(model, "tensor_parallel", None)
+    if tp is None:
+        return tree
+
+    def wrap(leaf, name):
+        dim = tp.dims.get(id(leaf.tensors[0]))
+        return leaf if dim is None else ShardedLeaf(leaf, dim, tp)
+
+    return {kind: tree_map(wrap, tree[kind]) for kind in ("params", "state")}
+
+
 def _moments(opt: torch.optim.Optimizer, params: Leaf, key: str, create: bool) -> Leaf:
     """The optimizer's ``key`` state of ``params``' tensors in their layout:
     zeros where it holds none (made and kept with ``create``)."""
@@ -115,7 +166,7 @@ def train_state_tree(model, ts: TrainState, create: bool = False) -> JaxTrainSta
     """``nf_tpu``'s ``TrainState`` of ``model`` and ``ts`` with a ``Leaf`` at
     every leaf.  ``create`` makes the optimizer's missing moments, so a
     load can write them."""
-    var = variable_tree(model)
+    var = _sharded(variable_tree(model), model)
     params = var["params"]
     opt = ts.optimizer
     covered = {id(t) for _, leaf in leaves(params) for t in leaf.tensors}
@@ -155,12 +206,16 @@ def _writer() -> bool:
 
 
 def save_checkpoint(path: str, model, ts: TrainState) -> None:
-    """Write ``model`` and ``ts`` to ``path`` in ``nf_tpu``'s format."""
-    if not _writer():
+    """Write ``model`` and ``ts`` to ``path`` in ``nf_tpu``'s format (under
+    tensor parallelism every rank gathers, rank 0 writes)."""
+    sharded = getattr(model, "tensor_parallel", None) is not None
+    if not (_writer() or sharded):
         return
     tree = train_state_tree(model, ts)
     flat = [leaf for _, leaf in leaves(tree)]
     payload = {f"leaf_{i}": leaf.to_jax() for i, leaf in enumerate(flat)}
+    if not _writer():
+        return
     payload["__step__"] = np.asarray(ts.step)
     payload["__structure__"] = np.asarray(json.dumps(structure_fingerprint(tree)))
     buf = io.BytesIO()

@@ -1,8 +1,9 @@
 """Metric writer (counterpart of ``nf_tpu/train/metrics.py``):
 ``metrics.jsonl`` always, one ``{"t", "step", "tag", "value"}`` record a
 line, appended; TensorBoard event files too when
-``torch.utils.tensorboard`` imports.  Rank 0 writes; the other ranks do
-nothing.
+``torch.utils.tensorboard`` imports, where ``image`` writes the report's
+panels (nothing otherwise, as in nf_tpu).  Rank 0 writes; the other ranks
+do nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ class MetricWriter:
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), step)
+
+    def image(self, tag: str, hwc_uint8, step: int):
+        if not self.is_host0:
+            return
+        if self._tb is not None:
+            self._tb.add_image(tag, hwc_uint8, step, dataformats="HWC")
 
     def flush(self):
         if self._tb is not None:

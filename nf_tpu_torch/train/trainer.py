@@ -37,15 +37,27 @@ format, the optimizer state in ``optax``'s form.
 Data parallelism (``mesh``, ``parallel/mesh.py``): R ranks at b rows each
 take the step one process takes at R·b rows.  Each rank's loss is its
 local mean; its forward and backward run under ``global_batch(mesh)``, so
-every batch norm's statistics are those of all ranks' rows, their
-gradient flowing through the reduction; the gradients are then averaged
-by ONE all-reduce of a flat buffer (``average_gradients``), and the loss
-returned is the global mean, reduced on the device.  ``init_state`` runs
-the data-dependent init on each rank's own batch, then broadcasts rank
-0's parameters and buffers (``replicate``), as ``nf_tpu``'s
-``broadcast_one_to_all``.  The step generator folds the rank into its
-seed when the world is larger than one (``host_seed``), so per-step noise
-differs by rank, as ``nf_tpu``'s multi-process trainer folds its key.
+every batch norm's statistics are those of the data group's rows, their
+gradient flowing through the reduction, and the adaptive ODE solvers take
+the whole batch's steps; the backward runs on the rank's share of the
+global mean (its mean over the data ranks), the gradients are then summed
+by ONE all-reduce of a flat buffer over the data group
+(``sum_gradients``), and the loss returned is the global mean, reduced on
+the device.  ``init_state`` runs the data-dependent init on the batch it
+is given (the CLI gives it the host's whole first batch), then broadcasts
+rank 0's parameters and buffers (``replicate``), as ``nf_tpu``'s
+``broadcast_one_to_all``.  The ranks of one host draw one set of noise:
+the step generator is seeded from ``(seed, host, step)`` (the host folded
+in past one host, ``host_seed``, as ``nf_tpu``'s multi-process trainer
+folds its key), a draw shared by the batch (MAF's masks, ResFlow's series
+lengths) is then the same on each of them, and a per-sample draw is this
+rank's rows of one draw at the host's batch (``distributed.draw_rows``).
+
+Tensor parallelism (``make_mesh(model_axis=m)``): after the broadcast,
+``shard_train_state`` keeps this rank's slice of each leaf nf_tpu's rule
+splits (``parallel/sharding.py``), and every forward and backward runs
+inside ``gathered``, which all-gathers the full weights over the model
+group; the optimizer's moments take the slices' shapes.
 """
 from __future__ import annotations
 
@@ -56,9 +68,9 @@ import numpy as np
 import torch
 
 from ..models.base import FlowModel
-from ..nets.layers import global_batch
-from ..parallel.distributed import host_seed
-from ..parallel.sharding import average_gradients, global_mean, replicate
+from ..parallel.distributed import global_batch, host_seed
+from ..parallel.sharding import (gathered, global_mean, replicate, shard_train_state,
+                                 sum_gradients)
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:
@@ -123,8 +135,9 @@ class Trainer:
         self.mesh = mesh
         self.seed = seed
         self.schedule = lr_schedule(opt_cfg)
-        # the per-step generators' seed: the rank folded in past one rank
-        self.step_seed = (host_seed(seed, mesh.rank) if mesh is not None and mesh.world > 1
+        # the per-step generators' seed: the host folded in past one host,
+        # so the ranks of a host draw alike
+        self.step_seed = (host_seed(seed, mesh.node) if mesh is not None and mesh.nodes > 1
                           else seed)
 
     # ------------------------------------------------------------------ init
@@ -134,7 +147,8 @@ class Trainer:
         a state dict as ``FlowModel.init`` or ``convert.load_jax_variables``
         return it), run the data-dependent init on ``sample_batch`` when
         given, with ``dd_generator()``, and make the optimizer.  Under a
-        mesh every rank then takes rank 0's parameters and buffers."""
+        mesh every rank then takes rank 0's parameters and buffers, and
+        with a model axis keeps its slices of the leaves that split."""
         model = self.model
         if params is None:
             model.init(torch.Generator(device=model.device).manual_seed(self.seed))
@@ -144,6 +158,8 @@ class Trainer:
             model.data_dependent_init(self._batch(sample_batch), self.dd_generator())
         if self.mesh is not None:
             replicate(model, self.mesh)
+            if self.mesh.model > 1:
+                shard_train_state(model, self.mesh)
         return TrainState(0, make_optimizer(self.opt_cfg, list(model.parameters())))
 
     def _generator(self, seq: np.random.SeedSequence) -> torch.Generator:
@@ -157,9 +173,9 @@ class Trainer:
     # ----------------------------------------------------------------- steps
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of update ``step``, on the model's device: seeded
-        from ``(seed, step)`` (the seed with the rank folded in past one
-        rank), so each step draws anew and a step run again draws the
-        same."""
+        from ``(seed, step)`` (the seed with the host folded in past one
+        host), so each step draws anew, a step run again draws the same,
+        and the ranks of a host draw alike."""
         return self._generator(np.random.SeedSequence((self.step_seed, step)))
 
     def _batch(self, batch) -> torch.Tensor:
@@ -169,17 +185,20 @@ class Trainer:
         """One update; returns (ts, loss) with the loss a 0-d device tensor.
         The model is put in train mode first (``eval_program`` leaves it in
         eval mode).  Under a mesh ``batch`` is this rank's rows and the
-        loss the mean over all ranks' rows."""
+        loss the mean over all data ranks' rows."""
         model = self.model
         model.train()
         opt = ts.optimizer
         opt.zero_grad(set_to_none=True)
-        with global_batch(self.mesh):
+        mesh = self.mesh
+        with global_batch(mesh), gathered(model):
             loss = -model.log_prob(self._batch(batch), self.step_generator(ts.step)).mean()
-            loss.backward()
-        if self.mesh is not None:
-            average_gradients(model.parameters(), self.mesh)
-            loss = global_mean(loss, self.mesh)
+            # this rank's share of the global mean: the sum over the data
+            # ranks is the one process's gradient
+            (loss if mesh is None else loss / mesh.data_size).backward()
+        if mesh is not None:
+            sum_gradients(model.parameters(), mesh)
+            loss = global_mean(loss, mesh)
         lr = self.schedule(ts.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -205,17 +224,20 @@ class Trainer:
         draw in eval (variational dequantization needs one: a fresh
         dequantization sample per call; FFJORD's probes)."""
         self.model.eval()
-        return self.model.log_prob(self._batch(batch), generator)
+        with gathered(self.model):
+            return self.model.log_prob(self._batch(batch), generator)
 
     @torch.no_grad()
     def forward(self, ts: TrainState, batch):
         """Eval-mode (z, log|det dz/dx|) of ``batch``, each (B, ...)."""
         self.model.eval()
-        return self.model(self._batch(batch))
+        with gathered(self.model):
+            return self.model(self._batch(batch))
 
     @torch.no_grad()
     def sample(self, ts: TrainState, n: int, generator: torch.Generator):
         """Eval-mode draw of n samples: (y, log p(y)); ``generator`` draws the
         latent, then feeds the layers that draw (FFJORD's probes)."""
         self.model.eval()
-        return self.model.sample(n, generator)
+        with gathered(self.model):
+            return self.model.sample(n, generator)

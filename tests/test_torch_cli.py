@@ -25,6 +25,16 @@ tests/test_torch_distributed.py, tests/test_train_realnvp.py), which the
 running means carry into the eval-mode log p (6.5e-2 at |log p| = 103);
 the batch statistics take them out.
 
+The report: both CLIs write the same JPEG files (``<panel>_<step>.jpg``
+and ``<panel>_latest.jpg``) at the same steps.
+
+Two local ranks: the port's CLI through the launcher on two gloo ranks
+with ``LOCAL_WORLD_SIZE=2`` (the ranks of one host draw the host's stream
+and each keeps its half of every batch) against nf_tpu's ``main.py`` on
+the test process's 8-device CPU mesh, ``train.samples=64``, from one
+nf_tpu step-0 checkpoint: 64 rows a step in all, 32 a rank, the metric
+records and ``latest.npz`` held as above.
+
 Also: the CLI without ``run.platform`` and without a card raises
 ``RuntimeError``; ``run.debug=true`` raises ``FloatingPointError`` naming
 the layer when a parameter is NaN, and with finite weights gives the same
@@ -35,6 +45,10 @@ import copy
 import glob
 import json
 import os
+import pathlib
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -66,6 +80,13 @@ def jax_config_restored(monkeypatch, tmp_path):
     yield
     for k, v in saved.items():
         jax.config.update(k, v)
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _jpegs(run_dir):
+    return sorted(f for f in os.listdir(run_dir) if f.endswith(".jpg"))
 
 
 def _records(run_dir):
@@ -157,6 +178,7 @@ def test_cli_matches_nf_tpus_main(case, tmp_path, monkeypatch, jax_config_restor
     (jdir, jn), (tdir, tn) = runs["nf_tpu"], runs["port"]
     jrec, trec = _records(jdir), _records(tdir)
     assert tn == jn
+    assert _jpegs(tdir) == _jpegs(jdir) and len(_jpegs(tdir)) >= 4, (_jpegs(tdir), _jpegs(jdir))
     assert [(r["tag"], r["step"]) for r in trec] == [(r["tag"], r["step"]) for r in jrec]
     steps_logged = [r["step"] for r in trec if r["tag"].endswith("/train/loss")]
     assert steps_logged[-1] == resumed and len(steps_logged) >= 3
@@ -177,6 +199,70 @@ def test_cli_matches_nf_tpus_main(case, tmp_path, monkeypatch, jax_config_restor
     np.testing.assert_allclose(bs_t, bs_j, atol=5e-4)
     if "moons" in case:   # 1.2e-4 apart here; the image model's 6.5e-2 (the noise)
         np.testing.assert_allclose(t_on_t, j_on_j, atol=5e-4)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_on_two_local_ranks_matches_nf_tpus_main(tmp_path, monkeypatch,
+                                                     jax_config_restored):
+    import main as jmain
+    from nf_tpu.train import save_checkpoint as jsave
+
+    overrides, _, _ = CASES["moons-chunk1"]
+    argv = overrides + COMMON + ["train.steps=4"]
+    jmodel, jtr, jts, jdl = _nf_side(argv)
+    start = str(tmp_path / "start.npz")
+    jsave(start, jts, 0)
+
+    (tmp_path / "nf_tpu").mkdir()
+    monkeypatch.chdir(tmp_path / "nf_tpu")
+    jdir = os.path.join(tmp_path, "nf_tpu", jmain.main(argv + [f"run.ckpt_path={start}"]))
+
+    cwd = tmp_path / "port"
+    cwd.mkdir()
+    port = str(_free_port())
+    cmd = [sys.executable, "-m", "nf_tpu_torch.parallel.launch",
+           str(ROOT / "nf_tpu_torch" / "main.py")] + argv + ["run.platform=cpu",
+                                                             f"run.ckpt_path={start}"]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", RANK=str(r),
+                   WORLD_SIZE="2", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        env.pop("XLA_FLAGS", None)
+        procs.append(subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=240)
+            assert p.returncode == 0, out
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for out in outs:   # each step: the host's 64 rows, 32 on each rank
+        assert "64 rows a host a step, 32 a rank" in out, out
+        assert "process group: backend gloo, world 2," in out, out
+    tdir, = glob.glob(str(cwd / "logs" / "*"))
+    jrec, trec = _records(jdir), _records(tdir)
+    assert [(r["tag"], r["step"]) for r in trec] == [(r["tag"], r["step"]) for r in jrec]
+    np.testing.assert_allclose([r["value"] for r in trec], [r["value"] for r in jrec],
+                               rtol=1e-4)
+    assert _jpegs(tdir) == _jpegs(jdir)
+    x = _heldout(jdl)
+    nf, port = (jmodel, jtr, jts, None), _port_side(argv)
+    j_on_j, _, bs_j = _logps(os.path.join(jdir, "latest.npz"), nf, port, x)
+    j_on_t, t_on_t, bs_t = _logps(os.path.join(tdir, "latest.npz"), nf, port, x)
+    scale = float(np.abs(j_on_j).max())
+    np.testing.assert_allclose(j_on_t, t_on_t, atol=1e-5 * scale)   # the port's in nf_tpu
+    np.testing.assert_allclose(bs_t, bs_j, atol=5e-4)
+    np.testing.assert_allclose(t_on_t, j_on_j, atol=5e-4)
 
 
 def test_cli_needs_a_card_or_run_platform(tmp_path, monkeypatch):

@@ -27,11 +27,25 @@ rendezvous under ``tmp_path``, one torch thread each and a 120 s limit.
   are rank 0's on both (tests/test_distributed_init.py's counterpart).
 * ``python -m nf_tpu_torch.parallel.launch`` forms the group from the
   environment (torchrun's variables), and a two-rank CLI run writes
-  ``metrics.jsonl`` and ``latest.npz`` on rank 0 only.
-* The collectives in one process (a world of one): ``average_gradients``
+  ``metrics.jsonl``, ``latest.npz`` and the report's JPEG files on rank 0
+  only.
+* The collectives in one process (a world of one): ``sum_gradients``
   keeps a None gradient None, ``replicate`` carries a bool buffer,
   ``shard_batch`` refuses a batch that does not split, and
   ``all_reduce_sum`` passes the gradient.
+* Noise on the ranks of one host: two ranks at b rows each against the
+  port's one process at 2b rows with the same seed, three Adam steps each
+  from one initial state: MAF with ``resample_masks`` on 4-D density data
+  (at D = 2 its masks cannot vary; the masks of every draw equal on both
+  ranks and in the one process, and not all alike), ResFlow 2-D (the
+  probes this rank's rows of the host's draw, the series lengths shared)
+  and FFJORD 2-D (1 CNF, dopri5 at 1e-4, its ODENet's weights scaled by 3
+  so that the step sizes follow the rows: every solve's accepted and
+  rejected steps equal, the adjoint's parameter adjoints summed over the
+  ranks in the error norm); the two ranks' halves of each batch at two
+  scales (0.3 and 3); losses within rtol 2e-5.
+* The CLI through the launcher on one gloo rank forms no mesh: 0
+  all-reduces.
 """
 import json
 import os
@@ -50,6 +64,16 @@ CHILD_TIMEOUT = 120
 # name: (dims, datatype, layers, filters, rows of the whole batch)
 MODELS = {"realnvp-2d": ((2,), "2d", 4, 16, 128),
           "realnvp-16x16x1": ((16, 16, 1), "image", 1, 8, 16)}
+# the families that draw noise while they train: name -> NetworkConfig fields;
+# MAF on 4-D density data, where the masks' draws vary (at D = 2 every
+# hidden degree is 0, so MAF 2-D draws one fixed mask)
+NOISE = {"maf": dict(name="maf", layers=2, base_filters=16, resample_masks=True),
+         "resflow": dict(name="resflow", layers=2, base_filters=16),
+         "ffjord": dict(name="ffjord", layers=1, base_filters=8, stepsize=0.5,
+                        solver="dopri5", rtol=1e-4, atol=1e-4)}
+FFJORD_GAIN = 3.0    # the ODENet's weights scaled: dynamics whose steps follow the rows
+NOISE_ROWS = 64      # the host's batch; 32 a rank
+NOISE_DIMS = {"maf": 4, "resflow": 2, "ffjord": 2}
 
 
 def _env(**extra):
@@ -93,6 +117,11 @@ def _rank_main(mode, work, rank):
     assert init_distributed("cpu", f"file://{work / 'rendezvous'}", rank, 2)
     mesh = make_mesh()
     assert (mesh.rank, mesh.world, mesh.device.type) == (rank, 2, "cpu")
+    if mode in NOISE:
+        batches = torch.load(work / "batches.pt")
+        out = _noise_run(mode, mesh, [shard_batch(b, mesh) for b in batches[1:]], batches[0])
+        torch.save(out, work / f"rank{rank}.pt")
+        return
     if mode == "init":
         cfg = NetworkConfig(name="glow", layers=4, base_filters=16)
         batch = torch.from_numpy(np.random.default_rng(rank).standard_normal((64, 2))
@@ -137,6 +166,49 @@ def _three_steps(tt, ts, batches, keep):
             grads = {n: p.grad.clone() for n, p in model.named_parameters()}
             first = {n: t.clone() for n, t in model.state_dict().items()}
     return {"losses": losses, "grads": grads, "first": first, "state": model.state_dict()}
+
+
+def _noise_run(family, mesh, batches, first):
+    """Three Adam steps of ``family`` 2-D from seed 0 (the data-dependent
+    init on ``first``, the host's whole batch); returns the losses, the
+    MAF masks drawn and the CNFs' step counts per step."""
+    from nf_tpu_torch.bijectors import made
+    from nf_tpu_torch.bijectors.cnf import CNF
+    from nf_tpu_torch.config import NetworkConfig, OptimizerConfig
+    from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.train import Trainer
+
+    torch.manual_seed(0)
+    dims = (NOISE_DIMS[family],)
+    model = build_model(family, dims, "2d", NetworkConfig(**NOISE[family]), device="cpu")
+    tt = Trainer(model, OptimizerConfig(), mesh=mesh, seed=0)
+    masks = []
+    draw = made.MADE.sample_masks
+
+    def recorded(self, g):
+        out = draw(self, g)
+        masks.append([m.clone() for m in out])
+        return out
+
+    made.MADE.sample_masks = recorded
+    try:
+        ts = tt.init_state(first)
+        masks.clear()
+        cnfs = [m for m in model.modules() if isinstance(m, CNF)]
+        with torch.no_grad():
+            for m in cnfs:
+                for w in m.net.w:
+                    w.mul_(FFJORD_GAIN)
+        losses, steps = [], []
+        for b in batches:
+            for m in cnfs:
+                m.stats = type(m.stats)()
+            ts, loss = tt.train_step(ts, b)
+            losses.append(float(loss))
+            steps.append([(m.stats.solves, m.stats.accepted, m.stats.rejected) for m in cnfs])
+    finally:
+        made.MADE.sample_masks = draw
+    return {"losses": losses, "masks": masks, "steps": steps}
 
 
 # ----------------------------------------------------------------- the tests
@@ -270,6 +342,56 @@ def test_two_ranks_take_the_one_process_step(mode, tmp_path):
     assert got["collectives"]["broadcast"] == len({t.dtype for t in got["state"].values()})
 
 
+@pytest.mark.parametrize("family", sorted(NOISE))
+def test_ranks_of_a_host_draw_the_one_process_noise(family, tmp_path):
+    from _torch_parity import normal
+
+    # the ranks' halves at two scales, so their own error norms would
+    # choose other steps than the whole batch's
+    half = (NOISE_ROWS // 2, NOISE_DIMS[family])
+    batches = torch.from_numpy(np.stack([np.concatenate([normal(70 + k, half) * 0.3,
+                                                         normal(80 + k, half) * 3.0])
+                                         for k in range(4)]))
+    torch.save(batches, tmp_path / "batches.pt")
+    procs = [subprocess.Popen(_child(family, tmp_path, r), cwd=ROOT, env=_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    one = _noise_run(family, None, list(batches[1:]), batches[0])
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=CHILD_TIMEOUT)
+            assert p.returncode == 0, (out, err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=2e-5)
+    if family == "maf":     # 3 steps x 2 layers x 2 MADEs, the same masks everywhere
+        assert len(one["masks"]) == 12 and len(ranks[0]["masks"]) == 12
+        assert any(not torch.equal(a[0], one["masks"][0][0]) for a in one["masks"][1:])
+        for got in (ranks[0]["masks"], ranks[1]["masks"]):
+            for a, b in zip(got, one["masks"]):
+                assert all(torch.equal(x, y) for x, y in zip(a, b))
+    if family == "ffjord":  # the forward's and the adjoint's solves, step for step
+        assert ranks[0]["steps"] == ranks[1]["steps"] == one["steps"], \
+            (ranks[0]["steps"], ranks[1]["steps"], one["steps"])
+        assert all(solves == 2 for step in one["steps"] for solves, _, _ in step)
+
+
+def test_cli_on_one_rank_forms_no_mesh(tmp_path):
+    args = ["network=realnvp", "network.layers=2", "network.base_filters=8",
+            "run.distrib=moons", "train.samples=32", "train.steps=2", "run.display=1",
+            "run.platform=cpu"]
+    env = _env(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    cmd = [sys.executable, "-m", "nf_tpu_torch.parallel.launch",
+           str(ROOT / "nf_tpu_torch" / "main.py")] + args
+    out, = _run_ranks([cmd], tmp_path, [env])
+    assert "process group: backend gloo, world 1, 0 all-reduces, 0 broadcasts" in out, out
+
+
 def test_init_broadcasts_rank0s_state(tmp_path):
     outs = _run_ranks([_child("init", tmp_path, r) for r in range(2)], ROOT)
     res = {d["rank"]: d for d in (json.loads(o.strip().splitlines()[-1]) for o in outs)}
@@ -300,9 +422,11 @@ def test_launch_runs_the_cli_data_parallel(tmp_path):
     for out in outs:
         assert "process group: backend gloo, world 2," in out, out
     runs = sorted((tmp_path / "logs").iterdir())
+    panels = [f"{n}_{s}.jpg" for n in ("y_data", "y_dist", "y_sample", "z_sample")
+              for s in ("000001", "latest")]
     assert len(runs) == 1 and sorted(p.name for p in runs[0].iterdir()
                                       if not p.name.startswith("events.")) \
-        == ["latest.npz", "metrics.jsonl"]
+        == sorted(["latest.npz", "metrics.jsonl"] + panels)
     recs = [json.loads(line) for line in (runs[0] / "metrics.jsonl").read_text().splitlines()]
     assert [(r["tag"], r["step"]) for r in recs] == [("2d/train/loss", 1)]
     assert int(np.load(runs[0] / "latest.npz")["__step__"]) == 3
@@ -321,8 +445,8 @@ def test_collectives_in_one_process(tmp_path):
     import torch.distributed as dist
 
     from nf_tpu_torch.bijectors.norm import ActNorm
-    from nf_tpu_torch.parallel import (COLLECTIVES, Mesh, average_gradients, global_mean,
-                                       init_distributed, make_mesh, replicate, shard_batch)
+    from nf_tpu_torch.parallel import (COLLECTIVES, Mesh, global_mean, init_distributed,
+                                       make_mesh, replicate, shard_batch, sum_gradients)
     from nf_tpu_torch.parallel.distributed import all_reduce_sum, host_seed
 
     assert not dist.is_initialized()
@@ -344,7 +468,7 @@ def test_collectives_in_one_process(tmp_path):
             shard_batch(rows[:5], Mesh(1, 2, mesh.device))
         a, b = torch.nn.Parameter(torch.ones(2)), torch.nn.Parameter(torch.ones(3))
         a.grad = torch.tensor([0.5, -1.5])
-        average_gradients([a, b], mesh)
+        sum_gradients([a, b], mesh)
         assert a.grad.tolist() == [0.5, -1.5] and b.grad is None
         assert float(global_mean(torch.tensor(2.5), mesh)) == 2.5
         x = torch.tensor([1.0, 2.0], requires_grad=True)
@@ -352,7 +476,7 @@ def test_collectives_in_one_process(tmp_path):
         assert y.tolist() == [2.0, 4.0]
         (3 * y).sum().backward()
         assert x.grad.tolist() == [6.0, 6.0]
-        # average_gradients, global_mean, all_reduce_sum's forward and backward
+        # sum_gradients, global_mean, all_reduce_sum's forward and backward
         assert COLLECTIVES["all_reduce"] - before["all_reduce"] == 4
         assert COLLECTIVES["broadcast"] - before["broadcast"] == 2   # f32 and bool
         assert host_seed(5, 0) != host_seed(5, 1)
