@@ -42,9 +42,24 @@ Phases, each of which exits non-zero when it fails:
      shapes nf_tpu fuses (RealNVP D = 213 and Glow D = 111 at F = 32,
      RealNVP D = 29 and Glow D = 27 at F = 256, two couplings, B = 1000),
      through eval_program: each call one launch of the FFMA kernel on its
-     16-sample tiling, never the eager chain, at the tolerances above; and
-     RealNVP D = 400, F = 32, which no tiling holds: eval_program raises
-     NotImplementedError before any launch;
+     16-sample tiling, never the eager chain, at the tolerances above;
+     the wide paths (wide_paths), at B = 1000 through the entry points a
+     user calls, each call's launches counted (one, on its kernel and
+     path, launches_by_path) and held against its plain version at the
+     tolerances above: RealNVP and Glow at D = 400 and 1024, F = 32, and
+     RealNVP at D = 400, F = 256, two couplings (the FFMA kernel's WIDE
+     variant: the D-wide rows in device memory), through eval_program;
+     ResFlow at (D, F) = (2, 512) and (16, 64), two blocks (the wide
+     kernel), fwd_ld and solve_ld through eval_program and the solve
+     through the 'exact' program's inverse; attention at (64, 256, 192)
+     and (64, 64, 512) (the column-block kernel, past D = 128) through
+     ops.attention.attention, with PyTorch's SDPA within the same, and
+     GatedAttn at filters = 768 (Flow++'s image couplings at
+     base_filters = 768) on (16, 16, 16, 8) against the same module on
+     the CPU within 1e-4; and every phase-3 and phase-4 case on the kernel
+     and tiling it ran on before the wide paths (the tensor-core stack and the 16-sample
+     ResFlow tiles at the headline, the warp solve, the FFMA TILES and
+     16-sample tilings, the one-pass attention in phase 6);
   4. the main path, for "realnvp", "glow", "flow++" and "resflow" in turn:
      build_model(name, (2,), "2d") on the card -> init(generator) ->
      (Glow / Flow++: ActNorm moved off identity by the seed) ->
@@ -290,7 +305,11 @@ Phases, each of which exits non-zero when it fails:
      RealNVP and Glow entries their kernel variant, the blocks one SM
      holds and the bytes of weights copied from L2 into shared memory per
      direction; the coupling kernels their kernels per call (counted in
-     phase 3); and utils/profiling.roofline_estimate of the RealNVP 2-D
+     phase 3); the wide paths' entries (fused_stack_wide_*,
+     fused_stack_glow_wide_*, fused_resflow_wide_*, attention_fwd_wide):
+     each shape's kernel, plain version and (attention) SDPA timed by
+     CUDA events, summed per kernel with per_shape beside, launches from
+     their phase-3 run; and utils/profiling.roofline_estimate of the RealNVP 2-D
      serving pair (forward and inverse at B = 8192, 32 couplings),
      counted on the CPU, beside stack_work's count and the kernels' and
      the EvalProgram's measured time on the card;
@@ -406,9 +425,37 @@ KERNEL_SOURCES = {
     "attention_fwd": ("nf_tpu_torch/csrc/attention.cu", "nf_tpu/ops/pallas/attention.py:42"),
     "mix_log_cdf_inverse": ("nf_tpu_torch/csrc/mixlogcdf.cu",
                             "nf_tpu/ops/pallas/mixlogcdf.py:51"),
+    # the wide paths: the FFMA stack's WIDE variant, the ResFlow wide kernel
+    # and the attention column-block kernel, each under its own name here
+    # (their wrappers count them under the names above, split by
+    # launches_by_path)
+    "fused_stack_wide_fwd": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
+                             "nf_tpu/ops/pallas/fused_stack.py:397"),
+    "fused_stack_wide_inv": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
+                             "nf_tpu/ops/pallas/fused_stack.py:422"),
+    "fused_stack_glow_wide_fwd": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
+                                  "nf_tpu/ops/pallas/fused_stack.py:397"),
+    "fused_stack_glow_wide_inv": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
+                                  "nf_tpu/ops/pallas/fused_stack.py:422"),
+    "fused_resflow_wide_fwd_ld": ("nf_tpu_torch/csrc/fused_resflow.cu",
+                                  "nf_tpu/ops/pallas/fused_resflow.py:455"),
+    "fused_resflow_wide_solve_ld": ("nf_tpu_torch/csrc/fused_resflow.cu",
+                                    "nf_tpu/ops/pallas/fused_resflow.py:306"),
+    "fused_resflow_wide_solve": ("nf_tpu_torch/csrc/fused_resflow.cu",
+                                 "nf_tpu/ops/pallas/fused_resflow.py:184"),
+    "attention_fwd_wide": ("nf_tpu_torch/csrc/attention.cu", "nf_tpu/ops/pallas/attention.py:42"),
 }
+# each wide path's kernel name, by the name its wrapper counts it under
+WIDE_NAMES = {"fused_stack_fwd": "fused_stack_wide_fwd", "fused_stack_inv": "fused_stack_wide_inv",
+              "fused_stack_glow_fwd": "fused_stack_glow_wide_fwd",
+              "fused_stack_glow_inv": "fused_stack_glow_wide_inv",
+              "fused_resflow_fwd_ld": "fused_resflow_wide_fwd_ld",
+              "fused_resflow_solve_ld": "fused_resflow_wide_solve_ld",
+              "fused_resflow_solve": "fused_resflow_wide_solve",
+              "attention_fwd": "attention_fwd_wide"}
 # kernels whose F x F or attention products run on the tensor cores (3xTF32)
-TENSOR_CORE_KERNELS = {"attention_fwd", "fused_resflow_fwd_ld", "fused_resflow_solve_ld",
+TENSOR_CORE_KERNELS = {"attention_fwd", "attention_fwd_wide", "fused_resflow_fwd_ld",
+                       "fused_resflow_solve_ld",
                        "fused_resflow_solve", "fused_stack_fwd", "fused_stack_inv",
                        "fused_stack_glow_fwd", "fused_stack_glow_inv"}
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
@@ -416,12 +463,22 @@ MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
           "resflow": ("fused_resflow_fwd_ld", "fused_resflow_solve_ld")}
 # the fused RealNVP / Glow stack past its FFMA block at TILES' sample count,
-# shapes nf_tpu fuses (model, D, couplings, F): the 16-sample tiling; and a
-# D no tiling holds, which eval_program refuses before any launch
+# shapes nf_tpu fuses (model, D, couplings, F): the 16-sample tiling
 WIDE_STACK_CASES = [("realnvp", 213, 2, 32), ("glow", 111, 2, 32), ("realnvp", 29, 2, 256),
                     ("glow", 27, 2, 256)]
-REFUSED_STACK = ("realnvp", 400, 2, 32)
 WIDE_STACK_BATCH = 1000
+# the wide paths, at B = WIDE_BATCH through eval_program (attention through
+# its op and GatedAttn): the stack past the 16-sample tiling too (the WIDE
+# variant; D = 400 was refused before it), ResFlow past F = 256 or D = 8
+# (the wide kernel; (D, blocks, F)), attention past D = 128 (the column-block
+# kernel; (B * heads, L, D): GatedAttn's 4 heads at base_filters 768, 2048)
+PAST_BLOCK_STACK_CASES = [("realnvp", 400, 2, 32), ("glow", 400, 2, 32),
+                          ("realnvp", 1024, 2, 32), ("glow", 1024, 2, 32),
+                          ("realnvp", 400, 2, 256)]
+WIDE_RESFLOW_CASES = [(2, 2, 512), (16, 2, 64)]
+WIDE_ATTN_CASES = [(64, 256, 192), (64, 64, 512)]
+WIDE_BATCH = 1000
+WIDE_ITERS = 10          # kernel launches timed per shape (plain versions: 3)
 # the 2-D models that run no kernel, as in nf_tpu (bench.py:41-46): the
 # eager chain on the card
 EAGER_MODELS = ("maf", "planar")
@@ -986,14 +1043,13 @@ def check_coupling_kernels(tc, device, errs):
 def check_wide_stacks(fs, device, counters, launches_of, errs):
     """RealNVP / Glow stacks past the FFMA block at TILES' sample count,
     through eval_program on the card: each call one launch of the FFMA
-    kernel on the 16-sample tiling (never the eager chain), against the
-    plain version; and a D that no tiling holds, refused with
-    NotImplementedError before any launch."""
+    kernel on the 16-sample tiling (never the eager chain, nor the WIDE
+    variant), against the plain version."""
     for name, D, layers, F in WIDE_STACK_CASES:
         _, prog, g = perturbed_program(name, D, layers, F, device, SEED + D)
         stack = prog.stack
         check(isinstance(stack, fs.PackedStack) and stack.variant == "ffma"
-              and stack.kernel.tile == fs.NARROW_TILE,
+              and stack.kernel.tile == fs.NARROW_TILE and stack.kernel.path == "ffma_narrow",
               f"{name} D={D} F={F}: not on the FFMA kernel's 16-sample tiling")
         x = torch.randn(WIDE_STACK_BATCH, D, generator=g, device=device)
         for direction, kname in zip(("forward", "inverse"), MODELS[name]):
@@ -1001,7 +1057,8 @@ def check_wide_stacks(fs, device, counters, launches_of, errs):
             y, ld = getattr(prog, direction)(x)
             torch.cuda.synchronize()
             got = {k: v for k, v in launches_of().items() if v}
-            check(got == {kname: 1}, f"{name} D={D} {direction}: launches {got}")
+            check(got == {kname: 1} and fs.launches_by_path == {"ffma_narrow": 1},
+                  f"{name} D={D} {direction}: launches {got}, {dict(fs.launches_by_path)}")
             yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
             ey, eld = max_diff(y, yr), max_diff(ld, ldr)
             print(f"check {kname} D={D} n={layers} F={F} B={WIDE_STACK_BATCH} (ffma, "
@@ -1011,15 +1068,211 @@ def check_wide_stacks(fs, device, counters, launches_of, errs):
             check(torch.allclose(y, yr, **Z_TOL), f"{kname} D={D}: z off by {ey}")
             check(eld <= LD_ATOL, f"{kname} D={D}: logdet off by {eld}")
             errs[kname] = max(errs[kname], ey, eld)
-    name, D, layers, F = REFUSED_STACK
-    reset_all(counters)
-    try:
-        perturbed_program(name, D, layers, F, device, SEED)
-    except NotImplementedError as e:
-        print(f"{name} D={D} F={F}: eval_program refused it: {e}")
-    else:
-        check(False, f"{name} D={D} F={F}: eval_program took a stack no tiling holds")
-    check(not any(launches_of().values()), f"{name} D={D}: launched before refusing")
+
+
+def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
+    """The wide paths through the entry points a user calls, each call with
+    every launch counter set to 0 just before and read just after:
+      the RealNVP / Glow stack past the 16-sample tiling
+      (PAST_BLOCK_STACK_CASES): build_model -> eval_program -> forward and
+      inverse at B = WIDE_BATCH, one launch of the FFMA kernel's WIDE
+      variant each;
+      ResFlow past F = 256 or D = 8 (WIDE_RESFLOW_CASES): eval_program's
+      forward and inverse ('unbias': fwd_ld, solve_ld) and the 'exact'
+      program's inverse (the solve, then the eager chain at the solved x),
+      one launch of the wide kernel each;
+      attention past D = 128 (WIDE_ATTN_CASES): ops.attention.attention,
+      one launch of the column-block kernel, and GatedAttn at filters = 4 D
+      (nets/gated.py, as Flow++'s image couplings call it) at the first.
+    Each held against its plain version on the same inputs (the stacks z
+    1e-4 and log-det 1e-3, the ResFlow inverse 1e-3, attention 1e-5 and
+    PyTorch's SDPA within the same; GatedAttn against the same module on
+    the CPU, 1e-4).  Returns ({wide name: launches}, the timing records)."""
+    import copy
+
+    import torch.nn.functional as F_
+
+    from nf_tpu_torch.nets.gated import GatedAttn
+    from nf_tpu_torch.ops.estimators import eval_probes
+
+    launches = dict.fromkeys(WIDE_NAMES.values(), 0)
+    records = []
+
+    def counted(what, fn, base, module, path):
+        reset_all(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launches_of().items() if v}
+        check(got == {base: 1} and dict(module.launches_by_path) == {path: 1},
+              f"{what}: launches {got}, by path {dict(module.launches_by_path)}")
+        launches[WIDE_NAMES[base]] += 1
+        return out
+
+    for name, D, layers, F in PAST_BLOCK_STACK_CASES:
+        _, prog, g = perturbed_program(name, D, layers, F, device, SEED + D + F)
+        stack = prog.stack
+        check(isinstance(stack, fs.PackedStack) and stack.variant == "ffma"
+              and stack.kernel.path == "ffma_wide" and stack.kernel.tile == fs.NARROW_TILE,
+              f"{name} D={D} F={F}: not on the FFMA kernel's WIDE variant")
+        x = torch.randn(WIDE_BATCH, D, generator=g, device=device)
+        for direction, base in zip(("forward", "inverse"), MODELS[name]):
+            y, ld = counted(f"{name} D={D} F={F} {direction}",
+                            lambda: getattr(prog, direction)(x), base, fs, "ffma_wide")
+            yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
+            ey, eld = max_diff(y, yr), max_diff(ld, ldr)
+            kname = WIDE_NAMES[base]
+            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_BATCH} (ffma WIDE, "
+                  f"{fs.smem_bytes(stack.kernel.fp, 16, D, stack.spec.has_mix, True)} bytes of "
+                  f"shared memory, {4 * fs.scratch_floats(16, D)} of device scratch a block): "
+                  f"max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
+            check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()),
+                  f"{kname} D={D}: non-finite output")
+            check(torch.allclose(y, yr, **Z_TOL), f"{kname} D={D} F={F}: z off by {ey}")
+            check(eld <= LD_ATOL, f"{kname} D={D} F={F}: logdet off by {eld}")
+            errs[kname] = max(errs[kname], ey, eld)
+            inv = direction == "inverse"
+            records.append(dict(
+                name=kname, shape=[WIDE_BATCH, D, F, layers],
+                call=lambda st=stack, inp=x, i=inv: fs.launch(st, inp, i),
+                plain=lambda st=stack, inp=x, d=direction: fs.fused_stack_reference(
+                    st.packed, st.const_ld, inp, d),
+                work=stack_work(stack, WIDE_BATCH)))
+
+    for D, layers, F in WIDE_RESFLOW_CASES:
+        _, prog, g = perturbed_program("resflow", D, layers, F, device, SEED + D + F)
+        _, exact, _ = perturbed_program("resflow", D, layers, F, device, SEED + D + F,
+                                        logdet="exact")
+        for st in (prog.stack, exact.stack):
+            check(rf.kernel_path(st.spec) == "wide" and isinstance(st.kernel, rf.WideWeights),
+                  f"resflow D={D} F={F}: not on the wide kernel")
+        x = torch.randn(WIDE_BATCH, D, generator=g, device=device)
+        probes = eval_probes("unbias", WIDE_BATCH, D, device)
+        print(f"resflow wide D={D} n={layers} F={F} B={WIDE_BATCH}: n_terms="
+              f"{probes[1].tolist()}, vectors in "
+              f"{'shared memory' if prog.stack.kernel.in_shared else 'device scratch'} "
+              f"({rf.wide_plan(F, D)[1]} bytes of shared memory a block)")
+        z, ld = counted(f"resflow D={D} F={F} forward", lambda: prog.forward(x),
+                        "fused_resflow_fwd_ld", rf, "wide")
+        zr, ldr = rf.fused_resflow_fwd_logdet_reference(prog.stack.spec, prog.stack.packed, x,
+                                                        probes)
+        xi, ldi = counted(f"resflow D={D} F={F} inverse", lambda: prog.inverse(zr),
+                          "fused_resflow_solve_ld", rf, "wide")
+        trips_ld = []
+        xr, ldir = rf.fused_resflow_solve_logdet_reference(prog.stack.spec, prog.stack.packed,
+                                                           zr, probes, trips_ld)
+        ze = rf.fused_resflow_fwd_logdet_reference(exact.stack.spec, exact.stack.packed, x,
+                                                   probes)[0]
+        xs, _ = counted(f"resflow D={D} F={F} exact inverse", lambda: exact.inverse(ze),
+                        "fused_resflow_solve", rf, "wide")
+        trips = []
+        xsr = rf.fused_resflow_solve_reference(exact.stack.spec, exact.stack.packed, ze, trips)
+        for base, got, want, tol in (
+                ("fused_resflow_fwd_ld", (z, ld), (zr, ldr), None),
+                ("fused_resflow_solve_ld", (xi, ldi), (xr, ldir), RESFLOW_INV_ATOL),
+                ("fused_resflow_solve", (xs,), (xsr,), RESFLOW_INV_ATOL)):
+            kname = WIDE_NAMES[base]
+            e = [max_diff(a, b) for a, b in zip(got, want)]
+            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_BATCH}: max|dz|={e[0]:.3e}"
+                  + (f" max|dlogdet|={e[1]:.3e}" if len(e) > 1 else "")
+                  + ("" if tol is None else f"; trips per block (plain, whole batch): "
+                     f"{(trips_ld if len(e) > 1 else trips)}"))
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"{kname}: non-finite")
+            if tol is None:
+                check(torch.allclose(z, zr, **Z_TOL) and e[1] <= LD_ATOL,
+                      f"{kname} D={D} F={F}: off by {e}")
+            else:
+                check(max(e) <= tol, f"{kname} D={D} F={F}: off by {e}")
+            errs[kname] = max(errs[kname], *e)
+        for direction, st, inp, pr, tr in (("forward", prog.stack, x, probes, None),
+                                           ("inverse", prog.stack, zr, probes, trips_ld),
+                                           ("solve", exact.stack, ze, None, trips)):
+            plain = {"forward": lambda st=st, inp=inp, pr=pr:
+                     rf.fused_resflow_fwd_logdet_reference(st.spec, st.packed, inp, pr),
+                     "inverse": lambda st=st, inp=inp, pr=pr:
+                     rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, inp, pr),
+                     "solve": lambda st=st, inp=inp:
+                     rf.fused_resflow_solve_reference(st.spec, st.packed, inp)}[direction]
+            records.append(dict(
+                name=WIDE_NAMES[RESFLOW_NAMES[direction]], shape=[WIDE_BATCH, D, F, layers],
+                call=lambda st=st, inp=inp, d=direction, pr=pr: rf.launch(st, inp, d, pr),
+                plain=plain,
+                work=resflow_work(st.spec, st.packed, WIDE_BATCH, direction,
+                                  None if pr is None else pr[1], tr)))
+
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    for i, (BH, L, D) in enumerate(WIDE_ATTN_CASES):
+        q, k, v = (torch.randn(BH, L, D, generator=g, device=device) for _ in range(3))
+        out = counted(f"attention ({BH}, {L}, {D})", lambda: ta.attention(q, k, v),
+                      "attention_fwd", ca, "column_blocks")
+        want = ta.attention_reference(q, k, v)
+        lib = F_.scaled_dot_product_attention(q, k, v)
+        e, e_lib = max_diff(out, want), max_diff(lib, want)
+        rows, cols = ca.grid(BH, L, D)
+        print(f"check attention_fwd_wide BH={BH} L={L} D={D} ({rows} x {cols} blocks, "
+              f"{ca.smem_bytes(L, D)} bytes of shared memory): max|dout|={e:.3e} (SDPA "
+              f"against the plain version {e_lib:.3e})")
+        check(bool(torch.isfinite(out).all()), "attention_fwd_wide: non-finite output")
+        check(torch.allclose(out, want, **ATTN_TOL), f"attention_fwd_wide D={D}: off by {e}")
+        check(torch.allclose(lib, want, **ATTN_TOL), f"SDPA D={D}: off by {e_lib}")
+        errs["attention_fwd_wide"] = max(errs["attention_fwd_wide"], e)
+        records.append(dict(
+            name="attention_fwd_wide", shape=[BH, L, D],
+            call=lambda q=q, k=k, v=v: ca.launch(q, k, v),
+            plain=lambda q=q, k=k, v=v: ta.attention_reference(q, k, v),
+            library=lambda q=q, k=k, v=v: F_.scaled_dot_product_attention(q, k, v),
+            work=attention_work(BH, L, D)))
+        if i == 0:
+            side = int(round(math.sqrt(L)))
+            net = GatedAttn((side, side, 8), filters=4 * D, device=device)
+            net.init(torch.Generator(device=device).manual_seed(SEED + 8))
+            xa = torch.randn(BH // 4, side, side, 8, generator=g, device=device)
+            with torch.no_grad():
+                ya = counted(f"GatedAttn filters={4 * D} on ({BH // 4}, {side}, {side}, 8)",
+                             lambda: net(xa), "attention_fwd", ca, "column_blocks")
+                yc = copy.deepcopy(net).cpu()(xa.cpu())
+            ea = max_diff(ya.cpu(), yc)
+            print(f"check GatedAttn filters={4 * D} ({BH // 4}, {side}, {side}, 8) on the "
+                  f"card against the CPU: max|dy|={ea:.3e}")
+            check(ea <= 1e-4, f"GatedAttn filters={4 * D}: off the CPU by {ea}")
+    return launches, records
+
+
+def wide_entries(records, launches, errs, sfu_per_s):
+    """The kernels line's entries of the wide paths: per kernel name its
+    shapes' times (CUDA events over WIDE_ITERS launches; the plain versions
+    over 3 calls; SDPA's where one call computes the same) and works,
+    summed, each shape also on its own under per_shape."""
+    by_name = {}
+    for r in records:
+        by_name.setdefault(r["name"], []).append(r)
+    entries = []
+    for name, recs in by_name.items():
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        work = dict.fromkeys(("flop", "mac_flop", "elem", "transcendental", "bytes"), 0)
+        per_shape = []
+        for r in recs:
+            t = {"ms": device_ms(r["call"], WIDE_ITERS), "plain_ms": device_ms(r["plain"], 3),
+                 "library_ms": device_ms(r["library"], WIDE_ITERS) if "library" in r else None}
+            bound, by = bound_of(r["work"], sfu_per_s)
+            bound_tc, by_tc = bound_of(r["work"], sfu_per_s, tensor_cores=True)
+            per_shape.append({"shape": r["shape"], **t, "bound_ms": bound, "bound_by": by,
+                              "bound_tc_ms": bound_tc, "bound_tc_by": by_tc})
+            for key in total:
+                total[key] += t[key] or 0.0
+            for key in work:
+                work[key] += r["work"][key]
+        library = "library" in recs[0]
+        entries.append(kernel_entry(
+            name, launches, errs, work, sfu_per_s, total["ms"], total["plain_ms"],
+            library_ms=total["library_ms"] if library else None,
+            library_note=("torch.nn.functional.scaled_dot_product_attention, f32" if library
+                          else "no single PyTorch call computes the whole stack"),
+            shape="summed over per_shape", per_shape=per_shape,
+            launches_note="launches: the wide path's run through its entry points "
+                          "(wide_paths), not the headline main path",
+            timing=f"ms: CUDA events over {WIDE_ITERS} back-to-back launches per shape, "
+                   "summed; plain_ms 3 calls"))
+    return entries
 
 
 def eager_main_path(name, device, counters, launches_of):
@@ -3233,6 +3486,13 @@ def main():
             print(f"check {name} D={D} n={layers} F={F}{f' K={K}' if flowpp else ''} B={B}"
                   f"{'' if flowpp else f' ({stack.variant})'}: "
                   f"max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
+            if not flowpp:
+                # the tilings these ran on before the wide paths: the tensor-core kernel up
+                # to F = 64, the FFMA kernel at TILES' F = 128 tiling past it
+                check(stack.variant == ("mma" if F <= 64 else "ffma")
+                      and (F <= 64 or (stack.kernel.path, stack.kernel.tile)
+                           == ("ffma", fs.TILES[128])),
+                      f"{name} D={D} F={F}: off its tiling")
             check(torch.isfinite(y).all() and torch.isfinite(ld).all(),
                   f"{name}: non-finite output")
             if flowpp and direction == "inverse":
@@ -3246,6 +3506,8 @@ def main():
             errs[name] = max(errs[name], ey, eld)
 
     check_wide_stacks(fs, dev, counters, launches_of, errs)
+    print(f"phase 3 (the wide paths) starts at {time.perf_counter() - t_start:.1f} s")
+    wide_launches, wide_records = wide_paths(fs, rf, ca, ta, dev, counters, launches_of, errs)
 
     for estimator, D, layers, F, B, directions in RESFLOW_CASES:
         _, prog, g = perturbed_program("resflow", D, layers, F, dev, SEED + D, logdet=estimator)
@@ -3316,6 +3578,18 @@ def main():
         print(f"main path {model_name} launches: { {k: v for k, v in counts.items() if v} }")
         check(counts == {k: int(k in (fwd_name, inv_name)) for k in counts},
               f"{model_name}: expected one launch of its kernel per call, got {counts}")
+        # the headline keeps its kernels and tilings: the tensor-core
+        # stack, the 16-sample ResFlow series tiles at (FP, DP) = (32, 2)
+        paths = {**fs.launches_by_path, **rf.launches_by_path}
+        want = {"realnvp": {"mma": 2}, "glow": {"mma": 2}, "flow++": {},
+                "resflow": {"tile": 2}}[model_name]
+        tiling = {"realnvp": lambda st: st.variant == "mma" and st.kernel.layout.fp == 32,
+                  "glow": lambda st: st.variant == "mma" and st.kernel.layout.fp == 32,
+                  "flow++": lambda st: True,
+                  "resflow": lambda st: (rf.kernel_path(st.spec), st.kernel.fp, st.kernel.dp)
+                  == ("tile", 32, 2)}[model_name](prog.stack)
+        check(paths == want and tiling,
+              f"{model_name}: off its kernel or tiling: launches by path {paths}")
         launches.update({fwd_name: counts[fwd_name], inv_name: counts[inv_name]})
 
         check(log_px.shape == (BATCH,) and y_s.shape == (BATCH, 2)
@@ -3360,8 +3634,10 @@ def main():
     torch.cuda.synchronize()
     counts = launches_of()
     print(f"main path resflow exact launches: { {k: v for k, v in counts.items() if v} }")
-    check(counts == {k: int(k == "fused_resflow_solve") for k in counts},
-          f"resflow exact: expected one solve launch per inverse, got {counts}")
+    check(counts == {k: int(k == "fused_resflow_solve") for k in counts}
+          and rf.launches_by_path == {"warp": 1},
+          f"resflow exact: expected one solve launch (the warp kernel) per inverse, got "
+          f"{counts}, {dict(rf.launches_by_path)}")
     launches["fused_resflow_solve"] = counts["fused_resflow_solve"]
     rt, ld_sum = float((xr - x).abs().max()), float((ld + ldi).abs().max())
     with torch.no_grad():
@@ -3389,6 +3665,8 @@ def main():
     print(f"phase 6 (image Flow++ main path) starts at {time.perf_counter() - t_start:.1f} s")
     fp = flowpp_image_main_path(dev, counters, launches_of, ca)
     launches["attention_fwd"] = fp["totals"]["attention_fwd"]
+    check(set(ca.launches_by_path) == {"one_pass"},
+          f"flowpp-img32x1: attention off its one-pass kernel: {dict(ca.launches_by_path)}")
     mix_main, mix_totals = mixlogcdf_main_path(dev, counters, launches_of)
     launches["mix_log_cdf_inverse"] = mix_totals["mix_log_cdf_inverse"]
     print(f"phase 7 (FFJORD) starts at {time.perf_counter() - t_start:.1f} s")
@@ -3532,6 +3810,9 @@ def main():
     flowpp_image_timing(fp, smi, ca)
     kernels.append(attention_entry(ca, ta, launches, errs, sfu_per_s, dev))
     kernels.append(mixlogcdf_entry(cm, mlc, launches, errs, sfu_per_s, mix_main))
+    t_wide = time.perf_counter()
+    kernels += wide_entries(wide_records, wide_launches, errs, sfu_per_s)
+    print(f"wide paths' timing took {time.perf_counter() - t_wide:.1f} s")
     print(f"image Flow++ timing took {time.perf_counter() - t_img:.1f} s; the run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

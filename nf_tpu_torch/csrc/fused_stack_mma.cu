@@ -4,8 +4,8 @@
 // Replaces nf_tpu/ops/pallas/fused_stack.py::_make_kernels (fwd_kernel /
 // inv_kernel) in both variants, RealNVP and Glow (template MIX), for padded
 // conditioner widths FP <= 64 and data dimensions D <= 8.  Wider stacks run
-// the FFMA kernel of csrc/fused_stack.cu; fused_stack.py::kernel_variant
-// chooses by shape.  The math is fused_stack.cu's (its header states it):
+// the FFMA kernel of csrc/fused_stack.cuh; fused_stack.py::kernel_variant
+// chooses by shape.  The math is fused_stack.cuh's (its header states it):
 // per coupling a channel affine, Glow's D x D mix, the 6-layer MLP
 // conditioner with four F x F layers, and the affine coupling, over n
 // couplings in one launch, with every constant folded on the host

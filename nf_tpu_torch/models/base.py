@@ -127,9 +127,9 @@ class EvalProgram:
     on the card, its plain version on the CPU); any other stack runs the
     eager chain on the model's device, as ``nf_tpu`` runs its jitted chain
     where no fused kernel applies.  ``stack`` holds the packed weights, or
-    None for the chain.  A matched stack that no kernel on the card takes
-    raises NotImplementedError there (``PackedStack``, ``PackedResFlow``),
-    never falling back to the chain.
+    None for the chain.  Every matched stack has a kernel on the card, at
+    any width and dimension (``PackedStack``, ``PackedResFlow``); a matched
+    stack never falls back to the chain.
 
     A program over the chain serves the live module in eval mode: a call
     sets it back to eval mode where training (``Trainer``) left it in train

@@ -33,17 +33,21 @@ Host side, once per stack:
 * ``PackedResFlow`` keeps that and, for a stack on the card, the kernel's
   own layout (``kernel_weights``: one contiguous block per residual block,
   zero-padded to the kernel's width FP and dimension DP, with W2 and W2t
-  split for 3xTF32 and laid out in mma fragment order).  The kernel
-  covers F <= 256 and D <= 8 (``covers``); from F = 128 it streams the
-  fragments instead of staging them.  A wider stack on the card raises
-  NotImplementedError; on the CPU the plain versions run it.
+  split for 3xTF32 and laid out in mma fragment order).  These tilings
+  cover F <= 256 and D <= 8; from F = 128 they stream the fragments
+  instead of staging them.  Past either limit the wide kernel
+  (``fused_resflow_wide_kernel``, F and D at run time, FFMA, 8 samples a
+  block) runs the stack from ``wide_weights``' layout, its tile's vectors
+  in shared memory or device scratch (``wide_plan``): every matched spec
+  has a kernel (``covers``, ``kernel_path``).
 
 The probes are arguments (``ops/estimators.py``): V (S, B, D) and the
 series lengths n_terms (S,).  ``fused_resflow`` is the wrapper: for CPU
 tensors it runs the plain PyTorch versions
 (``fused_resflow_solve_reference``, ``..._solve_logdet_reference``,
 ``..._fwd_logdet_reference``); for CUDA tensors it launches the kernel or
-raises, and counts the launch in ``LAUNCHES``.
+raises, and counts the launch in ``LAUNCHES`` (and by kernel in
+``launches_by_path``: 'tile', 'warp' or 'wide').
 
 Stopping: the plain versions stop the fixed point on the whole batch, as
 the chain does; the series kernels stop per block, a tile of ``SAMPLES``
@@ -63,6 +67,7 @@ far above the weights' and the data's bytes.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -78,12 +83,15 @@ from ..estimators import N_EXACT, N_SAMPLES, Probes, draw_unbias_probes  # noqa:
 from . import _build
 
 SMEM_LIMIT = 232448        # dynamic shared memory one Hopper block may use
-WIDTHS = (16, 32, 64, 128, 256)  # the kernel's padded hidden widths FP
-DIMS = (2, 4, 8)                # and padded data dimensions DP
+WIDTHS = (16, 32, 64, 128, 256)  # the tiled kernels' padded hidden widths FP
+DIMS = (2, 4, 8)                # and padded data dimensions DP; past them the wide kernel
 
 # launches of each kernel variant, counted by the wrapper where it launches
 LAUNCHES = {"fused_resflow_solve": 0, "fused_resflow_solve_ld": 0,
             "fused_resflow_fwd_ld": 0}
+# the same launches by kernel: 'tile' (the series template, and the solve past
+# SOLVE_WIDTHS), 'warp' (the solve kernel), 'wide' (past WIDTHS or DIMS)
+launches_by_path: Counter = Counter()
 # direction -> (kernel variant id, counter)
 _VARIANTS = {"solve": (0, "fused_resflow_solve"), "inverse": (1, "fused_resflow_solve_ld"),
              "forward": (2, "fused_resflow_fwd_ld")}
@@ -92,6 +100,7 @@ _VARIANTS = {"solve": (0, "fused_resflow_solve"), "inverse": (1, "fused_resflow_
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    launches_by_path.clear()
 
 
 @dataclass(frozen=True)
@@ -110,8 +119,8 @@ class ResFlowSpec:
 # --------------------------------------------------------------------------
 def extract_resflow_spec(chain, dims) -> Optional[ResFlowSpec]:
     """Match chain.layers against alternating ActNorm / InvertibleResBlock
-    with the 3-layer SN-Dense + LipSwish g, as ``nf_tpu`` does.  The
-    kernel's own limits are in ``covers``."""
+    with the 3-layer SN-Dense + LipSwish g, as ``nf_tpu`` does; every
+    match has a kernel (``kernel_path``)."""
     if not isinstance(chain, Chain) or len(dims) != 1:
         return None
     layers = list(chain.layers)
@@ -313,8 +322,15 @@ SCRATCH_STRIDE = SAMPLES + 8   # row stride of the [feature][sample] scratch
 
 
 def covers(spec: ResFlowSpec) -> bool:
-    """Whether the kernel has a tiling for the stack's F and D."""
-    return spec.filters <= WIDTHS[-1] and spec.dim <= DIMS[-1]
+    """Whether a kernel takes the stack: every spec ``extract_resflow_spec``
+    matches, at any F and D (the card's memory is the only ceiling)."""
+    return spec.filters >= 1 and spec.dim >= 1
+
+
+def kernel_path(spec: ResFlowSpec) -> str:
+    """'tile' (the tiled kernels, FP and DP template sizes) up to F = 256
+    and D = 8, 'wide' past either."""
+    return "tile" if spec.filters <= WIDTHS[-1] and spec.dim <= DIMS[-1] else "wide"
 
 
 def padded_width(filters: int) -> int:
@@ -492,17 +508,82 @@ def kernel_weights(spec: ResFlowSpec, packed) -> KernelWeights:
     return KernelWeights(fp=fp, dp=dp, w=w)
 
 
-def _uncovered(spec: ResFlowSpec) -> NotImplementedError:
-    return NotImplementedError(
-        f"fused_resflow: the kernel covers F <= {WIDTHS[-1]} and D <= {DIMS[-1]}, "
-        f"got F = {spec.filters}, D = {spec.dim}")
+# the wide kernel (``fused_resflow_wide_kernel``): F and D at run time
+WIDE_SAMPLES = 8      # samples per block
+WIDE_THREADS = 256    # threads per block
+WIDE_RED = WIDE_THREADS * WIDE_SAMPLES   # the reduction buffer's floats
+
+
+@dataclass(frozen=True)
+class WideLayout:
+    """Offsets (floats) inside one residual block's wide weight block; the
+    kernel's ``WideLayout`` computes the same.  Each product's matrix
+    input-major, unpadded: g1 [D][F] (W1t^T), b1 [F], g2 [F][F] (W2t^T),
+    b2 [F], g3 [F][D] (W3t^T), b3 [D], an_s [D], an_b [D], beta [2], then
+    J^T's j3 [D][F] (W3t), j2 [F][F] (W2t), j1 [F][D] (W1t)."""
+    f: int
+    d: int
+
+    def offsets(self):
+        f, d = self.f, self.d
+        sizes = (("g1", d * f), ("b1", f), ("g2", f * f), ("b2", f), ("g3", f * d),
+                 ("b3", d), ("an_s", d), ("an_b", d), ("beta", 2), ("j3", d * f),
+                 ("j2", f * f), ("j1", f * d))
+        out, at = {}, 0
+        for name, n in sizes:
+            out[name] = at
+            at += n
+        out["size"] = at
+        return out
+
+    @property
+    def size(self) -> int:
+        return self.offsets()["size"]
+
+
+def wide_scratch_floats(f: int, d: int) -> int:
+    """Floats of one wide block's vectors: x, z, g, a probe and its J^T
+    iterate (D each), h1, d1, h2, d2 (F each) per sample, the four series
+    and the log-det per sample."""
+    return WIDE_SAMPLES * (5 * d + 4 * f + N_SAMPLES + 1)
+
+
+def wide_plan(f: int, d: int):
+    """(vectors in shared memory?, dynamic shared bytes of one block): the
+    vectors go beside the reduction buffer while the block fits
+    ``SMEM_LIMIT``, else to device scratch and the block holds the buffer
+    alone."""
+    shared = 4 * (WIDE_RED + wide_scratch_floats(f, d))
+    return (True, shared) if shared <= SMEM_LIMIT else (False, 4 * WIDE_RED)
+
+
+@dataclass(frozen=True)
+class WideWeights:
+    f: int
+    d: int
+    w: torch.Tensor    # (n, WideLayout.size)
+    in_shared: bool    # wide_plan's choice
+
+
+@torch.no_grad()
+def wide_weights(spec: ResFlowSpec, packed) -> WideWeights:
+    n, D, F = spec.n_repeats, spec.dim, spec.filters
+    off = WideLayout(F, D).offsets()
+    w = torch.empty(n, off["size"], dtype=torch.float32, device=packed["w2t"].device)
+    parts = {"g1": packed["w1"], "b1": packed["b1"][:, :, 0], "g2": packed["w2"],
+             "b2": packed["b2"][:, :, 0], "g3": packed["w3"], "b3": packed["b3"][:, :, 0],
+             "an_s": packed["an_s"][:, :, 0], "an_b": packed["an_b"][:, :, 0],
+             "beta": packed["beta"], "j3": packed["w3t"], "j2": packed["w2t"],
+             "j1": packed["w1t"]}
+    for name, t in parts.items():
+        w[:, off[name]:off[name] + t[0].numel()] = t.reshape(n, -1)
+    return WideWeights(f=F, d=D, w=w, in_shared=wide_plan(F, D)[0])
 
 
 class PackedResFlow:
     """One stack's packed weights, built once: ``nf_tpu``'s layout for the
-    plain versions and, for a stack on the card, the kernel's layout.
-    Raises NotImplementedError for a stack off the CPU that the kernel does
-    not cover."""
+    plain versions and, for a stack on the card, its kernel's layout
+    (``kernel_weights`` up to F = 256 and D = 8, ``wide_weights`` past)."""
 
     def __init__(self, spec: ResFlowSpec, packed):
         self.spec = spec
@@ -510,9 +591,8 @@ class PackedResFlow:
         self.device = packed["an_const"].device
         self.kernel = self.an_const = None
         if self.device.type != "cpu":
-            if not covers(spec):
-                raise _uncovered(spec)
-            self.kernel = kernel_weights(spec, packed)
+            self.kernel = (kernel_weights if kernel_path(spec) == "tile"
+                           else wide_weights)(spec, packed)
             self.an_const = float(packed["an_const"])
 
 
@@ -603,15 +683,23 @@ def _solve_fn():
     return fn
 
 
+def _wide_fn():
+    fn = _build.load("fused_resflow").nf_fused_resflow_wide
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 5 + [ctypes.POINTER(i), p] + [i] * 5 + [f, i, f, f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
            probes: Optional[Probes] = None):
     """Launch the CUDA kernel on ``x`` (B, D).  ``direction`` 'forward'
     (fwd_ld) or 'inverse' (solve_ld) returns (y, logdet (B,)) and needs
-    ``probes``; 'solve' returns x, from the kernel ``solve_kernel`` picks."""
+    ``probes``; 'solve' returns x, from the kernel ``solve_kernel`` picks
+    (the wide kernel past WIDTHS or DIMS)."""
     variant, counter = _variant(direction)
     kw, spec = stack.kernel, stack.spec
-    if not covers(spec):
-        raise _uncovered(spec)
     if not x.is_cuda:
         raise ValueError(f"fused_resflow kernel needs a CUDA tensor, got {x.device}")
     if kw is None or kw.w.device != x.device:
@@ -636,6 +724,25 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
     ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
     if B == 0:
         return (y, ld) if logdet else y
+    sign = 1.0 if direction == "forward" else -1.0
+    nt = (ctypes.c_int * N_SAMPLES)(*n_terms)
+    if isinstance(kw, WideWeights):
+        scratch = None if kw.in_shared else torch.empty(
+            -(-B // WIDE_SAMPLES) * wide_scratch_floats(kw.f, kw.d), dtype=torch.float32,
+            device=x.device)
+        with torch.cuda.device(x.device):
+            err = _wide_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr() if logdet else None,
+                             kw.w.data_ptr(), V.data_ptr() if logdet else None, nt,
+                             None if scratch is None else scratch.data_ptr(), B,
+                             spec.n_repeats, spec.dim, spec.filters, spec.n_iters, spec.ftol,
+                             variant, sign, -sign * stack.an_const,
+                             torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused_resflow wide {direction} kernel failed to launch: "
+                               f"CUDA error {err}")
+        LAUNCHES[counter] += 1
+        launches_by_path["wide"] += 1
+        return (y, ld) if logdet else y
     if direction == "solve" and solve_kernel(kw.fp) == "warp":
         with torch.cuda.device(x.device):
             err = _solve_fn()(x.data_ptr(), y.data_ptr(), kw.w.data_ptr(), B, spec.n_repeats,
@@ -644,9 +751,8 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
         if err != 0:
             raise RuntimeError(f"fused_resflow solve kernel failed to launch: CUDA error {err}")
         LAUNCHES[counter] += 1
+        launches_by_path["warp"] += 1
         return y
-    sign = 1.0 if direction == "forward" else -1.0
-    nt = (ctypes.c_int * N_SAMPLES)(*n_terms)
     pairs = (ctypes.c_int * N_SAMPLES)(*probe_pairs(n_terms))
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
@@ -659,6 +765,7 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
         raise RuntimeError(f"fused_resflow {direction} kernel failed to launch: "
                            f"CUDA error {err}")
     LAUNCHES[counter] += 1
+    launches_by_path["tile"] += 1
     return (y, ld) if logdet else y
 
 
@@ -676,7 +783,7 @@ def fused_resflow(stack: PackedResFlow, x: torch.Tensor, direction: str,
     over ``probes``; 'solve' -> x alone.
 
     CPU tensors take the plain versions; any other tensor launches the
-    kernel or raises (NotImplementedError for a stack it does not cover)."""
+    kernel or raises."""
     _variant(direction)
     if x.device.type != "cpu":
         return launch(stack, x, direction, probes)

@@ -8,11 +8,13 @@ and Glow (ActNorm norms and the PLU 1x1 mix):
 layers on the tensor cores (``mma.sync`` in 3xTF32) for padded widths up
 to 64 and data dimensions up to 8, which includes the headline (D = 2,
 F = 32);
-``nf_tpu_torch/csrc/fused_stack.cu`` runs them on the FFMA units for the
-rest, with 16 samples a block where a wide D would pass the shared memory
-at its usual tiling (``ffma_tiling``).  ``kernel_variant`` chooses by
-shape; a stack no tiling holds raises NotImplementedError on the card.  The eval-mode forward or
-inverse of
+``nf_tpu_torch/csrc/fused_stack.cuh`` runs them on the FFMA units for the
+rest (built from ``fused_stack.cu``), with 16 samples a block where a wide
+D would pass the shared memory at its usual tiling, and past that its WIDE
+variant (built from ``fused_stack_wide.cu``), which keeps the D-wide rows
+in device memory (``ffma_plan``).  ``kernel_variant`` chooses
+by shape; every stack ``extract_stack_spec`` matches has a kernel.  The
+eval-mode forward or inverse of
 
     n x [ channel-affine norm -> (PLU 1x1 mix)? -> affine coupling(MLP) ]
 
@@ -47,6 +49,7 @@ sample and coupling.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -72,7 +75,9 @@ TILES = {8: (256, 4), 16: (128, 4), 32: (64, 2), 64: (64, 4),
          128: (32, 4), 256: (32, 4)}
 # the tiling of every width for a stack whose block would pass SMEM_LIMIT at
 # TILES' S: the x tile and the head's rows are D x (S + 4) floats, so 16
-# samples a block take D up to several hundred at F = 32 (``ffma_tiling``)
+# samples a block take D up to several hundred at F = 32; past that the
+# WIDE variant at the same tiling, its D-wide rows in device memory
+# (``ffma_plan``)
 NARROW_TILE = (16, 2)
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
 
@@ -88,11 +93,15 @@ MMA_SAMPLES = 16 * MMA_WARPS
 # fused_stack_* for RealNVP (no mix), fused_stack_glow_* for Glow (mix)
 LAUNCHES = {"fused_stack_fwd": 0, "fused_stack_inv": 0,
             "fused_stack_glow_fwd": 0, "fused_stack_glow_inv": 0}
+# the same launches by kernel and tiling: 'mma', 'ffma' (TILES), 'ffma_narrow'
+# (NARROW_TILE), 'ffma_wide' (the WIDE variant)
+launches_by_path: Counter = Counter()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    launches_by_path.clear()
 
 
 # --------------------------------------------------------------------------
@@ -188,12 +197,18 @@ class MmaLayout:
         return 256 + 4 * (self.stages * self.layer + 2 * self.header)
 
 
-def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False) -> int:
+def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False,
+               wide: bool = False) -> int:
     """Dynamic shared memory of one FFMA kernel block; the kernel computes
-    the same."""
+    the same.  ``wide``: the WIDE variant, whose header holds the F-wide
+    vectors and the coupling's gain / bias alone and whose x tile and head
+    rows are in device scratch (``scratch_floats``)."""
     sp = samples + 4
     chunk = fp if fp * fp <= 4096 else 4096 // fp
     half = (dim + 1) // 2
+    if wide:
+        header = (_N_VEC * fp + 2 + 3) // 4 * 4
+        return 4 * (2 * fp * sp + 2 * chunk * fp + 2 * header + samples)
     # per coupling: vec, in-projection, head, then bh / gb / pre / mix
     # padded to 4
     small = 2 * half + 2 + 2 * dim + (dim * dim if has_mix else 0)
@@ -202,24 +217,28 @@ def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False) -> int:
                 + 2 * half * sp + samples)
 
 
-def ffma_tiling(dim: int, filters: int, has_mix: bool) -> Optional[Tuple[int, int]]:
-    """The FFMA kernel's (S, TS) for a (D = dim, F = filters) stack: TILES'
-    entry of its padded width, else NARROW_TILE, whichever is first to fit
-    one block's shared memory; None where neither does."""
+def scratch_floats(samples: int, dim: int) -> int:
+    """Device scratch of one WIDE block: the x tile and the head's rows."""
+    return (dim + 2 * ((dim + 1) // 2)) * (samples + 4)
+
+
+def ffma_plan(dim: int, filters: int, has_mix: bool) -> Tuple[str, Tuple[int, int]]:
+    """The FFMA kernel's path and (S, TS) for a (D = dim, F = filters)
+    stack: TILES' entry of its padded width ('ffma'), else NARROW_TILE
+    ('ffma_narrow'), whichever is first to fit one block's shared memory;
+    past both the WIDE variant at NARROW_TILE ('ffma_wide'), which fits at
+    any D."""
     fp = padded_width(filters)
-    for tile in (TILES[fp], NARROW_TILE):
+    for kind, tile in (("ffma", TILES[fp]), ("ffma_narrow", NARROW_TILE)):
         if smem_bytes(fp, tile[0], dim, has_mix) <= SMEM_LIMIT:
-            return tile
-    return None
+            return kind, tile
+    return "ffma_wide", NARROW_TILE
 
 
-def _uncovered(spec: "StackSpec") -> NotImplementedError:
-    fp = padded_width(spec.filters)
-    return NotImplementedError(
-        f"fused_stack: no FFMA tiling holds D = {spec.dim}, F = {spec.filters}"
-        f"{' (Glow mix)' if spec.has_mix else ''} in one block's shared memory: "
-        f"{smem_bytes(fp, NARROW_TILE[0], spec.dim, spec.has_mix)} bytes at "
-        f"{NARROW_TILE[0]} samples a block, {SMEM_LIMIT} the limit")
+def ffma_tiling(dim: int, filters: int, has_mix: bool) -> Tuple[int, int]:
+    """The FFMA kernel's (S, TS) for a (D = dim, F = filters) stack
+    (``ffma_plan``): a tiling for every spec."""
+    return ffma_plan(dim, filters, has_mix)[1]
 
 
 def _is_relu(layer) -> bool:
@@ -381,7 +400,9 @@ def pack_stack(chain, spec: StackSpec):
             convs = [layers[per * i + 1] for i in idxs]
             W = torch.stack([c.weight().detach() for c in convs])   # (m, D, D)
             b["mix"] = W
-            b["mixi"] = torch.linalg.inv(W)
+            # one matrix at a time: a batched CPU LU (MKL getrf with more
+            # than one thread) can fail to return past about 128 rows
+            b["mixi"] = torch.stack([torch.linalg.inv(w) for w in W])
             const_ld = const_ld + torch.sum(_stacked([c.log_s for c in convs]))
 
         # ---- coupling conditioner (standard MLP, eval mode)
@@ -588,9 +609,11 @@ class FfmaWeights:
     (n, 15, fp), wrt (n, 4, fp, fp) k-major, wh (n, 2*out_max, fp) with the
     t rows first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2),
     and for Glow mix / mixi (n, D, D) row-major (out, in), else None;
-    ``tile`` the launch's (S samples a block, TS a thread), ``ffma_tiling``'s."""
+    ``tile`` the launch's (S samples a block, TS a thread) and ``path``
+    'ffma', 'ffma_narrow' or 'ffma_wide', ``ffma_plan``'s."""
     fp: int
     tile: Tuple[int, int]
+    path: str
     pre: torch.Tensor
     prei: torch.Tensor
     w0t: torch.Tensor
@@ -607,9 +630,7 @@ class FfmaWeights:
 def ffma_weights(spec: StackSpec, packed) -> FfmaWeights:
     n, D, F = spec.n_repeats, spec.dim, spec.filters
     fp = padded_width(F)
-    tile = ffma_tiling(D, F, spec.has_mix)
-    if tile is None:
-        raise _uncovered(spec)
+    path, tile = ffma_plan(D, F, spec.has_mix)
     half = (D + 1) // 2                   # in_max == out_max
     kw = dict(dtype=torch.float32, device=packed[0]["gb"].device)
     out = dict(pre=torch.zeros(n, D, 2, **kw), prei=torch.zeros(n, D, 2, **kw),
@@ -638,7 +659,7 @@ def ffma_weights(spec: StackSpec, packed) -> FfmaWeights:
         if spec.has_mix:
             out["mix"][c] = P["mix"]
             out["mixi"][c] = P["mixi"]
-    return FfmaWeights(fp=fp, tile=tile, **out)
+    return FfmaWeights(fp=fp, tile=tile, path=path, **out)
 
 
 def kernel_weights(spec: StackSpec, packed):
@@ -650,9 +671,7 @@ def kernel_weights(spec: StackSpec, packed):
 
 class PackedStack:
     """One stack's packed weights, built once: ``nf_tpu``'s layout for the
-    plain version and, for a stack off the CPU, the kernel's layout.
-    Raises NotImplementedError for a stack off the CPU that no kernel
-    takes (``ffma_tiling``)."""
+    plain version and, for a stack off the CPU, the kernel's layout."""
 
     def __init__(self, spec: StackSpec, packed, const_ld: torch.Tensor):
         self.spec = spec
@@ -671,6 +690,15 @@ def _ffma_fn():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ffma_wide_fn():
+    fn = _build.load("fused_stack_wide").nf_fused_stack_wide
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 12 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -736,17 +764,23 @@ def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
         else:
             S, TS = kw.tile
             mix = kw.mixi if inverse else kw.mix
-            err = _ffma_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr(),
-                             (kw.prei if inverse else kw.pre).data_ptr(),
-                             0 if mix is None else mix.data_ptr(), kw.w0t.data_ptr(),
-                             kw.vec.data_ptr(), kw.wrt.data_ptr(), kw.wh.data_ptr(),
-                             kw.bh.data_ptr(), kw.gb.data_ptr(),
-                             B, spec.dim, spec.n_repeats, kw.fp, S, TS, int(inverse),
-                             int(spec.has_mix), ld_const, stream)
+            ptrs = [x.data_ptr(), y.data_ptr(), ld.data_ptr(),
+                    (kw.prei if inverse else kw.pre).data_ptr(),
+                    0 if mix is None else mix.data_ptr(), kw.w0t.data_ptr(),
+                    kw.vec.data_ptr(), kw.wrt.data_ptr(), kw.wh.data_ptr(),
+                    kw.bh.data_ptr(), kw.gb.data_ptr()]
+            if kw.path == "ffma_wide":
+                scratch = x.new_empty(-(-B // S) * scratch_floats(S, spec.dim))
+                fn, ptrs = _ffma_wide_fn(), ptrs + [scratch.data_ptr()]
+            else:
+                fn = _ffma_fn()
+            err = fn(*ptrs, B, spec.dim, spec.n_repeats, kw.fp, S, TS, int(inverse),
+                     int(spec.has_mix), ld_const, stream)
     if err != 0:
         raise RuntimeError(f"fused_stack {'inverse' if inverse else 'forward'} "
                            f"kernel failed to launch: CUDA error {err}")
     LAUNCHES[launch_name(spec, inverse)] += 1
+    launches_by_path["mma" if isinstance(kw, MmaWeights) else kw.path] += 1
     return y, ld
 
 

@@ -13,7 +13,10 @@ against nf_tpu's, on the CPU.
   products in 3xTF32 emulated bit by bit (q and v rounded to TF32, k and p
   truncated, the small parts truncated as the tensor core reads them); the
   division last): atol / rtol 1e-5 against the
-  plain version, at D = 2 to 128 and L = 2 to 1500;
+  plain version, at D = 2 to 128 and L = 2 to 1500; past D = 128 the
+  column-block kernel walked the same way (``wide_tiling``, D = 129 to
+  300), every head width 129 to 512 planned within one block, and the
+  plain version at (16, 192) against nf_tpu's;
 * the wrapper: a CPU tensor takes the plain version with no launch
   counted, and the kernel's own entry refuses a CPU tensor.
 """
@@ -173,7 +176,97 @@ def test_main_path_tilings():
     assert cattn.tiling(64, 128) == (1, 64, 32) and cattn.tiling(20, 8) == (2, 32, 24)
     assert {L: cattn.smem_bytes(L, 8) for L in (256, 64, 16)} == {
         256: 4 * 12 * (64 + 2 * 256), 64: 4 * 12 * (64 + 2 * 64), 16: 4 * 12 * (64 + 2 * 64)}
-    assert not cattn.covers(16, 129) and not cattn.covers(0, 8)
+    # past D = 128 the column-block kernel covers the shape: a plan that
+    # fits one block, and a CPU tensor counts no launch
+    assert cattn.covers(16, 129) and cattn.path(129) == "column_blocks"
+    assert cattn.wide_tiling(16) == (4, 16, 16) and cattn.grid(4, 16, 129) == (1, 2)
+    assert cattn.smem_bytes(16, 129) == 4 * 132 * (64 + 2 * 4 * 16) <= cattn.SMEM_LIMIT
+    q, k, v = map(torch.from_numpy, _qkv(9, (4, 16, 129)))
+    before = dict(cattn.LAUNCHES)
+    close(tattn.attention(q, k, v), tattn.attention_reference(q, k, v), 0.0)
+    assert cattn.LAUNCHES == before and not cattn.covers(0, 8)
+
+
+def _walk_wide_kernel(q, k, v):
+    """csrc/attention.cu's column-block kernel in PyTorch (D past 128): the
+    grid of ``wide_tiling``'s row blocks times ceil(D / WIDE_COLS) column
+    blocks (each (slice, row, column) owned by exactly one warp of one
+    block); per staged tile of T keys the 3xTF32 scores of q (times
+    log2(e) / sqrt(D)) and k summed over D in chunks of WIDE_COLS, the
+    tile's row maximum, one rescale, exp2(s - m) and the 3xTF32 p v
+    product for the block's columns; the division last."""
+    BH, L, D = q.shape
+    S, R, T = cattn.wide_tiling(L)
+    rows, cols = cattn.grid(BH, L, D)
+    owner = torch.zeros(BH, L, D, dtype=torch.int64)
+    row_blocks = -(-L // R)
+    for b in range(rows):
+        for c in range(cols):
+            for w in range(cattn.BLOCK_ROWS // cattn.WARP_ROWS):
+                s = b // row_blocks * S + w // (R // cattn.WARP_ROWS)
+                r0 = b % row_blocks * R + w % (R // cattn.WARP_ROWS) * cattn.WARP_ROWS
+                if s < BH and r0 < L:
+                    owner[s, r0:r0 + cattn.WARP_ROWS,
+                          c * cattn.WIDE_COLS:(c + 1) * cattn.WIDE_COLS] += 1
+    assert bool((owner == 1).all())
+    qs = q * torch.tensor(np.log2(np.e) / np.sqrt(D), dtype=torch.float32)
+    out = torch.empty_like(q)
+    chunks = range(0, D, cattn.WIDE_COLS)
+    for c0 in chunks:
+        m = torch.full((BH, L, 1), -float("inf"))
+        l = torch.zeros(BH, L, 1)
+        acc = torch.zeros(BH, L, min(cattn.WIDE_COLS, D - c0))
+        for j0 in range(0, L, T):
+            s = sum(_mm3(qs[..., d0:d0 + cattn.WIDE_COLS],
+                         k[:, j0:j0 + T, d0:d0 + cattn.WIDE_COLS].transpose(1, 2),
+                         round_a=True) for d0 in chunks)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            m = m_new
+            p = torch.exp2(s - m)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _mm3(p, v[:, j0:j0 + T, c0:c0 + cattn.WIDE_COLS],
+                                     round_a=False)
+        out[..., c0:c0 + cattn.WIDE_COLS] = acc / l
+    return out
+
+
+@pytest.mark.parametrize("shape", [(5, 16, 192), (3, 20, 129), (2, 70, 256), (2, 33, 300)])
+def test_wide_kernel_walk_matches_reference(shape):
+    """Past D = 128: the column-block kernel's walk against the plain
+    version, atol / rtol 1e-5, ragged column blocks and key tiles."""
+    BH, L, D = shape
+    assert cattn.path(D) == "column_blocks"
+    assert cattn.smem_bytes(L, D) <= cattn.SMEM_LIMIT
+    q, k, v = map(torch.from_numpy, _qkv(BH + D, shape))
+    close(_walk_wide_kernel(q, k, v), tattn.attention_reference(q, k, v), **TOL)
+
+
+def test_wide_reference_matches_nf_tpu_and_pallas_interpret():
+    """(L, D) = (16, 192): the port's plain version against nf_tpu's
+    reference and its Pallas kernel in interpret mode (which takes any
+    D), atol / rtol 1e-5 (a module)."""
+    q, k, v = _qkv(192, (4, 16, 192))
+    got = tattn.attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jattn.attention_reference(q, k, v)),
+                               **TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jattn.attention_pallas(q, k, v, interpret=True)),
+                               **TOL)
+
+
+@pytest.mark.parametrize("D", [129, 192, 256, 512])
+def test_every_head_width_has_a_plan_within_one_block(D):
+    """Every head width past 128 that GatedAttn gives (base_filters / 4) has
+    a plan at every length: one block's shared memory within 232,448
+    bytes and a grid within the card's limits."""
+    for L in (1, 2, 16, 17, 33, 64, 256, 1500):
+        assert cattn.covers(L, D) and cattn.path(D) == "column_blocks"
+        assert cattn.smem_bytes(L, D) <= cattn.SMEM_LIMIT == 232448
+        S, R, T = cattn.wide_tiling(L)
+        assert S * R == cattn.BLOCK_ROWS and T % 8 == 0 and T <= cattn.WIDE_KEYS
+        rows, cols = cattn.grid(4096, L, D)
+        assert rows < 2 ** 31 and cols == -(-D // 128) <= 65535
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -16,8 +16,11 @@ kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 under torch.utils.checkpoint the same gradients bit for bit, the ticket
 reset.
 Attention: out atol / rtol 1e-5 against the plain version (and
-PyTorch's SDPA) at D = 2 to 128 and L = 2 to 1500, its gradient through
-the Function 1e-5; D = 129 raises.  The
+PyTorch's SDPA) at D = 2 to 512 and L = 2 to 1500 (past D = 128 the
+column-block kernel), its gradient through the Function 1e-5.  The
+wide paths: the FFMA stack's WIDE variant at D = 400 and 1024, the ResFlow
+wide kernel at (D, F) = (2, 512) and (16, 64), all three variants, at the
+tolerances above.  The
 mixture-CDF inverse: x atol / rtol 1e-4 against the plain version and
 1e-3 against the x that made y, the log-det atol 1e-3 (up to 1500 terms
 in another order), as nf_tpu's tests/test_pallas.py holds its kernel, at
@@ -106,13 +109,26 @@ def test_fused_stack_narrow_tiling_matches_plain(cuda, name, D, F):
         torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
 
 
-def test_fused_stack_past_every_tiling_raises(cuda):
+@pytest.mark.parametrize("name,D,F", [("realnvp", 400, 32), ("glow", 400, 32),
+                                      ("realnvp", 1024, 32), ("realnvp", 400, 256)])
+def test_fused_stack_past_every_tiling_raises(cuda, name, D, F):
+    """(It pinned the refusal past both FFMA tilings.)  Past them the WIDE
+    variant runs the stack: one launch per direction, against the plain
+    version."""
     from nf_tpu_torch.ops.cuda import fused_stack as fs
 
-    fs.reset_launches()
-    with pytest.raises(NotImplementedError, match="D = 400, F = 32"):
-        _program(400, 2, 32, 0, cuda)
-    assert not any(fs.LAUNCHES.values())
+    prog, g = _program(D, 2, F, 0, cuda, name)
+    assert (prog.stack.kernel.path, prog.stack.kernel.tile) == ("ffma_wide", fs.NARROW_TILE)
+    x = torch.randn(300, D, generator=g, device=cuda)
+    for direction in ("forward", "inverse"):
+        fs.reset_launches()
+        y, ld = fs.fused_stack(prog.stack, x, direction)
+        torch.cuda.synchronize()
+        assert fs.launches_by_path == {"ffma_wide": 1}
+        yr, ldr = fs.fused_stack_reference(prog.stack.packed, prog.stack.const_ld,
+                                           x, direction)
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
 
 
 def test_fused_stack_headline_fills_the_card(cuda):
@@ -197,9 +213,33 @@ def test_resflow_main_path_launch_puts_8_warps_on_every_sm(cuda):
     assert sms <= blocks <= rf.solve_blocks_per_sm(32, 2) * sms
 
 
-def test_resflow_past_the_kernels_tilings_raises(cuda):
-    with pytest.raises(NotImplementedError, match="F = 512"):
-        _program(2, 2, 512, 0, cuda, "resflow")
+@pytest.mark.parametrize("D,F,B", [(2, 512, 300), (16, 64, 300), (9, 8, 45), (2, 2048, 50)])
+def test_resflow_past_the_kernels_tilings_raises(cuda, D, F, B):
+    """(It pinned the refusal past F = 256 or D = 8.)  The wide kernel runs
+    all three variants there, against the plain versions; (2, 2048) keeps
+    its vectors in device scratch."""
+    from nf_tpu_torch.ops.cuda import fused_resflow as rf
+
+    prog, g = _program(D, 2, F, 0, cuda, "resflow")
+    st = prog.stack
+    assert rf.kernel_path(st.spec) == "wide" and isinstance(st.kernel, rf.WideWeights)
+    assert st.kernel.in_shared == rf.wide_plan(F, D)[0] == (F < 2048)
+    x = torch.randn(B, D, generator=g, device=cuda)
+    probes = rf.draw_unbias_probes(B, D, g)
+    rf.reset_launches()
+    z, ld = rf.fused_resflow(st, x, "forward", probes)
+    torch.cuda.synchronize()
+    zr, ldr = rf.fused_resflow_fwd_logdet_reference(st.spec, st.packed, x, probes)
+    torch.testing.assert_close(z, zr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+    xi, ldi = rf.fused_resflow(st, zr, "inverse", probes)
+    xs = rf.fused_resflow(st, zr, "solve")
+    torch.cuda.synchronize()
+    assert rf.launches_by_path == {"wide": 3}
+    xr, ldir = rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, zr, probes)
+    torch.testing.assert_close(xi, xr, atol=1e-3, rtol=0)
+    torch.testing.assert_close(ldi, ldir, atol=1e-3, rtol=0)
+    torch.testing.assert_close(xs, xr, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("name,fwd,inv", [
@@ -448,15 +488,23 @@ def test_maf_and_planar_launch_no_kernel(cuda, name):
 
 
 def test_matmul_precision_on_the_card(cuda):
+    """build_model turns TF32 off on the card; matmul_precision="bfloat16"
+    builds an image model (nf_tpu sets XLA's default the same way) and
+    sets the process's precision, which is set back to f32 after, so the
+    tests that follow compare f32 products."""
     from nf_tpu_torch.config import NetworkConfig
     from nf_tpu_torch.models import build_model
+    from nf_tpu_torch.ops import precision as pm
 
     torch.backends.cudnn.allow_tf32 = True
     build_model("realnvp", (2,), "2d", NetworkConfig(layers=2, base_filters=8))
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    try:
         build_model("realnvp", (16, 16, 1), "image",
                     NetworkConfig(layers=1, matmul_precision="bfloat16"))
+        assert pm.matmul_precision() == "bfloat16"
+    finally:
+        pm.set_matmul_precision(None)
 
 
 @pytest.mark.parametrize("BH,L,D", [(4096, 256, 8), (4096, 64, 8), (4096, 16, 8), (1000, 49, 8),
@@ -533,19 +581,25 @@ def test_mix_log_cdf_inverse_has_no_gradient(cuda):
 
 
 def test_uncovered_shapes_raise_on_the_card(cuda):
+    """(It pinned the refusal of D = 129.)  Past D = 128 the column-block
+    kernel runs, against the plain version; a dtype the kernels do not
+    take still raises, with no launch counted."""
     from nf_tpu_torch.ops import attention as ta
     from nf_tpu_torch.ops.cuda import attention as ca
     from nf_tpu_torch.ops.cuda import mixlogcdf as cm
 
     ca.reset_launches()
     cm.reset_launches()
-    for BH, L, D in ((4, 16, 129),):
-        q = torch.randn(BH, L, D, device=cuda)
-        with pytest.raises(NotImplementedError, match="attention kernel covers"):
-            ta.attention(q, q, q)
+    g = torch.Generator(device=cuda).manual_seed(129)
+    for BH, L, D in ((4, 16, 129), (64, 256, 192), (64, 64, 512), (3, 40, 130), (5, 1, 200)):
+        q, k, v = (torch.randn(BH, L, D, generator=g, device=cuda) for _ in range(3))
+        out = ta.attention(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ta.attention_reference(q, k, v), atol=1e-5, rtol=1e-5)
+    assert ca.launches_by_path == {"column_blocks": 4}   # one token returns v
     with pytest.raises(ValueError, match="float32"):
         ca.launch(*(torch.randn(4, 16, 8, device=cuda, dtype=torch.float64),) * 3)
-    assert ca.LAUNCHES == {"attention_fwd": 0} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}
+    assert ca.LAUNCHES == {"attention_fwd": 4} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}
 
 
 def test_image_flowpp_launches_only_attention(cuda):

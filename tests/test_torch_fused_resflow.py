@@ -1,7 +1,7 @@
 """The port's fused ResFlow module against nf_tpu's Pallas kernels, on the CPU.
 
 * spec fields, and None for stacks that are not ResFlow; stacks past the
-  kernel's tilings match as in nf_tpu, and the kernel refuses them;
+  tiled kernels' widths match as in nf_tpu and take the wide kernel;
 * ``pack_resflow`` against nf_tpu's, key by key, atol 1e-6;
 * each plain version against its Pallas kernel in interpret mode, with
   nf_tpu's probes injected (``draw_unbias_probes``: V, thr, cap): the
@@ -19,6 +19,12 @@
   fold and its shuffle reduction, each warp's own stopping; against the
   plain version 2e-5 and nf_tpu's solve kernel in interpret mode 5e-4, on
   ragged batches; which kernel each width takes, and its weight ring;
+* the wide kernel (F past 256 or D past 8): its layout walked in PyTorch
+  as the kernel walks it (input-major matrices read from ``wide_weights``,
+  tiles of 8 samples), against the plain versions 2e-5; the plain versions
+  at (D, F) = (2, 512) and (16, 64) against nf_tpu's Pallas kernels in
+  interpret mode; every (D, F) of a grid up to 1024 x 1024 planned within
+  one block's shared memory;
 * the wrapper: the plain versions for CPU tensors, no launch counted.
 """
 import jax
@@ -64,28 +70,30 @@ def test_spec_rejects_nonmatching(name):
 
 
 def test_spec_rejects_past_the_kernels_limits():
-    """A stack wider than the kernel's tilings matches as in nf_tpu; the
-    plain versions run it on the CPU, and off the CPU both the packing and
-    the wrapper raise NotImplementedError, with no launch counted."""
+    """(It pinned the refusal past the tiled kernels' widths until the wide
+    kernel came.)  A stack wider than the tiled kernels matches as in
+    nf_tpu and is covered: the wide kernel takes it, its plan fits one
+    block, its weights pack onto ``meta`` with no error, the plain versions
+    run it on the CPU, and no launch is counted."""
     for D, F in ((2, 512), (9, 8)):
         jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=2)
         assert jspec is not None and tspec is not None and tspec.filters == jspec.filters
-        assert not tfr.covers(tspec)
+        assert tfr.covers(tspec) and tfr.kernel_path(tspec) == "wide"
+        assert tfr.wide_plan(F, D)[1] <= tfr.SMEM_LIMIT
         packed = tfr.pack_resflow(tmodel.bijector, tspec)
         stack = tfr.PackedResFlow(tspec, packed)
         x = torch.from_numpy(normal(5, (16, D)))
         probes = tfr.draw_unbias_probes(16, D, torch.Generator().manual_seed(2))
+        before = dict(tfr.LAUNCHES)
         z, _ = tfr.fused_resflow(stack, x, "forward", probes)
         close(tfr.fused_resflow(stack, z, "solve"), x, 1e-4)
-        with pytest.raises(NotImplementedError, match=f"F = {F}, D = {D}"):
-            tfr.PackedResFlow(tspec, {k: v.to("meta") for k, v in packed.items()})
-        before = dict(tfr.LAUNCHES)
-        for direction in ("forward", "inverse", "solve"):
-            with pytest.raises(NotImplementedError):
-                tfr.fused_resflow(stack, x.to("meta"), direction, probes)
+        kw = tfr.wide_weights(tspec, {k: v.to("meta") for k, v in packed.items()})
+        assert kw.w.device.type == "meta"
+        assert kw.w.shape == (2, tfr.WideLayout(F, D).size)
         assert tfr.LAUNCHES == before
     widest = torch_model("resflow", 8, 2, 256)
-    assert tfr.covers(tfr.extract_resflow_spec(widest.bijector, widest.dims))
+    spec = tfr.extract_resflow_spec(widest.bijector, widest.dims)
+    assert tfr.covers(spec) and tfr.kernel_path(spec) == "tile"
 
 
 @pytest.mark.parametrize("D,F", [(2, 8), (3, 32)])
@@ -436,6 +444,149 @@ def test_kernel_tilings():
     assert tfr.Layout(256, 8).ring == 2 * 8 * 256
     assert tfr.smem_bytes(256, 8) == 4 * (2 * 4636 + 4 * 4096 + 3 * 256 * 24 + 64 + 256)
     assert tfr.SAMPLES == 16 and tfr.WARPS == 4
+
+
+def _walk_wide(kw, spec, x, direction, probes=None, tile=None):
+    """The wide kernel's walk in PyTorch, reading ``WideWeights``' one block
+    per residual block at the offsets of ``WideLayout``, every product
+    through its own input-major matrix (out = in @ M), a tile of ``tile``
+    samples stopping its fixed point on its own (whole batch by default)."""
+    B, D, F = x.shape[0], spec.dim, spec.filters
+    tile = tile or B
+    outs, accs = [], []
+    for t0 in range(0, B, tile):
+        xp = x[t0:t0 + tile].clone()
+        V = None if probes is None else probes[0][:, t0:t0 + tile]
+        acc = torch.zeros(xp.shape[0])
+        order = range(spec.n_repeats)
+        for j in (order if direction == "forward" else reversed(order)):
+            off, w = tfr.WideLayout(F, D).offsets(), kw.w[j]
+
+            def part(name, *shape):
+                return w[off[name]:off[name] + int(np.prod(shape))].view(*shape)
+
+            g1, g2, g3 = part("g1", D, F), part("g2", F, F), part("g3", F, D)
+            j3, j2, j1 = part("j3", D, F), part("j2", F, F), part("j1", F, D)
+            b1, b2, b3 = part("b1", F), part("b2", F), part("b3", D)
+            an_s, an_b, beta = part("an_s", D), part("an_b", D), part("beta", 2)
+
+            def hidden(xx):
+                h1, d1 = tfr._lipswish(xx @ g1 + b1, beta[0])
+                h2, d2 = tfr._lipswish(h1 @ g2 + b2, beta[1])
+                return h2, d1, d2
+
+            if direction == "forward":
+                xp = (xp - an_b) * torch.exp(-an_s)
+                h2, d1, d2 = hidden(xp)
+                gx = h2 @ g3 + b3
+            else:
+                z, it = xp, 0
+                while True:
+                    new = z - (hidden(xp)[0] @ g3 + b3)
+                    moving = float((new - xp).abs().max()) >= spec.ftol
+                    xp, it = new, it + 1
+                    if not (it < spec.n_iters and moving):
+                        break
+                _, d1, d2 = hidden(xp)
+            if V is not None:
+                ser = []
+                for p in range(4):
+                    wv, sp = V[p], torch.zeros(xp.shape[0])
+                    for k in range(1, int(probes[1][p]) + 1):
+                        wv = ((((wv @ j3) * d2) @ j2) * d1) @ j1
+                        coef = (1.0 if k % 2 else -1.0) * 2.0 ** max(0, k - 9) / k
+                        sp = sp + coef * (wv * V[p]).sum(1)
+                    ser.append(sp)
+                acc = acc + (ser[0] + ser[1] + ser[2] + ser[3]) * 0.25
+            xp = xp + gx if direction == "forward" else xp * torch.exp(an_s) + an_b
+        outs.append(xp)
+        accs.append(acc)
+    return torch.cat(outs), torch.cat(accs)
+
+
+@pytest.mark.parametrize("D,F", [(2, 512), (16, 64), (9, 8), (3, 300)])
+def test_wide_layout_matches_plain_versions(D, F):
+    """The wide kernel's layout and walk (2 blocks, B = 21) against the plain
+    versions, 2e-5; the inverse also per 8-sample tile, as the kernel stops,
+    within the fixed point's tolerance."""
+    tmodel = torch_model("resflow", D, 2, F)
+    tmodel.init(torch.Generator().manual_seed(D + F))
+    with torch.no_grad():
+        for layer in tmodel.bijector.layers[::2]:
+            layer.log_scale.normal_(0.0, 0.3)
+            layer.bias.normal_(0.0, 0.3)
+    spec = tfr.extract_resflow_spec(tmodel.bijector, tmodel.dims)
+    assert tfr.kernel_path(spec) == "wide"
+    packed = tfr.pack_resflow(tmodel.bijector, spec)
+    kw = tfr.wide_weights(spec, packed)
+    assert kw.w.shape == (2, tfr.WideLayout(F, D).size) == (2, 2 * F * F + 4 * F * D
+                                                            + 2 * F + 3 * D + 2)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(21, D, generator=g)
+    probes = tfr.draw_unbias_probes(21, D, g)
+    const = packed["an_const"]
+    z, ld = tfr.fused_resflow_fwd_logdet_reference(spec, packed, x, probes)
+    wz, wacc = _walk_wide(kw, spec, x, "forward", probes)
+    close(wz, z, 2e-5)
+    close(wacc - const, ld, 2e-5)
+    xi, ldi = tfr.fused_resflow_solve_logdet_reference(spec, packed, z, probes)
+    wx, wacc = _walk_wide(kw, spec, z, "inverse", probes)
+    close(wx, xi, 2e-5)
+    close(const - wacc, ldi, 2e-5)
+    wx, _ = _walk_wide(kw, spec, z, "solve")
+    close(wx, tfr.fused_resflow_solve_reference(spec, packed, z), 2e-5)
+    wx, wacc = _walk_wide(kw, spec, z, "inverse", probes, tile=tfr.WIDE_SAMPLES)
+    close(wx, xi, 1e-3)
+    close(const - wacc, ldi, 1e-3)
+
+
+@pytest.mark.parametrize("D,F", [(2, 512), (16, 64)])
+def test_wide_plain_versions_match_pallas_interpret(D, F):
+    """Past the tiled kernels' widths, 2 blocks, B = 32, nf_tpu's probes
+    injected: the plain versions against nf_tpu's Pallas kernels in
+    interpret mode at test_plain_versions_match_pallas_interpret's
+    tolerances."""
+    jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=2, seed=D + F)
+    assert tfr.kernel_path(tspec) == "wide"
+    packed = tfr.pack_resflow(tmodel.bijector, tspec)
+    probes = nf_unbias_probes(32, D)
+    x = normal(12 + D, (32, D), 1.5)
+    jz, jld = jfr.fused_resflow_forward(jmodel.bijector, jspec, var, x, interpret=True)
+    z, ld = tfr.fused_resflow_fwd_logdet_reference(tspec, packed, _t(x), probes)
+    close(z, jz, 1e-5)
+    close(ld, jld, 1e-4)
+    jx, jldi = jfr.fused_resflow_inverse(jmodel.bijector, jspec, var, np.asarray(jz),
+                                         interpret=True)
+    xi, ldi = tfr.fused_resflow_solve_logdet_reference(tspec, packed, _t(jz), probes)
+    close(xi, jx, 5e-4)
+    close(ldi, jldi, 1e-3)
+    jxs = jfr.fused_resflow_inverse_solve(jmodel.bijector, jspec, var, np.asarray(jz),
+                                          interpret=True)
+    close(tfr.fused_resflow_solve_reference(tspec, packed, _t(jz)), jxs, 5e-4)
+
+
+@pytest.mark.parametrize("D", [2, 9, 16, 64, 400, 1024])
+def test_every_width_has_a_plan_within_one_block(D):
+    """Every (D, F) of the grid has a kernel and a plan within 232,448
+    bytes: the tiled kernels (and the solve's warp kernel) up to F = 256
+    and D = 8, the wide kernel past, its vectors in shared memory while
+    they fit beside the reduction buffer, else in device scratch."""
+    for F in (32, 256, 512, 1024):
+        spec = tfr.ResFlowSpec(n_repeats=2, dim=D, filters=F, n_iters=20, ftol=1e-6)
+        assert tfr.covers(spec)
+        if tfr.kernel_path(spec) == "tile":
+            fp, dp = tfr.padded_width(F), tfr.padded_dim(D)
+            assert tfr.smem_bytes(fp, dp) <= tfr.SMEM_LIMIT
+            if tfr.solve_kernel(fp) == "warp":
+                assert tfr.solve_smem_bytes(fp, dp) <= tfr.SMEM_LIMIT
+            continue
+        in_shared, smem = tfr.wide_plan(F, D)
+        assert smem <= tfr.SMEM_LIMIT == 232448
+        scratch = 4 * (tfr.WIDE_RED + tfr.wide_scratch_floats(F, D))
+        assert in_shared == (scratch <= tfr.SMEM_LIMIT)
+        assert smem == (scratch if in_shared else 4 * tfr.WIDE_RED)
+    assert tfr.wide_plan(512, 2) == (True, 4 * (2048 + 8 * (10 + 2048 + 5)))
+    assert tfr.wide_plan(1024, 1024) == (False, 4 * 2048)
 
 
 def test_wrapper_takes_plain_versions_on_cpu():

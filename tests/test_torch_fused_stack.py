@@ -11,7 +11,10 @@
 * the shape dispatch between the two kernels and their shared-memory
   budgets;
 * the matcher at shapes past the FFMA block's shared memory, against
-  nf_tpu's, and the program there against nf_tpu's EvalProgram (1e-4).
+  nf_tpu's, and the program there against nf_tpu's EvalProgram (1e-4),
+  up to D = 400 (the WIDE variant's shapes); the FFMA layout walked at
+  D = 400 for RealNVP and Glow (the mix included), 2e-5; every (D, F) of a
+  grid up to D = 1024, F = 256 planned within one block's shared memory.
 """
 import numpy as np
 import pytest
@@ -216,6 +219,8 @@ def _walk_ffma_layout(kw, spec, const_ld, x, inverse):
         pre = (kw.prei if inverse else kw.pre)[c]
         if not inverse:
             x = (x - pre[:, 0]) * pre[:, 1]
+            if kw.mix is not None:
+                x = x @ kw.mix[c].T
         V = kw.vec[c]
         h = x[:, 1 - p::2][:, :n_in] @ kw.w0t[c, :n_in] + V[0]
         for r in range(2):
@@ -230,6 +235,8 @@ def _walk_ffma_layout(kw, spec, const_ld, x, inverse):
         if inverse:
             x[:, rows] = (x[:, rows] - t) * torch.exp(-s)
             ld = ld - s.sum(1)
+            if kw.mix is not None:
+                x = x @ kw.mixi[c].T
             x = x * pre[:, 1] + pre[:, 0]
         else:
             x[:, rows] = x[:, rows] * torch.exp(s) + t
@@ -293,6 +300,50 @@ def test_ffma_layout_matches_reference(D, F):
         close(got[1], want[1], 2e-5)
 
 
+@pytest.mark.parametrize("name,D,F", [("realnvp", 400, 32), ("glow", 400, 32),
+                                      ("realnvp", 400, 256)])
+def test_wide_ffma_layout_matches_reference(name, D, F):
+    """Past one FFMA block at 16 samples: the WIDE variant's plan and the
+    FFMA layout it reads (the D-wide rows from device memory, the same
+    arrays), walked against the plain version at 2e-5."""
+    spec, packed, const_ld = _packed(name, D, F)
+    kw = tfs.kernel_weights(spec, packed)
+    assert isinstance(kw, tfs.FfmaWeights)
+    assert (kw.path, kw.tile) == ("ffma_wide", tfs.NARROW_TILE)
+    assert tfs.smem_bytes(kw.fp, 16, D, name == "glow", wide=True) <= tfs.SMEM_LIMIT
+    x = torch.from_numpy(normal(40 + D, (21, D)))
+    for direction in ("forward", "inverse"):
+        want = tfs.fused_stack_reference(packed, const_ld, x, direction)
+        got = _walk_ffma_layout(kw, spec, const_ld, x, direction == "inverse")
+        close(got[0], want[0], 2e-5)
+        close(got[1], want[1], 2e-5)
+
+
+@pytest.mark.parametrize("D", [2, 9, 16, 64, 400, 1024])
+def test_every_stack_has_a_plan_within_one_block(D):
+    """Every (D, F) of the grid that nf_tpu fuses (F <= 256), RealNVP and
+    Glow, has a kernel whose block fits 232,448 bytes: the tensor-core
+    kernel, or the FFMA kernel at TILES, NARROW_TILE or the WIDE variant,
+    the first that fits; TILES and NARROW_TILE keep every shape they held."""
+    for F in (32, 256):
+        for mix in (False, True):
+            fp = tfs.padded_width(F)
+            if tfs.kernel_variant(D, F) == "mma":
+                assert tfs.MmaLayout(fp, tfs.mma_dim(D)).smem_bytes <= tfs.SMEM_LIMIT
+                continue
+            path, tile = tfs.ffma_plan(D, F, mix)
+            assert tfs.ffma_tiling(D, F, mix) == tile
+            wide = path == "ffma_wide"
+            assert tfs.smem_bytes(fp, tile[0], D, mix, wide) <= tfs.SMEM_LIMIT == 232448
+            fits = [tfs.smem_bytes(fp, t[0], D, mix) <= tfs.SMEM_LIMIT
+                    for t in (tfs.TILES[fp], tfs.NARROW_TILE)]
+            assert path == ("ffma" if fits[0] else "ffma_narrow" if fits[1] else "ffma_wide")
+    assert tfs.ffma_plan(400, 32, False) == ("ffma_wide", tfs.NARROW_TILE)
+    assert tfs.ffma_plan(213, 32, False) == ("ffma_narrow", tfs.NARROW_TILE)
+    assert tfs.ffma_plan(2, 128, False) == ("ffma", tfs.TILES[128])
+    assert tfs.scratch_floats(16, 1024) == 2048 * 20
+
+
 def test_kernel_variant_follows_the_shape():
     """The tensor-core kernel up to a padded width of 64 and D <= 8, the
     FFMA kernel past either; the card tests' cases and the headline."""
@@ -325,9 +376,11 @@ def test_smem_budget_covers_headline_and_wide_stacks():
 # F = 32 (RealNVP, Glow) and at F = 256 with two layers
 PAST_THE_BLOCK = [("realnvp", 213, 32), ("glow", 111, 32), ("realnvp", 29, 256),
                   ("glow", 27, 256)]
+# past one block at 16 samples as well: the WIDE variant
+PAST_ONE_BLOCK = [("realnvp", 400, 32), ("glow", 400, 32)]
 
 
-@pytest.mark.parametrize("name,D,F", PAST_THE_BLOCK)
+@pytest.mark.parametrize("name,D,F", PAST_THE_BLOCK + PAST_ONE_BLOCK)
 def test_spec_matches_nf_tpu_past_the_ffma_block(name, D, F, monkeypatch):
     """Both matchers return the same spec; the port's CPU program runs
     ``fused_stack_reference`` (no launch) and agrees with nf_tpu's
@@ -364,22 +417,29 @@ def test_spec_matches_nf_tpu_past_the_ffma_block(name, D, F, monkeypatch):
 
 
 def test_stack_no_tiling_holds_raises_off_the_cpu():
-    """A D that no FFMA tiling holds matches (as in nf_tpu) and runs its
-    plain version on the CPU; off the CPU packing it raises
-    NotImplementedError naming the shape and the bytes, before any
-    launch."""
+    """(It pinned the refusal of a D that neither FFMA tiling holds, until
+    the WIDE variant came.)  Such a D matches (as in nf_tpu), runs its plain
+    version on the CPU, and is covered on the card: the WIDE variant's plan
+    fits one block, its weights pack onto ``meta`` with no error, and no
+    launch is counted."""
     D, F = 400, 32
-    assert tfs.ffma_tiling(D, F, False) is None
+    assert tfs.smem_bytes(32, tfs.NARROW_TILE[0], D, False) > tfs.SMEM_LIMIT
+    assert tfs.ffma_plan(D, F, False) == ("ffma_wide", tfs.NARROW_TILE)
+    assert tfs.smem_bytes(32, tfs.NARROW_TILE[0], D, False, wide=True) <= tfs.SMEM_LIMIT
     tmodel = torch_realnvp(D, 2, F)
     spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
     assert spec is not None and tfs.kernel_variant(D, F) == "ffma"
     packed, const_ld = tfs.pack_stack(tmodel.bijector, spec)
-    assert tfs.PackedStack(spec, packed, const_ld).kernel is None
-    need = tfs.smem_bytes(32, tfs.NARROW_TILE[0], D, False)
-    with pytest.raises(NotImplementedError, match=f"D = {D}, F = {F}.*{need} bytes"):
-        tfs.PackedStack(spec, packed, torch.zeros((), device="meta"))
-    with pytest.raises(NotImplementedError, match="no FFMA tiling"):
-        tfs.ffma_weights(spec, packed)
+    before = dict(tfs.LAUNCHES)
+    stack = tfs.PackedStack(spec, packed, const_ld)
+    assert stack.kernel is None
+    x = torch.from_numpy(normal(7, (5, D)))
+    close(tfs.fused_stack(stack, x, "forward")[0],
+          tfs.fused_stack_reference(packed, const_ld, x, "forward")[0], 0.0)
+    meta = [{k: v.to("meta") for k, v in p.items()} for p in packed]
+    kw = tfs.ffma_weights(spec, meta)
+    assert kw.path == "ffma_wide" and kw.w0t.device.type == "meta"
+    assert tfs.LAUNCHES == before
 
 
 def test_wrapper_takes_plain_version_on_cpu():
