@@ -42,24 +42,27 @@ Phases, each of which exits non-zero when it fails:
      shapes nf_tpu fuses (RealNVP D = 213 and Glow D = 111 at F = 32,
      RealNVP D = 29 and Glow D = 27 at F = 256, two couplings, B = 1000),
      through eval_program: each call one launch of the FFMA kernel on its
-     16-sample tiling, never the eager chain, at the tolerances above;
+     16-sample tiling (at F = 32 of the cluster kernel, the faster there),
+     never the eager chain, at the tolerances above;
      the wide paths (wide_paths), at B = 1000 through the entry points a
      user calls, each call's launches counted (one, on its kernel and
      path, launches_by_path) and held against its plain version at the
      tolerances above: RealNVP and Glow at D = 400 and 1024, F = 32, and
-     RealNVP at D = 400, F = 256, two couplings (the FFMA kernel's WIDE
-     variant: the D-wide rows in device memory), through eval_program;
+     RealNVP at D = 400 and 63 (BSDS300's patches), F = 256, two couplings
+     (the cluster kernel: 4 blocks share 48 samples, 32 for Glow at D =
+     1024, each holding its rows of the x tile in shared memory), through
+     eval_program;
      ResFlow at (D, F) = (2, 512) and (16, 64), two blocks (the wide
      kernel), fwd_ld and solve_ld through eval_program and the solve
      through the 'exact' program's inverse; attention at (64, 256, 192)
-     and (64, 64, 512) (the column-block kernel, past D = 128) through
+     and (64, 64, 512) (the wide kernel, past D = 128) through
      ops.attention.attention, with PyTorch's SDPA within the same, and
      GatedAttn at filters = 768 (Flow++'s image couplings at
      base_filters = 768) on (16, 16, 16, 8) against the same module on
      the CPU within 1e-4; and every phase-3 and phase-4 case on the kernel
      and tiling it ran on before the wide paths (the tensor-core stack and the 16-sample
-     ResFlow tiles at the headline, the warp solve, the FFMA TILES and
-     16-sample tilings, the one-pass attention in phase 6);
+     ResFlow tiles at the headline, the warp solve, the FFMA TILES
+     tiling, the one-pass attention in phase 6);
   4. the main path, for "realnvp", "glow", "flow++" and "resflow" in turn:
      build_model(name, (2,), "2d") on the card -> init(generator) ->
      (Glow / Flow++: ActNorm moved off identity by the seed) ->
@@ -425,8 +428,8 @@ KERNEL_SOURCES = {
     "attention_fwd": ("nf_tpu_torch/csrc/attention.cu", "nf_tpu/ops/pallas/attention.py:42"),
     "mix_log_cdf_inverse": ("nf_tpu_torch/csrc/mixlogcdf.cu",
                             "nf_tpu/ops/pallas/mixlogcdf.py:51"),
-    # the wide paths: the FFMA stack's WIDE variant, the ResFlow wide kernel
-    # and the attention column-block kernel, each under its own name here
+    # the wide paths: the stack's cluster kernel, the ResFlow wide kernel
+    # and the attention wide kernel, each under its own name here
     # (their wrappers count them under the names above, split by
     # launches_by_path)
     "fused_stack_wide_fwd": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
@@ -443,7 +446,8 @@ KERNEL_SOURCES = {
                                     "nf_tpu/ops/pallas/fused_resflow.py:306"),
     "fused_resflow_wide_solve": ("nf_tpu_torch/csrc/fused_resflow.cu",
                                  "nf_tpu/ops/pallas/fused_resflow.py:184"),
-    "attention_fwd_wide": ("nf_tpu_torch/csrc/attention.cu", "nf_tpu/ops/pallas/attention.py:42"),
+    "attention_fwd_wide": ("nf_tpu_torch/csrc/attention_wide.cu",
+                           "nf_tpu/ops/pallas/attention.py:42"),
 }
 # each wide path's kernel name, by the name its wrapper counts it under
 WIDE_NAMES = {"fused_stack_fwd": "fused_stack_wide_fwd", "fused_stack_inv": "fused_stack_wide_inv",
@@ -463,18 +467,20 @@ MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
           "resflow": ("fused_resflow_fwd_ld", "fused_resflow_solve_ld")}
 # the fused RealNVP / Glow stack past its FFMA block at TILES' sample count,
-# shapes nf_tpu fuses (model, D, couplings, F): the 16-sample tiling
+# shapes nf_tpu fuses (model, D, couplings, F): the 16-sample tiling, at
+# F = 32 the cluster kernel
 WIDE_STACK_CASES = [("realnvp", 213, 2, 32), ("glow", 111, 2, 32), ("realnvp", 29, 2, 256),
                     ("glow", 27, 2, 256)]
 WIDE_STACK_BATCH = 1000
 # the wide paths, at B = WIDE_BATCH through eval_program (attention through
-# its op and GatedAttn): the stack past the 16-sample tiling too (the WIDE
-# variant; D = 400 was refused before it), ResFlow past F = 256 or D = 8
-# (the wide kernel; (D, blocks, F)), attention past D = 128 (the column-block
-# kernel; (B * heads, L, D): GatedAttn's 4 heads at base_filters 768, 2048)
+# its op and GatedAttn): the stack past the 16-sample tiling too (the
+# cluster kernel; D = 63 at F = 256 a 63-dimensional tabular density such
+# as BSDS300's patches), ResFlow past F = 256 or D = 8 (the wide kernel;
+# (D, blocks, F)), attention past D = 128 (the wide kernel; (B * heads, L,
+# D): GatedAttn's 4 heads at base_filters 768, 2048)
 PAST_BLOCK_STACK_CASES = [("realnvp", 400, 2, 32), ("glow", 400, 2, 32),
                           ("realnvp", 1024, 2, 32), ("glow", 1024, 2, 32),
-                          ("realnvp", 400, 2, 256)]
+                          ("realnvp", 400, 2, 256), ("realnvp", 63, 2, 256)]
 WIDE_RESFLOW_CASES = [(2, 2, 512), (16, 2, 64)]
 WIDE_ATTN_CASES = [(64, 256, 192), (64, 64, 512)]
 WIDE_BATCH = 1000
@@ -1043,31 +1049,36 @@ def check_coupling_kernels(tc, device, errs):
 def check_wide_stacks(fs, device, counters, launches_of, errs):
     """RealNVP / Glow stacks past the FFMA block at TILES' sample count,
     through eval_program on the card: each call one launch of the FFMA
-    kernel on the 16-sample tiling (never the eager chain, nor the WIDE
-    variant), against the plain version."""
+    kernel on the 16-sample tiling, or at CLUSTER_PAST_TILES' widths (F =
+    32 here) of the cluster kernel (never the eager chain), against the
+    plain version; the cluster kernel's errors go to its wide entry."""
     for name, D, layers, F in WIDE_STACK_CASES:
         _, prog, g = perturbed_program(name, D, layers, F, device, SEED + D)
         stack = prog.stack
+        cluster = fs.padded_width(F) in fs.CLUSTER_PAST_TILES[name == "glow"]
+        path, tile = ("ffma_cluster", (48, fs.CLUSTER)) if cluster else ("ffma_narrow",
+                                                                         fs.NARROW_TILE)
         check(isinstance(stack, fs.PackedStack) and stack.variant == "ffma"
-              and stack.kernel.tile == fs.NARROW_TILE and stack.kernel.path == "ffma_narrow",
-              f"{name} D={D} F={F}: not on the FFMA kernel's 16-sample tiling")
+              and (stack.kernel.path, stack.kernel.tile) == (path, tile),
+              f"{name} D={D} F={F}: not on {path} at {tile}")
         x = torch.randn(WIDE_STACK_BATCH, D, generator=g, device=device)
         for direction, kname in zip(("forward", "inverse"), MODELS[name]):
             reset_all(counters)
             y, ld = getattr(prog, direction)(x)
             torch.cuda.synchronize()
             got = {k: v for k, v in launches_of().items() if v}
-            check(got == {kname: 1} and fs.launches_by_path == {"ffma_narrow": 1},
+            check(got == {kname: 1} and fs.launches_by_path == {path: 1},
                   f"{name} D={D} {direction}: launches {got}, {dict(fs.launches_by_path)}")
             yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
             ey, eld = max_diff(y, yr), max_diff(ld, ldr)
-            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_STACK_BATCH} (ffma, "
-                  f"{fs.NARROW_TILE[0]} samples a block, "
-                  f"{fs.smem_bytes(stack.kernel.fp, fs.NARROW_TILE[0], D, stack.spec.has_mix)} "
-                  f"bytes of shared memory): max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
+            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_STACK_BATCH} ({path}, "
+                  f"{tile[0]} samples a {'cluster' if cluster else 'block'}, "
+                  f"{fs.smem_bytes(stack.kernel.fp, tile[0], D, stack.spec.has_mix, cluster)} "
+                  f"bytes of shared memory a block): max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
             check(torch.allclose(y, yr, **Z_TOL), f"{kname} D={D}: z off by {ey}")
             check(eld <= LD_ATOL, f"{kname} D={D}: logdet off by {eld}")
-            errs[kname] = max(errs[kname], ey, eld)
+            entry = WIDE_NAMES[kname] if cluster else kname
+            errs[entry] = max(errs[entry], ey, eld)
 
 
 def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
@@ -1075,14 +1086,14 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
     every launch counter set to 0 just before and read just after:
       the RealNVP / Glow stack past the 16-sample tiling
       (PAST_BLOCK_STACK_CASES): build_model -> eval_program -> forward and
-      inverse at B = WIDE_BATCH, one launch of the FFMA kernel's WIDE
-      variant each;
+      inverse at B = WIDE_BATCH, one launch of the cluster kernel each (48
+      samples a cluster of 4 blocks, wide_plan's);
       ResFlow past F = 256 or D = 8 (WIDE_RESFLOW_CASES): eval_program's
       forward and inverse ('unbias': fwd_ld, solve_ld) and the 'exact'
       program's inverse (the solve, then the eager chain at the solved x),
       one launch of the wide kernel each;
       attention past D = 128 (WIDE_ATTN_CASES): ops.attention.attention,
-      one launch of the column-block kernel, and GatedAttn at filters = 4 D
+      one launch of the wide kernel, and GatedAttn at filters = 4 D
       (nets/gated.py, as Flow++'s image couplings call it) at the first.
     Each held against its plain version on the same inputs (the stacks z
     1e-4 and log-det 1e-3, the ResFlow inverse 1e-3, attention 1e-5 and
@@ -1112,25 +1123,29 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
         _, prog, g = perturbed_program(name, D, layers, F, device, SEED + D + F)
         stack = prog.stack
         check(isinstance(stack, fs.PackedStack) and stack.variant == "ffma"
-              and stack.kernel.path == "ffma_wide" and stack.kernel.tile == fs.NARROW_TILE,
-              f"{name} D={D} F={F}: not on the FFMA kernel's WIDE variant")
+              and stack.kernel.path == "ffma_cluster"
+              and stack.kernel.tile == (fs.wide_plan(D, F, name == "glow"), fs.CLUSTER)
+              and fs.CLUSTER == 4 and stack.kernel.tile[0] in (48, 32),
+              f"{name} D={D} F={F}: not on the cluster kernel, or at {stack.kernel.tile}")
         x = torch.randn(WIDE_BATCH, D, generator=g, device=device)
         for direction, base in zip(("forward", "inverse"), MODELS[name]):
             y, ld = counted(f"{name} D={D} F={F} {direction}",
-                            lambda: getattr(prog, direction)(x), base, fs, "ffma_wide")
+                            lambda: getattr(prog, direction)(x), base, fs, "ffma_cluster")
             yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
             ey, eld = max_diff(y, yr), max_diff(ld, ldr)
             kname = WIDE_NAMES[base]
-            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_BATCH} (ffma WIDE, "
-                  f"{fs.smem_bytes(stack.kernel.fp, 16, D, stack.spec.has_mix, True)} bytes of "
-                  f"shared memory, {4 * fs.scratch_floats(16, D)} of device scratch a block): "
+            inv = direction == "inverse"
+            S, C = stack.kernel.tile
+            print(f"check {kname} D={D} n={layers} F={F} B={WIDE_BATCH} (cluster of {C}, "
+                  f"{S} samples, {fs.member_rows(D)} rows and "
+                  f"{fs.smem_bytes(stack.kernel.fp, S, D, stack.spec.has_mix, True)} bytes of "
+                  f"shared memory a block, {-(-WIDE_BATCH // S)} clusters): "
                   f"max|dz|={ey:.3e} max|dlogdet|={eld:.3e}")
             check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()),
                   f"{kname} D={D}: non-finite output")
             check(torch.allclose(y, yr, **Z_TOL), f"{kname} D={D} F={F}: z off by {ey}")
             check(eld <= LD_ATOL, f"{kname} D={D} F={F}: logdet off by {eld}")
             errs[kname] = max(errs[kname], ey, eld)
-            inv = direction == "inverse"
             records.append(dict(
                 name=kname, shape=[WIDE_BATCH, D, F, layers],
                 call=lambda st=stack, inp=x, i=inv: fs.launch(st, inp, i),
@@ -1203,13 +1218,14 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
     for i, (BH, L, D) in enumerate(WIDE_ATTN_CASES):
         q, k, v = (torch.randn(BH, L, D, generator=g, device=device) for _ in range(3))
         out = counted(f"attention ({BH}, {L}, {D})", lambda: ta.attention(q, k, v),
-                      "attention_fwd", ca, "column_blocks")
+                      "attention_fwd", ca, "wide")
         want = ta.attention_reference(q, k, v)
         lib = F_.scaled_dot_product_attention(q, k, v)
         e, e_lib = max_diff(out, want), max_diff(lib, want)
-        rows, cols = ca.grid(BH, L, D)
-        print(f"check attention_fwd_wide BH={BH} L={L} D={D} ({rows} x {cols} blocks, "
-              f"{ca.smem_bytes(L, D)} bytes of shared memory): max|dout|={e:.3e} (SDPA "
+        rt, kt = ca.wide_tiling(L, D)
+        print(f"check attention_fwd_wide BH={BH} L={L} D={D} ({ca.grid(BH, L, D)} blocks of "
+              f"{16 * rt} query rows, {kt} keys a tile, {ca.smem_bytes(L, D)} bytes of shared "
+              f"memory): max|dout|={e:.3e} (SDPA "
               f"against the plain version {e_lib:.3e})")
         check(bool(torch.isfinite(out).all()), "attention_fwd_wide: non-finite output")
         check(torch.allclose(out, want, **ATTN_TOL), f"attention_fwd_wide D={D}: off by {e}")
@@ -1228,7 +1244,7 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
             xa = torch.randn(BH // 4, side, side, 8, generator=g, device=device)
             with torch.no_grad():
                 ya = counted(f"GatedAttn filters={4 * D} on ({BH // 4}, {side}, {side}, 8)",
-                             lambda: net(xa), "attention_fwd", ca, "column_blocks")
+                             lambda: net(xa), "attention_fwd", ca, "wide")
                 yc = copy.deepcopy(net).cpu()(xa.cpu())
             ea = max_diff(ya.cpu(), yc)
             print(f"check GatedAttn filters={4 * D} ({BH // 4}, {side}, {side}, 8) on the "

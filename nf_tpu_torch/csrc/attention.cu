@@ -31,7 +31,8 @@
 //    small = x - big, a b ~ big big + big small + small big (the small
 //    products first), accumulated in f32.  Plain TF32 keeps about three
 //    digits and would change what the kernel computes.  q and v round
-//    their big part to nearest, k and p truncate it (split<> below).
+//    their big part to nearest, k and p truncate it (split<> in
+//    tf32_split.cuh).
 //    A warp owns 16 query rows of one slice.  q k^T takes 8 keys (n) and a
 //    k = 8 slab of D per mma; p v takes 8 keys (k) into 8 columns of D (n).
 //    The score fragment (rows g, g + 8; keys 2t, 2t + 1 of lane 4g + t) is
@@ -47,8 +48,7 @@
 //    at (64, 1500, 8), is below the accurate-expf first version's 1.9e-5).
 //  * Any D from 1 to 128, zero-padded to DP, a multiple of 8 (a template
 //    parameter): the zero columns add nothing to q k^T and are not stored.
-//    Past 128, attention_fwd_wide_kernel (further down) splits the output's
-//    columns over blocks.
+//    Past 128, csrc/attention_wide.cu.
 //    q's fragments stay in registers, split once, up to DP = 64; wider q
 //    stays in the warp's shared rows and is read and split at each use, so
 //    the accumulators and scores keep their registers.
@@ -75,6 +75,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "tf32_split.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -90,52 +92,6 @@ __host__ __device__ constexpr int stride_of(int DP) { return DP + 4; }
 
 __host__ __device__ constexpr size_t smem_floats(int DP, int S, int T, bool two_buffers) {
   return (size_t)stride_of(DP) * (kBlockRows + (two_buffers ? 2 : 1) * 2 * S * T);
-}
-
-// 2^x by the SFU's ex2.approx (what exp2f becomes under fast math): one
-// instruction where exp2f takes four; it flushes results below 2^-126 to 0
-__device__ __forceinline__ float ex2(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small with big in TF32 and small = x - big exactly, left to the
-// tensor core, which reads a TF32 operand's top 19 bits.  ROUND: big = x
-// rounded to nearest (ties away from zero) on its bits, two instructions
-// where cvt.rna.tf32.f32 takes four on sm_90 (the inputs are finite);
-// |small| <= 2^-11 |x|.  Else big = x truncated, one instruction;
-// |small| < 2^-10 |x|.  Each product rounds one side (q, v) and truncates
-// the other (k, p), so the dropped small * small term stays below 2^-21 of
-// |a b|, and small's own truncation below 2^-21 of |x|.
-template <bool ROUND>
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = ((__float_as_uint(x) + (ROUND ? 0x1000u : 0u)) & 0xffffe000u);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32, the small products first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma(c, ab, bs);
-  mma(c, as, bb);
-  mma(c, ab, bb);
-}
-
-template <bool ROUND>
-__device__ __forceinline__ void split_b(float b0, float b1, uint32_t (&bb)[2],
-                                        uint32_t (&bs)[2]) {
-  split<ROUND>(b0, bb[0], bs[0]);
-  split<ROUND>(b1, bb[1], bs[1]);
 }
 
 // Copy rows [j0, j0 + count) of slices [slice0, slice0 + n_slices) of src
@@ -397,267 +353,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, i
   return cudaGetLastError();
 }
 
-// ---- D > 128: the output's columns split over blocks
-//
-// attention_fwd_wide_kernel computes what attention_fwd_kernel computes, for
-// any D past 128 (nf_tpu's _attn_kernel takes the whole (L, D) slice at
-// any D; GatedAttn's 4 heads give D = base_filters / 4).
-//  * Bound (H100 SXM): the same work as below 128, 4 L^2 D flops a slice
-//    and 16 L D bytes; at (64, 256, 192) and (64, 64, 512) operations bound
-//    it on the tensor cores, bytes at FFMA's L = 64.
-//  * Registers are the wall, not shared memory: the one-pass kernel keeps
-//    16 x DP accumulators (64 a lane at DP = 128) and the chunk's scores in
-//    registers, so DP cannot grow.  Chosen: split the output's D columns
-//    into chunks of kWideCols = 128 over the grid's second dimension.  Each
-//    block recomputes its rows' scores with q k^T contracted over D in
-//    chunks of 128 (3xTF32 as below), then runs the online softmax and the
-//    p v product for its 128 columns only: every accumulator stays in
-//    registers, at the cost of ceil(D / 128) times the score work (the
-//    exps too).  A two-pass design (row max and sum first) would save no
-//    score work (its second pass needs the scores again) and one more
-//    kernel; split-D partial sums of p v across blocks would need the
-//    softmax's max and sum first as well.
-//  * Staging per tile of kWideKeys = 32 keys: for each D chunk, q's 64 rows
-//    and the keys' columns of that chunk (cp.async, rows padded to 132
-//    floats, zero where past L or D), the score fragments accumulating in
-//    registers over the chunks; v's tile is staged with the first chunk,
-//    only this block's columns.  One buffer, a barrier per chunk: simple
-//    first; no double buffering.  q is re-read from L2 for every tile.
-//  * Blocks, warps, slices and rows as attention_fwd_kernel (S slices of R
-//    rows; ops/cuda/attention.py::wide_tiling), T = min(32, L rounded to 8).
-//    Shared memory 4 * 132 * (64 + 2 S T) bytes: 169 KB at S = 4, 68 KB at
-//    S = 1, whatever D.
-
-constexpr int kWideCols = 128;  // output columns of a block, and the score chunk
-constexpr int kWideKeys = 32;   // keys per staged tile
-constexpr int kWideStride = kWideCols + 4;
-
-__host__ __device__ constexpr size_t wide_smem_floats(int S, int T) {
-  return (size_t)kWideStride * (kBlockRows + 2 * S * T);
-}
-
-// columns [c0, c0 + kWideCols) of the rows row_of(0 .. n_rows - 1) of a
-// (., D) tensor into dst [n_rows][kWideStride], by the whole block; zero
-// where row_of gives nullptr (past L or BH) or the column is past D.
-template <class RowOf>
-__device__ __forceinline__ void stage_cols(float* dst, RowOf&& row_of, int n_rows, int D, int c0,
-                                           bool vec) {
-  const int W = vec ? kWideCols / 4 : kWideCols;
-  for (int i = threadIdx.x; i < n_rows * W; i += kThreads) {
-    const int row = i / W;
-    const int c = (i - row * W) * (vec ? 4 : 1);
-    float* to = dst + row * kWideStride + c;
-    const float* from = row_of(row);
-    const bool in = from != nullptr && c0 + c < D;
-    if (vec) {
-      if (in)
-        __pipeline_memcpy_async(to, from + c0 + c, 16);
-      else
-        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      if (in)
-        __pipeline_memcpy_async(to, from + c0 + c, 4);
-      else
-        *to = 0.f;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, float* __restrict__ out, int BH,
-                              int L, int D, int S, int R, int T, float scale, bool vec) {
-  constexpr int ST = kWideStride;
-  constexpr int NK = kWideCols / 8;  // k-steps of a chunk's q k^T, n-tiles of p v
-  constexpr int NG = kWideKeys / 8;  // key groups of a tile
-  extern __shared__ __align__(16) float smem[];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wps = R / kRows;
-  const int s_local = warp / wps;
-  const int row_blocks = (L + R - 1) / R;
-  const int slice0 = (blockIdx.x / row_blocks) * S;
-  const int slice = slice0 + s_local;
-  const int rblock0 = (blockIdx.x % row_blocks) * R;
-  const int row0 = rblock0 + (warp - s_local * wps) * kRows;
-  const bool active = slice < BH && row0 < L;
-  const int col0 = blockIdx.y * kWideCols;  // this block's output columns
-  const int n_chunks = (D + kWideCols - 1) / kWideCols;
-  const int n_tiles = (L + T - 1) / T;
-  float* qs = smem;                        // [64][ST]: block row w * 16 + r
-  float* ks_ = qs + kBlockRows * ST;       // [S][T][ST]
-  float* vs_ = ks_ + S * T * ST;           // [S][T][ST]
-  float* rows = qs + warp * kRows * ST;    // this warp's q rows, then its out rows
-
-  // q's block row r: slice slice0 + r / R, row rblock0 + r % R
-  auto q_row = [&](int r) -> const float* {
-    const int s = slice0 + r / R, i = rblock0 + r % R;
-    return (s < BH && i < L) ? q + (static_cast<size_t>(s) * L + i) * D : nullptr;
-  };
-
-  float o[NK][4];
-#pragma unroll
-  for (int dn = 0; dn < NK; ++dn)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[dn][i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int j0 = tile * T;
-    const int n_keys = min(T, L - j0);
-    // key row r of the staged [S][T]: slice slice0 + r / T, key j0 + r % T
-    auto kv_row = [&](const float* base) {
-      return [=](int r) -> const float* {
-        const int s = slice0 + r / T, j = r % T;
-        return (s < BH && j < n_keys) ? base + (static_cast<size_t>(s) * L + j0 + j) * D
-                                       : nullptr;
-      };
-    };
-    float sc[NG][4];
-#pragma unroll
-    for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      __syncthreads();  // every warp is done with the buffers
-      stage_cols(qs, q_row, kBlockRows, D, ch * kWideCols, vec);
-      stage_cols(ks_, kv_row(k), S * T, D, ch * kWideCols, vec);
-      if (ch == 0) stage_cols(vs_, kv_row(v), S * T, D, col0, vec);
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-      __syncthreads();
-      if (active) {
-        const float* kt_ = ks_ + s_local * T * ST;
-#pragma unroll 4
-        for (int kk = 0; kk < NK; ++kk) {
-          uint32_t ab[4], as[4];
-          split<true>(rows[g * ST + kk * 8 + t] * scale, ab[0], as[0]);
-          split<true>(rows[(g + 8) * ST + kk * 8 + t] * scale, ab[1], as[1]);
-          split<true>(rows[g * ST + kk * 8 + t + 4] * scale, ab[2], as[2]);
-          split<true>(rows[(g + 8) * ST + kk * 8 + t + 4] * scale, ab[3], as[3]);
-#pragma unroll
-          for (int nt = 0; nt < NG; ++nt) {
-            if (nt * 8 < n_keys) {
-              const float* kr = kt_ + (nt * 8 + g) * ST + kk * 8 + t;
-              uint32_t bb[2], bs[2];
-              split_b<false>(kr[0], kr[4], bb, bs);
-              mma3(sc[nt], ab, as, bb, bs);
-            }
-          }
-        }
-      }
-    }
-    if (active) {
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NG; ++nt) {
-        const int key = nt * 8 + 2 * t;
-        if (key >= n_keys) sc[nt][0] = sc[nt][2] = -INFINITY;
-        if (key + 1 >= n_keys) sc[nt][1] = sc[nt][3] = -INFINITY;
-        mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      l0 *= al0;
-      l1 *= al1;
-#pragma unroll
-      for (int dn = 0; dn < NK; ++dn) {
-        o[dn][0] *= al0;
-        o[dn][1] *= al0;
-        o[dn][2] *= al1;
-        o[dn][3] *= al1;
-      }
-      const float* vt_ = vs_ + s_local * T * ST;
-#pragma unroll
-      for (int nt = 0; nt < NG; ++nt) {
-        if (nt * 8 < n_keys) {
-          const float p0 = ex2(sc[nt][0] - m0), p1 = ex2(sc[nt][1] - m0);
-          const float p2 = ex2(sc[nt][2] - m1), p3 = ex2(sc[nt][3] - m1);
-          l0 += p0 + p1;
-          l1 += p2 + p3;
-          uint32_t pb[4], ps[4];
-          split<false>(p0, pb[0], ps[0]);
-          split<false>(p2, pb[1], ps[1]);
-          split<false>(p1, pb[2], ps[2]);
-          split<false>(p3, pb[3], ps[3]);
-          const float* vr = vt_ + (nt * 8 + 2 * t) * ST + g;
-#pragma unroll
-          for (int dn = 0; dn < NK; ++dn) {
-            uint32_t bb[2], bs[2];
-            split_b<true>(vr[dn * 8], vr[ST + dn * 8], bb, bs);
-            mma3(o[dn], pb, ps, bb, bs);
-          }
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // the q rows are free for the output
-  if (!active) return;
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-#pragma unroll
-  for (int dn = 0; dn < NK; ++dn) {
-    *reinterpret_cast<float2*>(rows + g * ST + dn * 8 + 2 * t) =
-        make_float2(o[dn][0] / l0, o[dn][1] / l0);
-    *reinterpret_cast<float2*>(rows + (g + 8) * ST + dn * 8 + 2 * t) =
-        make_float2(o[dn][2] / l1, o[dn][3] / l1);
-  }
-  __syncwarp();
-  const size_t at = (static_cast<size_t>(slice) * L + row0) * D + col0;
-  const int W = vec ? kWideCols / 4 : kWideCols;
-  for (int e = lane; e < kRows * W; e += 32) {
-    const int r = e / W, c = (e - r * W) * (vec ? 4 : 1);
-    if (row0 + r >= L || col0 + c >= D) continue;
-    if (vec)
-      *reinterpret_cast<float4*>(out + at + (size_t)r * D + c) =
-          *reinterpret_cast<const float4*>(rows + r * ST + c);
-    else
-      out[at + (size_t)r * D + c] = rows[r * ST + c];
-  }
-}
-
 }  // namespace
-
-// out (BH, L, D) from contiguous float32 q, k, v (BH, L, D), D > 128, with
-// ops/cuda/attention.py's wide_tiling() S, R, T; grid (ceil(BH / S)
-// ceil(L / R), ceil(D / 128)).  vec as below.  Returns cudaGetLastError().
-extern "C" int nf_attention_fwd_wide(const void* q, const void* k, const void* v, void* out,
-                                     int BH, int L, int D, int S, int R, int T, int vec,
-                                     void* stream) {
-  if (BH <= 0) return 0;
-  const long long row_grid = (long long)((BH + S - 1) / S) * ((L + R - 1) / R);
-  const long long col_grid = (D + kWideCols - 1) / kWideCols;
-  if (L <= 0 || D <= 128 || S <= 0 || R % kRows != 0 || S * R != kBlockRows || T <= 0 ||
-      T % 8 != 0 || T > kWideKeys || (vec && D % 4 != 0) || row_grid > 0x7fffffffLL ||
-      col_grid > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * wide_smem_floats(S, T);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
-  }
-  const float scale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  const dim3 grid((unsigned)row_grid, (unsigned)col_grid);
-  attention_fwd_wide_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), BH, L, D, S, R, T, scale, vec != 0);
-  return (int)cudaGetLastError();
-}
 
 // out (BH, L, D) from contiguous float32 q, k, v (BH, L, D), 1 <= D <= 128,
 // with the tiling S (slices per block), R (query rows of a slice per block)

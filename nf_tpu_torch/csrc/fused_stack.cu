@@ -1,7 +1,7 @@
 // Entry point of the RealNVP / Glow FFMA stack kernel at fused_stack.py's
 // TILES and NARROW_TILE tilings.  The kernel, what it replaces
 // (nf_tpu/ops/pallas/fused_stack.py::_make_kernels), its bound and its
-// design are in fused_stack.cuh; the WIDE variant's entry point is
+// design are in fused_stack.cuh; past both tilings the cluster kernel of
 // csrc/fused_stack_wide.cu.
 
 #include "fused_stack.cuh"
@@ -18,7 +18,7 @@ extern "C" int nf_fused_stack(const void* x, void* y, void* ld, const void* pre,
                               void* stream) {
   if (has_mix && mix == nullptr) return (int)cudaErrorInvalidValue;
   const Params prm =
-      params_of(x, y, ld, pre, mix, w0t, vec, wrt, wh, bh, gb, nullptr, B, D, n, ld_const);
+      params_of(x, y, ld, pre, mix, w0t, vec, wrt, wh, bh, gb, B, D, n, ld_const);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool inv = inverse != 0, mx = has_mix != 0;
 #define NF_TILING(FP_, S_, TS_) \

@@ -67,29 +67,12 @@
 //  * Widths: FP is F rounded up to 8, 16, ..., 256 on the host with zero
 //    weights, which keeps the padded features exactly 0.  The x tile and
 //    the head's rows are D x S in shared memory and the header holds the
-//    D-wide rows, so a wide D takes the 16-sample tiling
-//    (fused_stack.py::ffma_tiling checks the budget), and a D past that
-//    the WIDE variant below.
-//  * Sources: this header holds the kernel; csrc/fused_stack.cu
-//    instantiates it at TILES and NARROW_TILE, csrc/fused_stack_wide.cu
-//    the WIDE variant, so the two build in parallel (72 instances in one
-//    file took 98.8 s of nvcc on the card's machine, the longest source).  A ragged batch tail loads zeros and stores
-//    nothing.
-//  * WIDE (any D; nf_tpu fuses every stack with F <= 256 and 8 MB of
-//    weights, whatever D): what passes one block's shared memory at wide D
-//    is D-wide, the x tile and the head's rows (D x S each) and the
-//    header's in-projection, head, norm and, for Glow, the D x D PLU mix (4
-//    MB a coupling at D = 1024).  The F x F layers stream through the ring
-//    as before; the header keeps only the F-wide vectors and the coupling's
-//    gain / bias; the D-wide header rows are read straight from device
-//    memory (L2) where they are used, and the x tile and head rows live in
-//    device scratch the wrapper allocates per block (generic pointers, the
-//    same code).  The mix then runs over (row, sample) pairs on every
-//    thread of the block, with a barrier on each side, instead of one
-//    thread per sample.  Bound as above plus the mix's 2 D^2 flop per
-//    sample and coupling; at D = 1024 the mix is most of the work, and
-//    reading its D x D matrix from L2 once per 16 samples and coupling
-//    (not the FFMA rate) is what this simple first design pays.
+//    D-wide rows, so a wide D takes the 16-sample tiling, or the cluster
+//    kernel of csrc/fused_stack_wide.cu at the widths where that ran
+//    faster and past the 16-sample tiling (fused_stack.py::ffma_plan).
+//  * Sources: this header holds the kernel, csrc/fused_stack.cu
+//    instantiates it at TILES and NARROW_TILE.  A ragged batch tail loads
+//    zeros and stores nothing.
 //  * Accurate expf / tanhf (no fast math): the results are held against
 //    the plain PyTorch version.
 
@@ -115,7 +98,6 @@ struct Params {
   const float* wh;    // (n, 2*half, FP)   head: t rows, then s rows from half
   const float* bh;    // (n, 2*half)
   const float* gb;    // (n, 2)            coupling (gain, bias)
-  float* scratch;     // WIDE: (blocks, (D + 2*half) * (S + 4)) x tile and head rows
   int B, D, n;
   float ld_const;
 };
@@ -129,26 +111,18 @@ __host__ __device__ constexpr int align4(int v) { return (v + 3) & ~3; }
 // One coupling's header in shared memory, floats from its start:
 //   vec [15][FP] | w0t [half][FP] | wh [2*half][FP] | bh [2*half] gb [2] pre [D][2]
 //   | mix [D][D] (MIX only)
-// WIDE: vec [15][FP] | gb [2] (the rest is read from device memory)
 struct Header {
   int w0t, wh, bh, gb, pre, mix, size;
-  __host__ __device__ constexpr Header(int fp, int d, bool has_mix, bool wide = false)
+  __host__ __device__ constexpr Header(int fp, int d, bool has_mix)
       : w0t(kNVec * fp), wh(w0t + ((d + 1) / 2) * fp), bh(wh + 2 * ((d + 1) / 2) * fp),
-        gb(wide ? kNVec * fp : bh + 2 * ((d + 1) / 2)), pre(gb + 2), mix(pre + 2 * d),
-        size(wide ? align4(kNVec * fp + 2) : align4(mix + (has_mix ? d * d : 0))) {}
+        gb(bh + 2 * ((d + 1) / 2)), pre(gb + 2), mix(pre + 2 * d),
+        size(align4(mix + (has_mix ? d * d : 0))) {}
 };
 
-// shared floats of one block; fused_stack.py::smem_bytes mirrors this.
-// WIDE keeps the x tile and the head's rows in device scratch.
-__host__ __device__ constexpr int smem_floats(int fp, int s, int d, bool has_mix,
-                                              bool wide = false) {
-  return 2 * fp * (s + 4) + 2 * chunk_rows(fp) * fp + 2 * Header(fp, d, has_mix, wide).size +
-         (wide ? 0 : d * (s + 4) + 2 * ((d + 1) / 2) * (s + 4)) + s;
-}
-
-// floats of one WIDE block's device scratch: the x tile and the head's rows
-__host__ __device__ constexpr long long scratch_floats(int s, int d) {
-  return (long long)(d + 2 * ((d + 1) / 2)) * (s + 4);
+// shared floats of one block; fused_stack.py::smem_bytes mirrors this
+__host__ __device__ constexpr int smem_floats(int fp, int s, int d, bool has_mix) {
+  return 2 * fp * (s + 4) + 2 * chunk_rows(fp) * fp + 2 * Header(fp, d, has_mix).size +
+         d * (s + 4) + 2 * ((d + 1) / 2) * (s + 4) + s;
 }
 
 template <int TS>
@@ -198,7 +172,7 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int n) {
 
 // The weight stream: chunk q is rows [k0, k0+TK) of layer l of the coupling
 // at walk step s, q = (s * 4 + l) * NCH + k0 / TK.
-template <int FP, int T, bool INV, bool MIX, bool WIDE>
+template <int FP, int T, bool INV, bool MIX>
 struct Stream {
   static constexpr int TK = chunk_rows(FP);
   static constexpr int NCH = FP / TK;
@@ -215,10 +189,6 @@ struct Stream {
     const int c = coupling(step), half = (prm.D + 1) / 2;
     float* dst = hdr + (step & 1) * h.size;
     copy16<T>(dst, prm.vec + (size_t)c * kNVec * FP, kNVec * FP);
-    if (WIDE) {
-      copy4<T>(dst + h.gb, prm.gb + 2 * c, 2);
-      return;
-    }
     copy16<T>(dst + h.w0t, prm.w0t + (size_t)c * half * FP, half * FP);
     copy16<T>(dst + h.wh, prm.wh + (size_t)c * 2 * half * FP, 2 * half * FP);
     copy4<T>(dst + h.bh, prm.bh + (size_t)c * 2 * half, 2 * half);
@@ -242,8 +212,8 @@ struct Stream {
 // of walk step `step`.  Per chunk: wait for it, one barrier (which also
 // publishes the caller's writes to act and frees the other slot), start
 // the next chunk's copy, multiply.
-template <int FP, int S, int TS, bool INV, bool MIX, bool WIDE>
-__device__ __forceinline__ void layer_gemm(const Stream<FP, (S / TS) * (FP / kTO), INV, MIX, WIDE>& st,
+template <int FP, int S, int TS, bool INV, bool MIX>
+__device__ __forceinline__ void layer_gemm(const Stream<FP, (S / TS) * (FP / kTO), INV, MIX>& st,
                                            const float* act, int step, int layer,
                                            int o0, int s0, float (&acc)[kTO][TS]) {
   constexpr int SP = S + 4;
@@ -292,7 +262,7 @@ __device__ __forceinline__ void store_bn_relu(float* out, const float (&v)[kTO][
   }
 }
 
-template <int FP, int S, int TS, bool INV, bool MIX, bool WIDE>
+template <int FP, int S, int TS, bool INV, bool MIX>
 __global__ void __launch_bounds__((S / TS) * (FP / kTO))
 fused_stack_kernel(const Params prm) {
   constexpr int T = (S / TS) * (FP / kTO);
@@ -301,17 +271,15 @@ fused_stack_kernel(const Params prm) {
   extern __shared__ __align__(16) float smem[];
   const int D = prm.D;
   const int half = (D + 1) / 2;  // in_max == out_max
-  const Header hd(FP, D, MIX, WIDE);
+  const Header hd(FP, D, MIX);
   float* buf_a = smem;                    // FP x SP
   float* buf_b = buf_a + FP * SP;         // FP x SP
   float* w_s = buf_b + FP * SP;           // 2 x TK x FP
   float* hdr = w_s + 2 * TK * FP;         // 2 x hd.size
-  // D x SP, then 2*half x SP: in shared memory, or (WIDE) in device scratch
-  float* x_s = WIDE ? prm.scratch + (size_t)blockIdx.x * scratch_floats(S, D)
-                    : hdr + 2 * hd.size;
+  float* x_s = hdr + 2 * hd.size;         // D x SP
   float* raw_s = x_s + D * SP;            // 2*half x SP
-  float* ld_s = WIDE ? hdr + 2 * hd.size : raw_s + 2 * half * SP;  // S
-  const Stream<FP, T, INV, MIX, WIDE> st{prm, w_s, hdr, hd};
+  float* ld_s = raw_s + 2 * half * SP;    // S
+  const Stream<FP, T, INV, MIX> st{prm, w_s, hdr, hd};
 
   const int tid = threadIdx.x;
   const int o0 = (tid % (FP / kTO)) * kTO;
@@ -332,30 +300,16 @@ fused_stack_kernel(const Params prm) {
   float h[kTO][TS];    // residual stream of this thread's tile
   float acc[kTO][TS];
   for (int step = 0; step < prm.n; ++step) {
-    const int c_now = st.coupling(step), p = c_now & 1;
+    const int p = st.coupling(step) & 1;
     const int n_out = (D + 1 - p) / 2, n_in = (D + p) / 2;
     const float* head = st.header(step);
     const float* vec = head;
-    // the D-wide rows: staged in the header, or (WIDE) in device memory
-    const float* pre = WIDE ? prm.pre + (size_t)c_now * 2 * D : head + hd.pre;
-    const float* mx = WIDE ? prm.mix + (size_t)c_now * D * D : head + hd.mix;
+    const float* pre = head + hd.pre;
 
     if (!INV) {
-      if (MIX && WIDE) {
-        // normalize into raw_s's rows, then x = W x over (row, sample) pairs
-        for (int i = tid; i < D * S; i += T) {
-          const int d = i / S, s = i % S;
-          raw_s[d * SP + s] = (x_s[d * SP + s] - pre[2 * d]) * pre[2 * d + 1];
-        }
-        __syncthreads();
-        for (int i = tid; i < D * S; i += T) {
-          const int d = i / S, s = i % S;
-          float a = 0.f;
-          for (int k = 0; k < D; ++k) a = fmaf(mx[(size_t)d * D + k], raw_s[k * SP + s], a);
-          x_s[d * SP + s] = a;
-        }
-      } else if (MIX) {
+      if (MIX) {
         // one thread per sample: normalize into raw_s's rows, then x = W x
+        const float* mx = head + hd.mix;
         for (int s = tid; s < S; s += T) {
           for (int d = 0; d < D; ++d)
             raw_s[d * SP + s] = (x_s[d * SP + s] - pre[2 * d]) * pre[2 * d + 1];
@@ -376,7 +330,7 @@ fused_stack_kernel(const Params prm) {
 
     // in-projection h = W0 z1 + b0 (an outer product when n_in == 1)
     {
-      const float* w0 = WIDE ? prm.w0t + (size_t)c_now * half * FP : head + hd.w0t;
+      const float* w0 = head + hd.w0t;
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
 #pragma unroll
@@ -404,7 +358,7 @@ fused_stack_kernel(const Params prm) {
     for (int r = 0; r < 2; ++r) {
       const int o = 1 + 6 * r;
       float bias[kTO];
-      layer_gemm<FP, S, TS, INV, MIX, WIDE>(st, buf_a, step, 2 * r, o0, s0, acc);
+      layer_gemm<FP, S, TS, INV, MIX>(st, buf_a, step, 2 * r, o0, s0, acc);
       lds4(bias, vec + (o + 2) * FP + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
@@ -412,7 +366,7 @@ fused_stack_kernel(const Params prm) {
         for (int i = 0; i < TS; ++i) acc[j][i] += bias[j];
       store_bn_relu<S, TS>(buf_b, acc, vec + (o + 3) * FP, vec + (o + 4) * FP, o0, s0);
 
-      layer_gemm<FP, S, TS, INV, MIX, WIDE>(st, buf_b, step, 2 * r + 1, o0, s0, acc);
+      layer_gemm<FP, S, TS, INV, MIX>(st, buf_b, step, 2 * r + 1, o0, s0, acc);
       lds4(bias, vec + (o + 5) * FP + o0);
 #pragma unroll
       for (int j = 0; j < kTO; ++j)
@@ -426,15 +380,14 @@ fused_stack_kernel(const Params prm) {
 
     // head: raw[j][s] = sum_k wh[j][k] * buf_a[k][s] + bh[j]
     {
-      const float* wh = WIDE ? prm.wh + (size_t)c_now * 2 * half * FP : head + hd.wh;
-      const float* bh = WIDE ? prm.bh + (size_t)c_now * 2 * half : head + hd.bh;
+      const float* wh = head + hd.wh;
       for (int i = tid; i < 2 * half * S; i += T) {
         const int j = i / S, s = i % S;
         if ((j < half ? j : j - half) >= n_out) continue;
         float a = 0.f;
 #pragma unroll 8
         for (int k = 0; k < FP; ++k) a = fmaf(wh[j * FP + k], buf_a[k * SP + s], a);
-        raw_s[j * SP + s] = a + bh[j];
+        raw_s[j * SP + s] = a + head[hd.bh + j];
       }
     }
     __syncthreads();
@@ -452,11 +405,10 @@ fused_stack_kernel(const Params prm) {
           lsum += sv;
         }
         ld_s[s] += INV ? -lsum : lsum;
-        if (WIDE) {
-          // the mix and the un-affine follow over (row, sample) pairs
-        } else if (INV && MIX) {
+        if (INV && MIX) {
           // this sample's raw_s column is consumed: park x there, then
           // x = W^-1 x and the un-affine
+          const float* mx = head + hd.mix;
           for (int d = 0; d < D; ++d) raw_s[d * SP + s] = x_s[d * SP + s];
           for (int d = 0; d < D; ++d) {
             float a = 0.f;
@@ -467,26 +419,6 @@ fused_stack_kernel(const Params prm) {
           for (int d = 0; d < D; ++d)
             x_s[d * SP + s] = x_s[d * SP + s] * pre[2 * d + 1] + pre[2 * d];
         }
-      }
-    }
-    if (INV && WIDE) {
-      __syncthreads();
-      if (MIX) {
-        // park x in raw_s's rows (consumed), then x = W^-1 x and the un-affine
-        for (int i = tid; i < D * S; i += T) {
-          const int d = i / S, s = i % S;
-          raw_s[d * SP + s] = x_s[d * SP + s];
-        }
-        __syncthreads();
-      }
-      for (int i = tid; i < D * S; i += T) {
-        const int d = i / S, s = i % S;
-        float a = x_s[d * SP + s];
-        if (MIX) {
-          a = 0.f;
-          for (int k = 0; k < D; ++k) a = fmaf(mx[(size_t)d * D + k], raw_s[k * SP + s], a);
-        }
-        x_s[d * SP + s] = a * pre[2 * d + 1] + pre[2 * d];
       }
     }
     __syncthreads();
@@ -500,11 +432,11 @@ fused_stack_kernel(const Params prm) {
     if (base + s < prm.B) prm.ld[base + s] = ld_s[s] + prm.ld_const;
 }
 
-template <int FP, int S, int TS, bool INV, bool MIX, bool WIDE>
+template <int FP, int S, int TS, bool INV, bool MIX>
 cudaError_t launch(const Params& prm, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(FP, S, prm.D, MIX, WIDE);
+  const size_t smem = sizeof(float) * smem_floats(FP, S, prm.D, MIX);
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = fused_stack_kernel<FP, S, TS, INV, MIX, WIDE>;
+  auto kernel = fused_stack_kernel<FP, S, TS, INV, MIX>;
   // above 48 KB a block needs the opt-in; raise it once per size reached
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
@@ -518,27 +450,26 @@ cudaError_t launch(const Params& prm, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int FP, int S, int TS, bool WIDE = false>
+template <int FP, int S, int TS>
 cudaError_t launch_dir(const Params& prm, bool inverse, bool mix, cudaStream_t stream) {
   if (mix)
-    return inverse ? launch<FP, S, TS, true, true, WIDE>(prm, stream)
-                   : launch<FP, S, TS, false, true, WIDE>(prm, stream);
-  return inverse ? launch<FP, S, TS, true, false, WIDE>(prm, stream)
-                 : launch<FP, S, TS, false, false, WIDE>(prm, stream);
+    return inverse ? launch<FP, S, TS, true, true>(prm, stream)
+                   : launch<FP, S, TS, false, true>(prm, stream);
+  return inverse ? launch<FP, S, TS, true, false>(prm, stream)
+                 : launch<FP, S, TS, false, false>(prm, stream);
 }
 
 // the kernel's parameters from the entry points' plain C arguments
 inline Params params_of(const void* x, void* y, void* ld, const void* pre, const void* mix,
                         const void* w0t, const void* vec, const void* wrt, const void* wh,
-                        const void* bh, const void* gb, void* scratch, int B, int D, int n,
-                        float ld_const) {
+                        const void* bh, const void* gb, int B, int D, int n, float ld_const) {
   return Params{static_cast<const float*>(x), static_cast<float*>(y),
                 static_cast<float*>(ld), static_cast<const float*>(pre),
                 static_cast<const float*>(mix),
                 static_cast<const float*>(w0t), static_cast<const float*>(vec),
                 static_cast<const float*>(wrt), static_cast<const float*>(wh),
-                static_cast<const float*>(bh), static_cast<const float*>(gb),
-                static_cast<float*>(scratch), B, D, n, ld_const};
+                static_cast<const float*>(bh), static_cast<const float*>(gb), B, D, n,
+                ld_const};
 }
 
 }  // namespace

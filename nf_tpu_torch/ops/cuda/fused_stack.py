@@ -10,11 +10,14 @@ to 64 and data dimensions up to 8, which includes the headline (D = 2,
 F = 32);
 ``nf_tpu_torch/csrc/fused_stack.cuh`` runs them on the FFMA units for the
 rest (built from ``fused_stack.cu``), with 16 samples a block where a wide
-D would pass the shared memory at its usual tiling, and past that its WIDE
-variant (built from ``fused_stack_wide.cu``), which keeps the D-wide rows
-in device memory (``ffma_plan``).  ``kernel_variant`` chooses
-by shape; every stack ``extract_stack_spec`` matches has a kernel.  The
-eval-mode forward or inverse of
+D would pass the shared memory at its usual tiling; past that, and in its
+place at ``CLUSTER_PAST_TILES``' widths,
+``nf_tpu_torch/csrc/fused_stack_wide.cu`` runs the stack on thread block
+clusters of ``CLUSTER`` blocks that share a tile of samples, each holding
+its rows of the x tile in shared memory, or past ``SPILL_BELOW`` samples
+in device memory (``ffma_plan``, ``wide_plan``).  ``kernel_variant``
+chooses by shape; every stack ``extract_stack_spec`` matches, at any D,
+has a kernel.  The eval-mode forward or inverse of
 
     n x [ channel-affine norm -> (PLU 1x1 mix)? -> affine coupling(MLP) ]
 
@@ -31,7 +34,8 @@ runs as ONE launch per direction.  Host side, once per stack:
   own layout (``kernel_weights``): for the tensor-core kernel a header per
   coupling and direction and the F x F layers' B fragments, their input
   rows permuted and split for 3xTF32 (``MmaLayout``, ``mma_weights``);
-  for the FFMA kernel per coupling, k-major, padded (``ffma_weights``).
+  for the FFMA kernels per coupling, k-major, padded (``ffma_weights``;
+  the cluster kernel's mix transposed, ``cluster_mix``).
 
 ``fused_stack`` is the wrapper: for CPU tensors it runs
 ``fused_stack_reference``, the plain PyTorch version of the same math; for
@@ -76,10 +80,39 @@ TILES = {8: (256, 4), 16: (128, 4), 32: (64, 2), 64: (64, 4),
 # the tiling of every width for a stack whose block would pass SMEM_LIMIT at
 # TILES' S: the x tile and the head's rows are D x (S + 4) floats, so 16
 # samples a block take D up to several hundred at F = 32; past that the
-# WIDE variant at the same tiling, its D-wide rows in device memory
-# (``ffma_plan``)
+# cluster kernel (``ffma_plan``)
 NARROW_TILE = (16, 2)
+# the padded widths at which the cluster kernel takes, in NARROW_TILE's
+# place, the stacks that pass TILES' block, RealNVP (False) and Glow (True):
+# where it ran faster at B = 1,000 and at 8,192, or within 4 % (Glow at
+# 128), at the first and last D of each width (stack_cluster_probe.py
+# narrow, H100); at the other widths the 16-sample tiling was faster at
+# 8,192 (RealNVP 8, 16 and 64 at the narrowest D, 128, 256; Glow 256)
+CLUSTER_PAST_TILES = {False: (32,), True: (8, 16, 32, 64, 128)}
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
+# The cluster kernel (csrc/fused_stack_wide.cu): CLUSTER blocks of
+# CLUSTER_THREADS threads share a tile of S samples (the most of
+# CLUSTER_SAMPLES whose member fits SMEM_LIMIT: 48 puts B = 1000 in one
+# wave of the 30 clusters an H100 holds at once, and B = 8,192 in 6 where
+# 32 samples take 9), member m holding rows [m Dc, m Dc + Dc) of the x tile
+# (``member_rows``) and running the conditioner on samples
+# [m S / 4, (m + 1) S / 4); the mix streams W^T in chunks of MIX_ROWS rows,
+# a thread taking at most TILE_ITEMS mix tiles of 4 rows x 4 samples a pass
+# over W^T; as many in-projection tiles of 4 features x 4 samples and as
+# many conditioner tiles of one feature x 4 samples.  Each member's weights
+# stream through RING_SLOTS slots of RING_FLOATS; its conditioner buffers'
+# rows are COND_STRIDE floats.  Where the x tile fits shared memory only
+# below SPILL_BELOW samples, it goes to device memory ('ffma_cluster_spill',
+# ``spill_floats`` a member) at the most samples whose member fits.
+CLUSTER = 4
+CLUSTER_THREADS = 512
+CLUSTER_SAMPLES = (48, 32, 16, 8, 4)
+SPILL_BELOW = 16
+RING_SLOTS = 4
+RING_FLOATS = 4096
+MIX_ROWS = 16
+TILE_ITEMS = 2
+COND_STRIDE = 12
 
 # The tensor-core kernel: padded widths and data dimensions it covers, and
 # its blocks of MMA_WARPS consumer warps of 16 samples (one warpgroup) and
@@ -94,7 +127,8 @@ MMA_SAMPLES = 16 * MMA_WARPS
 LAUNCHES = {"fused_stack_fwd": 0, "fused_stack_inv": 0,
             "fused_stack_glow_fwd": 0, "fused_stack_glow_inv": 0}
 # the same launches by kernel and tiling: 'mma', 'ffma' (TILES), 'ffma_narrow'
-# (NARROW_TILE), 'ffma_wide' (the WIDE variant)
+# (NARROW_TILE), 'ffma_cluster' (the cluster kernel), 'ffma_cluster_spill'
+# (its x tiles in device memory)
 launches_by_path: Counter = Counter()
 
 
@@ -197,18 +231,39 @@ class MmaLayout:
         return 256 + 4 * (self.stages * self.layer + 2 * self.header)
 
 
+def member_rows(dim: int) -> int:
+    """The cluster kernel's x rows of a member: ceil(D / CLUSTER), rounded
+    up to 4."""
+    return (-(-dim // CLUSTER) + 3) // 4 * 4
+
+
+def spill_floats(samples: int, dim: int, has_mix: bool) -> int:
+    """Device memory of one cluster member on 'ffma_cluster_spill': its x
+    rows (two buffers for the mix) and its rows' s, for the cluster's
+    samples."""
+    dc = member_rows(dim)
+    return ((2 if has_mix else 1) * dc + dc // 2) * (samples + 4)
+
+
 def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False,
-               wide: bool = False) -> int:
+               wide: bool = False, spill: bool = False) -> int:
     """Dynamic shared memory of one FFMA kernel block; the kernel computes
-    the same.  ``wide``: the WIDE variant, whose header holds the F-wide
-    vectors and the coupling's gain / bias alone and whose x tile and head
-    rows are in device scratch (``scratch_floats``)."""
+    the same.  ``wide``: one member of the cluster kernel (its WideLayout):
+    its x rows (two buffers for the mix), the in-projection partials /
+    gathered head input and the coupling's s of its rows for the cluster's
+    samples, the conditioner's h and two activations of its samples, the
+    weight ring, for Glow the mix's W^T and x chunk rings, its share of
+    the log-det and the ring's mbarriers; with ``spill`` the x rows, s and
+    W^T ring are in device memory (``spill_floats``)."""
     sp = samples + 4
     chunk = fp if fp * fp <= 4096 else 4096 // fp
-    half = (dim + 1) // 2
     if wide:
-        header = (_N_VEC * fp + 2 + 3) // 4 * 4
-        return 4 * (2 * fp * sp + 2 * chunk * fp + 2 * header + samples)
+        dc = 0 if spill else member_rows(dim)
+        mix = 2 * MIX_ROWS * (dc + sp) if has_mix else 0
+        return 4 * ((2 if has_mix else 1) * dc * sp + fp * sp + dc // 2 * sp
+                    + 3 * fp * COND_STRIDE + RING_SLOTS * RING_FLOATS + mix + samples
+                    + 2 * RING_SLOTS)
+    half = (dim + 1) // 2
     # per coupling: vec, in-projection, head, then bh / gb / pre / mix
     # padded to 4
     small = 2 * half + 2 + 2 * dim + (dim * dim if has_mix else 0)
@@ -217,27 +272,47 @@ def smem_bytes(fp: int, samples: int, dim: int, has_mix: bool = False,
                 + 2 * half * sp + samples)
 
 
-def scratch_floats(samples: int, dim: int) -> int:
-    """Device scratch of one WIDE block: the x tile and the head's rows."""
-    return (dim + 2 * ((dim + 1) // 2)) * (samples + 4)
+def wide_plan(dim: int, filters: int, has_mix: bool, spill: bool = False) -> Optional[int]:
+    """The cluster kernel's samples a cluster, its x tiles in shared
+    memory (down to SPILL_BELOW samples) or with ``spill`` in device
+    memory: the first of CLUSTER_SAMPLES whose member fits SMEM_LIMIT and
+    whose in-projection and conditioner tiles fit the threads' tile budget
+    (TILE_ITEMS); None past them all."""
+    fp = padded_width(filters)
+    budget = TILE_ITEMS * CLUSTER_THREADS
+    for samples in CLUSTER_SAMPLES:
+        if not spill and samples < SPILL_BELOW:
+            break
+        tiles_ok = (fp // 4 * (samples // 4) <= budget
+                    and fp * -(-samples // CLUSTER // 4) <= budget)
+        if tiles_ok and smem_bytes(fp, samples, dim, has_mix, True, spill) <= SMEM_LIMIT:
+            return samples
+    return None
 
 
 def ffma_plan(dim: int, filters: int, has_mix: bool) -> Tuple[str, Tuple[int, int]]:
-    """The FFMA kernel's path and (S, TS) for a (D = dim, F = filters)
-    stack: TILES' entry of its padded width ('ffma'), else NARROW_TILE
-    ('ffma_narrow'), whichever is first to fit one block's shared memory;
-    past both the WIDE variant at NARROW_TILE ('ffma_wide'), which fits at
-    any D."""
+    """The FFMA kernels' path and tiling for a (D = dim, F = filters)
+    stack: TILES' (S, TS) of its padded width ('ffma') where that fits one
+    block's shared memory; else, outside CLUSTER_PAST_TILES' widths,
+    NARROW_TILE ('ffma_narrow') where that fits; else the cluster kernel
+    ('ffma_cluster') with (samples a cluster, CLUSTER) from ``wide_plan``;
+    past that its x tiles in device memory ('ffma_cluster_spill'), which
+    takes any D."""
     fp = padded_width(filters)
-    for kind, tile in (("ffma", TILES[fp]), ("ffma_narrow", NARROW_TILE)):
-        if smem_bytes(fp, tile[0], dim, has_mix) <= SMEM_LIMIT:
-            return kind, tile
-    return "ffma_wide", NARROW_TILE
+    if smem_bytes(fp, TILES[fp][0], dim, has_mix) <= SMEM_LIMIT:
+        return "ffma", TILES[fp]
+    if (fp not in CLUSTER_PAST_TILES[has_mix]
+            and smem_bytes(fp, NARROW_TILE[0], dim, has_mix) <= SMEM_LIMIT):
+        return "ffma_narrow", NARROW_TILE
+    samples = wide_plan(dim, filters, has_mix)
+    if samples is not None:
+        return "ffma_cluster", (samples, CLUSTER)
+    return "ffma_cluster_spill", (wide_plan(dim, filters, has_mix, spill=True), CLUSTER)
 
 
 def ffma_tiling(dim: int, filters: int, has_mix: bool) -> Tuple[int, int]:
-    """The FFMA kernel's (S, TS) for a (D = dim, F = filters) stack
-    (``ffma_plan``): a tiling for every spec."""
+    """The FFMA kernels' tiling for a (D = dim, F = filters) stack
+    (``ffma_plan``)."""
     return ffma_plan(dim, filters, has_mix)[1]
 
 
@@ -608,9 +683,11 @@ class FfmaWeights:
     to width fp: pre / prei (n, D, 2), w0t (n, in_max, fp) k-major, vec
     (n, 15, fp), wrt (n, 4, fp, fp) k-major, wh (n, 2*out_max, fp) with the
     t rows first and the s rows from out_max, bh (n, 2*out_max), gb (n, 2),
-    and for Glow mix / mixi (n, D, D) row-major (out, in), else None;
-    ``tile`` the launch's (S samples a block, TS a thread) and ``path``
-    'ffma', 'ffma_narrow' or 'ffma_wide', ``ffma_plan``'s."""
+    and for Glow mix / mixi (n, D, D) row-major (out, in), else None (on
+    the cluster path W^T / W^-T as ``cluster_mix`` lays them out);
+    ``tile`` and ``path`` ``ffma_plan``'s: (S samples a block, TS a
+    thread) on 'ffma' and 'ffma_narrow', (S samples a cluster, CLUSTER) on
+    'ffma_cluster' and 'ffma_cluster_spill'."""
     fp: int
     tile: Tuple[int, int]
     path: str
@@ -659,7 +736,20 @@ def ffma_weights(spec: StackSpec, packed) -> FfmaWeights:
         if spec.has_mix:
             out["mix"][c] = P["mix"]
             out["mixi"][c] = P["mixi"]
+    if spec.has_mix and path.startswith("ffma_cluster"):
+        out["mix"], out["mixi"] = cluster_mix(out["mix"]), cluster_mix(out["mixi"])
     return FfmaWeights(fp=fp, tile=tile, path=path, **out)
+
+
+def cluster_mix(mix: torch.Tensor) -> torch.Tensor:
+    """The cluster kernel's mix layout of (n, D, D) row-major (out, in)
+    matrices: W^T, (n, D, CLUSTER * member_rows(D)), row k holding W[:, k],
+    the columns past D zero, so member m reads columns [m Dc, m Dc + Dc)
+    of each row in 16-byte copies."""
+    n, D, _ = mix.shape
+    out = mix.new_zeros(n, D, CLUSTER * member_rows(D))
+    out[:, :, :D] = mix.transpose(1, 2)
+    return out
 
 
 def kernel_weights(spec: StackSpec, packed):
@@ -694,11 +784,11 @@ def _ffma_fn():
     return fn
 
 
-def _ffma_wide_fn():
+def _cluster_fn():
     fn = _build.load("fused_stack_wide").nf_fused_stack_wide
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 8 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 12 + [i] * 7 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -769,13 +859,17 @@ def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
                     0 if mix is None else mix.data_ptr(), kw.w0t.data_ptr(),
                     kw.vec.data_ptr(), kw.wrt.data_ptr(), kw.wh.data_ptr(),
                     kw.bh.data_ptr(), kw.gb.data_ptr()]
-            if kw.path == "ffma_wide":
-                scratch = x.new_empty(-(-B // S) * scratch_floats(S, spec.dim))
-                fn, ptrs = _ffma_wide_fn(), ptrs + [scratch.data_ptr()]
+            if kw.path.startswith("ffma_cluster"):
+                spill = None
+                if kw.path == "ffma_cluster_spill":
+                    blocks = -(-B // S) * CLUSTER
+                    spill = x.new_empty(blocks * spill_floats(S, spec.dim, spec.has_mix))
+                err = _cluster_fn()(*ptrs, 0 if spill is None else spill.data_ptr(), B,
+                                    spec.dim, spec.n_repeats, kw.fp, S, int(inverse),
+                                    int(spec.has_mix), ld_const, stream)
             else:
-                fn = _ffma_fn()
-            err = fn(*ptrs, B, spec.dim, spec.n_repeats, kw.fp, S, TS, int(inverse),
-                     int(spec.has_mix), ld_const, stream)
+                err = _ffma_fn()(*ptrs, B, spec.dim, spec.n_repeats, kw.fp, S, TS,
+                                 int(inverse), int(spec.has_mix), ld_const, stream)
     if err != 0:
         raise RuntimeError(f"fused_stack {'inverse' if inverse else 'forward'} "
                            f"kernel failed to launch: CUDA error {err}")

@@ -16,9 +16,11 @@ kernels: y, x, gz0 and graw atol / rtol 1e-5, the row log-dets atol 1e-4
 under torch.utils.checkpoint the same gradients bit for bit, the ticket
 reset.
 Attention: out atol / rtol 1e-5 against the plain version (and
-PyTorch's SDPA) at D = 2 to 512 and L = 2 to 1500 (past D = 128 the
-column-block kernel), its gradient through the Function 1e-5.  The
-wide paths: the FFMA stack's WIDE variant at D = 400 and 1024, the ResFlow
+PyTorch's SDPA) at D = 2 to 2048 and L = 2 to 1500 (past D = 128 the
+wide kernel, past 1024 in column groups), its gradient through the
+Function 1e-5; GatedAttn at base_filters 8192 against the CPU 1e-4.  The
+wide paths: the stack's cluster kernel at D = 63 to 6000 (its x tiles in
+device memory from Glow D = 1300 at F = 256), the ResFlow
 wide kernel at (D, F) = (2, 512) and (16, 64), all three variants, at the
 tolerances above.  The
 mixture-CDF inverse: x atol / rtol 1e-4 against the plain version and
@@ -91,14 +93,17 @@ def test_fused_stack_kernel_matches_plain(cuda, name, D, layers, F, B):
 
 @pytest.mark.parametrize("name,D,F", [("realnvp", 213, 32), ("glow", 111, 32),
                                       ("realnvp", 117, 64), ("realnvp", 29, 256),
-                                      ("glow", 27, 256)])
+                                      ("glow", 27, 256), ("glow", 80, 64), ("glow", 63, 128)])
 def test_fused_stack_narrow_tiling_matches_plain(cuda, name, D, F):
     """Stacks whose FFMA block at TILES' sample count passes the shared
-    memory run the 16-sample tiling."""
+    memory run the 16-sample tiling, or at CLUSTER_PAST_TILES' widths
+    (RealNVP F = 32, Glow up to 128) the cluster kernel."""
     from nf_tpu_torch.ops.cuda import fused_stack as fs
 
     prog, g = _program(D, 2, F, 0, cuda, name)
-    assert prog.stack.kernel.tile == fs.NARROW_TILE
+    cluster = fs.padded_width(F) in fs.CLUSTER_PAST_TILES[name == "glow"]
+    assert (prog.stack.kernel.path, prog.stack.kernel.tile) == (
+        ("ffma_cluster", (48, fs.CLUSTER)) if cluster else ("ffma_narrow", fs.NARROW_TILE))
     x = torch.randn(300, D, generator=g, device=cuda)
     for direction in ("forward", "inverse"):
         y, ld = fs.fused_stack(prog.stack, x, direction)
@@ -110,25 +115,34 @@ def test_fused_stack_narrow_tiling_matches_plain(cuda, name, D, F):
 
 
 @pytest.mark.parametrize("name,D,F", [("realnvp", 400, 32), ("glow", 400, 32),
-                                      ("realnvp", 1024, 32), ("realnvp", 400, 256)])
-def test_fused_stack_past_every_tiling_raises(cuda, name, D, F):
-    """(It pinned the refusal past both FFMA tilings.)  Past them the WIDE
-    variant runs the stack: one launch per direction, against the plain
-    version."""
+                                      ("realnvp", 1024, 32), ("realnvp", 400, 256),
+                                      ("realnvp", 63, 256), ("glow", 1024, 32),
+                                      ("glow", 1024, 256), ("glow", 4096, 32),
+                                      ("glow", 1300, 256), ("realnvp", 6000, 32)])
+def test_fused_stack_cluster_kernel_matches_plain(cuda, name, D, F):
+    """Past both FFMA tilings the cluster kernel runs the stack (48 samples
+    a cluster of 4 blocks, 32 for Glow at D = 1024 and 16 at F = 256; past
+    the D whose member fits at 16 samples, Glow on flattened 64 x 64
+    images among them, the x tiles in device memory at 48; 300 samples:
+    the last cluster ragged): one launch per direction, against the plain
+    version (the log-det at D = 1,300 and past, a sum of thousands of
+    terms of up to about 2,000 in all, also within rtol 1e-6)."""
     from nf_tpu_torch.ops.cuda import fused_stack as fs
 
     prog, g = _program(D, 2, F, 0, cuda, name)
-    assert (prog.stack.kernel.path, prog.stack.kernel.tile) == ("ffma_wide", fs.NARROW_TILE)
+    path, tile = fs.ffma_plan(D, F, name == "glow")
+    assert path == ("ffma_cluster_spill" if D >= 1300 else "ffma_cluster")
+    assert (prog.stack.kernel.path, prog.stack.kernel.tile) == (path, tile)
     x = torch.randn(300, D, generator=g, device=cuda)
     for direction in ("forward", "inverse"):
         fs.reset_launches()
         y, ld = fs.fused_stack(prog.stack, x, direction)
         torch.cuda.synchronize()
-        assert fs.launches_by_path == {"ffma_wide": 1}
+        assert fs.launches_by_path == {path: 1}
         yr, ldr = fs.fused_stack_reference(prog.stack.packed, prog.stack.const_ld,
                                            x, direction)
         torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
-        torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+        torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=1e-6 if D >= 1300 else 0)
 
 
 def test_fused_stack_headline_fills_the_card(cuda):
@@ -214,10 +228,10 @@ def test_resflow_main_path_launch_puts_8_warps_on_every_sm(cuda):
 
 
 @pytest.mark.parametrize("D,F,B", [(2, 512, 300), (16, 64, 300), (9, 8, 45), (2, 2048, 50)])
-def test_resflow_past_the_kernels_tilings_raises(cuda, D, F, B):
-    """(It pinned the refusal past F = 256 or D = 8.)  The wide kernel runs
-    all three variants there, against the plain versions; (2, 2048) keeps
-    its vectors in device scratch."""
+def test_resflow_wide_kernel_matches_plain(cuda, D, F, B):
+    """Past F = 256 or D = 8 the wide kernel runs all three variants,
+    against the plain versions; (2, 2048) keeps its vectors in device
+    scratch."""
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
 
     prog, g = _program(D, 2, F, 0, cuda, "resflow")
@@ -510,7 +524,8 @@ def test_matmul_precision_on_the_card(cuda):
 @pytest.mark.parametrize("BH,L,D", [(4096, 256, 8), (4096, 64, 8), (4096, 16, 8), (1000, 49, 8),
                                     (64, 100, 32), (33, 300, 64), (70, 16, 2), (10, 1024, 4),
                                     (5, 2, 16), (192, 256, 12), (64, 1500, 8), (64, 100, 128),
-                                    (4, 16, 6), (2, 1025, 8), (3, 8, 128)])
+                                    (4, 16, 6), (2, 1025, 8), (3, 8, 128), (64, 256, 192),
+                                    (64, 64, 512), (3, 40, 1000)])
 def test_attention_kernel_matches_plain(cuda, BH, L, D):
     import torch.nn.functional as F
 
@@ -580,10 +595,11 @@ def test_mix_log_cdf_inverse_has_no_gradient(cuda):
         (x.sum() + ld.sum()).backward()
 
 
-def test_uncovered_shapes_raise_on_the_card(cuda):
-    """(It pinned the refusal of D = 129.)  Past D = 128 the column-block
-    kernel runs, against the plain version; a dtype the kernels do not
-    take still raises, with no launch counted."""
+def test_attention_past_128_matches_plain_and_other_dtypes_raise(cuda):
+    """Past D = 128 the wide kernel runs at each of its tilings, and past
+    1,024 in column groups (D = 2,048: GatedAttn at base_filters 8,192;
+    1,030 ragged and off the 16-byte copies), against the plain version; a
+    dtype the kernels do not take raises, with no launch counted."""
     from nf_tpu_torch.ops import attention as ta
     from nf_tpu_torch.ops.cuda import attention as ca
     from nf_tpu_torch.ops.cuda import mixlogcdf as cm
@@ -591,15 +607,42 @@ def test_uncovered_shapes_raise_on_the_card(cuda):
     ca.reset_launches()
     cm.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(129)
-    for BH, L, D in ((4, 16, 129), (64, 256, 192), (64, 64, 512), (3, 40, 130), (5, 1, 200)):
+    for BH, L, D in ((4, 16, 129), (64, 256, 192), (64, 64, 512), (3, 40, 130), (5, 1, 200),
+                     (8, 64, 2048), (3, 33, 1030)):
         q, k, v = (torch.randn(BH, L, D, generator=g, device=cuda) for _ in range(3))
         out = ta.attention(q, k, v)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ta.attention_reference(q, k, v), atol=1e-5, rtol=1e-5)
-    assert ca.launches_by_path == {"column_blocks": 4}   # one token returns v
+    assert ca.launches_by_path == {"wide": 6}   # one token returns v
     with pytest.raises(ValueError, match="float32"):
         ca.launch(*(torch.randn(4, 16, 8, device=cuda, dtype=torch.float64),) * 3)
-    assert ca.LAUNCHES == {"attention_fwd": 4} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}
+    assert ca.LAUNCHES == {"attention_fwd": 6} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}
+
+
+def test_gated_attention_past_1024_columns_trains_on_the_card(cuda):
+    """GatedAttn at base_filters 8,192 (4 heads of D = 2,048, the wide
+    kernel's column groups): its output and its gradients on the card
+    against the same module on the CPU, atol / rtol 1e-4."""
+    import copy
+
+    from nf_tpu_torch.nets.gated import GatedAttn
+    from nf_tpu_torch.ops.cuda import attention as ca
+
+    net = GatedAttn((4, 4, 8), filters=8192, device=cuda)
+    net.init(torch.Generator(device=cuda).manual_seed(8))
+    cpu = copy.deepcopy(net).cpu()
+    x = torch.randn(2, 4, 4, 8, generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda)
+    ca.reset_launches()
+    y = net(x)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert ca.launches_by_path == {"wide": 1}
+    yc = cpu(x.cpu())
+    yc.square().sum().backward()
+    torch.testing.assert_close(y.detach().cpu(), yc.detach(), atol=1e-4, rtol=1e-4)
+    for (name, p), pc in zip(net.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-4, msg=name)
 
 
 def test_image_flowpp_launches_only_attention(cuda):

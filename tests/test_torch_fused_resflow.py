@@ -69,10 +69,9 @@ def test_spec_rejects_nonmatching(name):
     assert tfr.extract_resflow_spec(tm.bijector, tm.dims) is None
 
 
-def test_spec_rejects_past_the_kernels_limits():
-    """(It pinned the refusal past the tiled kernels' widths until the wide
-    kernel came.)  A stack wider than the tiled kernels matches as in
-    nf_tpu and is covered: the wide kernel takes it, its plan fits one
+def test_spec_past_the_tiled_kernels_takes_the_wide_kernel():
+    """A stack wider than the tiled kernels matches as in nf_tpu and is
+    covered: the wide kernel takes it, its plan fits one
     block, its weights pack onto ``meta`` with no error, the plain versions
     run it on the CPU, and no launch is counted."""
     for D, F in ((2, 512), (9, 8)):

@@ -12,9 +12,15 @@
   budgets;
 * the matcher at shapes past the FFMA block's shared memory, against
   nf_tpu's, and the program there against nf_tpu's EvalProgram (1e-4),
-  up to D = 400 (the WIDE variant's shapes); the FFMA layout walked at
-  D = 400 for RealNVP and Glow (the mix included), 2e-5; every (D, F) of a
-  grid up to D = 1024, F = 256 planned within one block's shared memory.
+  up to D = 400 (the cluster kernel's shapes); the cluster kernel's
+  layout walked the way csrc/fused_stack_wide.cu walks it (the sample
+  tiles of a cluster, the members' x rows, the in-projection partials
+  summed in member order, the conditioner on each member's samples, the
+  head and log-det shares per member's rows, W^T streamed in chunks of
+  16 rows) at D = 63 and 400, RealNVP and Glow, against the plain version
+  (2e-5) and nf_tpu's EvalProgram (1e-4, z also rtol 1e-4); every
+  (D, F) of a grid up to D = 1024, F = 256 planned within one block's
+  shared memory and a cluster of 4.
 """
 import numpy as np
 import pytest
@@ -244,6 +250,89 @@ def _walk_ffma_layout(kw, spec, const_ld, x, inverse):
     return x, ld + (-const_ld if inverse else const_ld)
 
 
+def _walk_cluster_layout(kw, spec, const_ld, x, inverse):
+    """csrc/fused_stack_wide.cu's walk in PyTorch, reading ``FfmaWeights``
+    on the cluster paths (the x tile in shared or in device memory, the
+    same arithmetic): clusters of S samples (``kw.tile``), member m of a
+    cluster owning x rows [m Dc, m Dc + Dc) (``member_rows``) and the
+    conditioner's samples [m S / C, (m + 1) S / C) (each (sample, row) and
+    each sample once); per coupling the in-projection partial of each
+    member's z1 rows, summed in member order, then b0; the conditioner;
+    each member's z0 rows' t and s, its share of the log-det summed in row
+    order and the shares summed in member order at the end; the mix from
+    W^T (``cluster_mix``: zero past D) in chunks of MIX_ROWS rows (a pass
+    over W^T per TILE_ITEMS x CLUSTER_THREADS tiles of 4 rows x 4 samples:
+    each tile's sum in the same chunk order), the inverse's un-affine in
+    its epilogue."""
+    B, D = x.shape
+    S, C = kw.tile
+    assert C == tfs.CLUSTER and S % C == 0 and kw.path.startswith("ffma_cluster")
+    dc, sm = tfs.member_rows(D), S // C
+    half = (D + 1) // 2
+    clusters = -(-B // S)
+    members = [range(m * dc, min(D, m * dc + dc)) for m in range(C)]
+    owner = torch.zeros(clusters * S, D, dtype=torch.int64)
+    cond = torch.zeros(clusters * S, dtype=torch.int64)
+    for cl in range(clusters):
+        for m, rows in enumerate(members):
+            owner[cl * S:(cl + 1) * S, list(rows)] += 1
+            cond[cl * S + m * sm:cl * S + (m + 1) * sm] += 1
+    assert bool((owner == 1).all() and (cond == 1).all())
+    if kw.mix is not None:
+        assert kw.mix.shape == (spec.n_repeats, D, C * dc)
+        assert bool((kw.mix[..., D:] == 0).all() and (kw.mixi[..., D:] == 0).all())
+    xs = x.clone()
+    shares = torch.zeros(C, B)
+
+    def mix(mt, pre=None):
+        out = torch.zeros(B, C * dc)
+        for k0 in range(0, D, tfs.MIX_ROWS):
+            out = out + xs[:, k0:k0 + tfs.MIX_ROWS] @ mt[k0:k0 + tfs.MIX_ROWS]
+        out = out[:, :D]
+        return out if pre is None else out * pre[:, 1] + pre[:, 0]
+
+    order = range(spec.n_repeats)
+    for c in (reversed(order) if inverse else order):
+        p = c % 2
+        pre = (kw.prei if inverse else kw.pre)[c]
+        if not inverse:
+            xs = (xs - pre[:, 0]) * pre[:, 1]
+            if kw.mix is not None:
+                xs = mix(kw.mix[c])
+        V = kw.vec[c]
+        parts = []
+        for rows in members:
+            part = torch.zeros(B, kw.fp)
+            for g in rows:
+                if g % 2 == 1 - p:
+                    part = part + xs[:, g:g + 1] * kw.w0t[c, g >> 1]
+            parts.append(part)
+        h = sum(parts) + V[0]
+        for r in range(2):
+            o = 1 + 6 * r
+            u = torch.relu(h * V[o] + V[o + 1]) @ kw.wrt[c, 2 * r] + V[o + 2]
+            u = torch.relu(u * V[o + 3] + V[o + 4]) @ kw.wrt[c, 2 * r + 1] + V[o + 5]
+            h = h + u
+        a = torch.relu(h * V[13] + V[14])
+        xs = xs.clone()
+        for m, rows in enumerate(members):
+            share = torch.zeros(B)
+            for g in rows:
+                if g % 2 != p:
+                    continue
+                i = g >> 1
+                t = a @ kw.wh[c, i] + kw.bh[c, i]
+                sv = torch.tanh(a @ kw.wh[c, half + i] + kw.bh[c, half + i]) * kw.gb[c, 0] \
+                    + kw.gb[c, 1]
+                xs[:, g] = (xs[:, g] - t) * torch.exp(-sv) if inverse \
+                    else xs[:, g] * torch.exp(sv) + t
+                share = share + sv
+            shares[m] = shares[m] + (-share if inverse else share)
+        if inverse:
+            xs = mix(kw.mixi[c], pre) if kw.mix is not None else xs * pre[:, 1] + pre[:, 0]
+    return xs, sum(shares[m] for m in range(C)) + (-const_ld if inverse else const_ld)
+
+
 def _packed(name, D, F):
     tmodel = torch_model(name, D, 4, F, jax_model(name, D, 4, F, seed=1)[1])
     spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
@@ -301,31 +390,59 @@ def test_ffma_layout_matches_reference(D, F):
 
 
 @pytest.mark.parametrize("name,D,F", [("realnvp", 400, 32), ("glow", 400, 32),
-                                      ("realnvp", 400, 256)])
+                                      ("realnvp", 400, 256), ("realnvp", 63, 256),
+                                      ("glow", 150, 32), ("glow", 1300, 256)])
 def test_wide_ffma_layout_matches_reference(name, D, F):
-    """Past one FFMA block at 16 samples: the WIDE variant's plan and the
-    FFMA layout it reads (the D-wide rows from device memory, the same
-    arrays), walked against the plain version at 2e-5."""
-    spec, packed, const_ld = _packed(name, D, F)
+    """Past one FFMA block at 16 samples: the cluster kernel's plan and its
+    layout (``ffma_weights`` on 'ffma_cluster', and at Glow D = 1,300 F =
+    256 on 'ffma_cluster_spill', whose member rows pass shared memory at 16
+    samples), walked over two clusters (the second ragged) against the
+    plain version at 2e-5 and nf_tpu's EvalProgram: RealNVP at 2e-5, Glow
+    within the spread of nf_tpu's own program over XLA's threading."""
+    jmodel, var = jax_model(name, D, 4, F, seed=1)
+    tmodel = torch_model(name, D, 4, F, var)
+    spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
+    packed, const_ld = tfs.pack_stack(tmodel.bijector, spec)
     kw = tfs.kernel_weights(spec, packed)
     assert isinstance(kw, tfs.FfmaWeights)
-    assert (kw.path, kw.tile) == ("ffma_wide", tfs.NARROW_TILE)
-    assert tfs.smem_bytes(kw.fp, 16, D, name == "glow", wide=True) <= tfs.SMEM_LIMIT
-    x = torch.from_numpy(normal(40 + D, (21, D)))
+    spill = D == 1300
+    assert (kw.path, kw.tile) == ("ffma_cluster_spill" if spill else "ffma_cluster",
+                                  (48, tfs.CLUSTER))
+    assert tfs.smem_bytes(kw.fp, 48, D, name == "glow", True, spill) <= tfs.SMEM_LIMIT
+    jprog = jmodel.eval_program(var)
+    x = normal(40 + D, (70, D))
+    jz, jld = jprog.forward(x)
+    jy, jldi = jprog.inverse(np.asarray(jz))
+    nf = {"forward": (jz, jld), "inverse": (jy, jldi)}
+    inputs = {"forward": torch.from_numpy(x), "inverse": torch.tensor(np.asarray(jz))}
     for direction in ("forward", "inverse"):
-        want = tfs.fused_stack_reference(packed, const_ld, x, direction)
-        got = _walk_ffma_layout(kw, spec, const_ld, x, direction == "inverse")
+        want = tfs.fused_stack_reference(packed, const_ld, inputs[direction], direction)
+        got = _walk_cluster_layout(kw, spec, const_ld, inputs[direction],
+                                   direction == "inverse")
         close(got[0], want[0], 2e-5)
-        close(got[1], want[1], 2e-5)
+        # at D = 1,300 the log-det is about -600, where one f32 step is
+        # 6.1e-5: there rtol 1e-6 beside the atol (the sums' orders differ)
+        close(got[1], want[1], 2e-5, 1e-6 if spill else 0.0)
+        # RealNVP within 2e-5 of nf_tpu's program; Glow's f32 program on the
+        # CPU moves with XLA's threading (tests/stack_thread_spread.py: its
+        # inverse z on one core and on every core up to 1.0e-4 apart at D =
+        # 400, 4.8e-4 at D = 1,300, F = 256), while the walk holds the plain
+        # version to 2e-5: there the program's spread
+        atol, rtol = (2e-5, 0.0) if name == "realnvp" else (5e-4, 0.0) if spill else (1e-4, 1e-4)
+        close(got[0], nf[direction][0], atol, rtol)
+        close(got[1], nf[direction][1], atol)
 
 
-@pytest.mark.parametrize("D", [2, 9, 16, 64, 400, 1024])
+@pytest.mark.parametrize("D", [2, 9, 16, 64, 400, 1024, 3000, 20000])
 def test_every_stack_has_a_plan_within_one_block(D):
     """Every (D, F) of the grid that nf_tpu fuses (F <= 256), RealNVP and
     Glow, has a kernel whose block fits 232,448 bytes: the tensor-core
-    kernel, or the FFMA kernel at TILES, NARROW_TILE or the WIDE variant,
-    the first that fits; TILES and NARROW_TILE keep every shape they held."""
-    for F in (32, 256):
+    kernel, or the FFMA kernel at TILES or NARROW_TILE, the first that
+    fits (NARROW_TILE outside CLUSTER_PAST_TILES' widths), or past them
+    the cluster kernel, whose member fits within a cluster of 4 and the
+    threads' tile budgets, its x tile in shared memory down to SPILL_BELOW
+    samples, else in device memory; TILES keeps every shape it held."""
+    for F in (8, 32, 100, 256):
         for mix in (False, True):
             fp = tfs.padded_width(F)
             if tfs.kernel_variant(D, F) == "mma":
@@ -333,15 +450,29 @@ def test_every_stack_has_a_plan_within_one_block(D):
                 continue
             path, tile = tfs.ffma_plan(D, F, mix)
             assert tfs.ffma_tiling(D, F, mix) == tile
-            wide = path == "ffma_wide"
-            assert tfs.smem_bytes(fp, tile[0], D, mix, wide) <= tfs.SMEM_LIMIT == 232448
+            wide, spill = path.startswith("ffma_cluster"), path == "ffma_cluster_spill"
+            assert tfs.smem_bytes(fp, tile[0], D, mix, wide, spill) <= tfs.SMEM_LIMIT == 232448
             fits = [tfs.smem_bytes(fp, t[0], D, mix) <= tfs.SMEM_LIMIT
                     for t in (tfs.TILES[fp], tfs.NARROW_TILE)]
-            assert path == ("ffma" if fits[0] else "ffma_narrow" if fits[1] else "ffma_wide")
-    assert tfs.ffma_plan(400, 32, False) == ("ffma_wide", tfs.NARROW_TILE)
-    assert tfs.ffma_plan(213, 32, False) == ("ffma_narrow", tfs.NARROW_TILE)
+            in_smem = tfs.wide_plan(D, F, mix) is not None
+            narrow = fits[1] and fp not in tfs.CLUSTER_PAST_TILES[mix]
+            assert path == ("ffma" if fits[0] else "ffma_narrow" if narrow else
+                            "ffma_cluster" if in_smem else "ffma_cluster_spill")
+            if wide:
+                S, C = tile
+                budget = tfs.TILE_ITEMS * tfs.CLUSTER_THREADS
+                assert C == tfs.CLUSTER == 4 and S in tfs.CLUSTER_SAMPLES
+                assert S >= tfs.SPILL_BELOW and (S == 48 or not spill)
+                assert fp // 4 * (S // 4) <= budget and fp * -(-S // C // 4) <= budget
+    assert tfs.ffma_plan(400, 32, False) == ("ffma_cluster", (48, 4))
+    assert tfs.ffma_plan(1024, 32, True) == ("ffma_cluster", (32, 4))
+    assert tfs.ffma_plan(1024, 256, True) == ("ffma_cluster", (16, 4))
+    assert tfs.ffma_plan(213, 32, False) == ("ffma_cluster", (48, 4))
+    assert tfs.ffma_plan(117, 64, False) == ("ffma_narrow", tfs.NARROW_TILE)
+    assert tfs.ffma_plan(117, 64, True) == ("ffma_cluster", (48, 4))
+    assert tfs.ffma_plan(29, 256, True) == ("ffma_narrow", tfs.NARROW_TILE)
     assert tfs.ffma_plan(2, 128, False) == ("ffma", tfs.TILES[128])
-    assert tfs.scratch_floats(16, 1024) == 2048 * 20
+    assert tfs.member_rows(1024) == 256 and tfs.member_rows(400) == 100
 
 
 def test_kernel_variant_follows_the_shape():
@@ -369,6 +500,32 @@ def test_smem_budget_covers_headline_and_wide_stacks():
     # the FFMA kernel's tiles for the widths past the tensor-core kernel
     for fp in (128, 256):
         assert tfs.smem_bytes(fp, tfs.TILES[fp][0], 3) <= tfs.SMEM_LIMIT
+    # a cluster member at the wide path's shapes: its x rows, the
+    # in-projection / head-input block, the conditioner and, for Glow, two
+    # x buffers and the mix's chunk rings, 32 or 16 samples a cluster, and
+    # the 48 of the main shapes
+    # (the weight ring: 4 slots of 4,096 floats and their 4 mbarriers; the
+    # conditioner's rows 12 floats)
+    ring = 4 * 4096 + 8
+    assert tfs.smem_bytes(32, 32, 1024, True, wide=True) == 4 * (
+        2 * 256 * 36 + 32 * 36 + 128 * 36 + 3 * 32 * 12 + ring + 2 * 16 * (256 + 36) + 32)
+    assert tfs.smem_bytes(256, 32, 400, False, wide=True) == 4 * (
+        100 * 36 + 256 * 36 + 50 * 36 + 3 * 256 * 12 + ring + 32)
+    assert tfs.smem_bytes(256, 16, 1024, True, wide=True) == 4 * (
+        2 * 256 * 20 + 256 * 20 + 128 * 20 + 3 * 256 * 12 + ring + 2 * 16 * (256 + 20) + 16)
+    # past the D whose member fits at 16 samples the x tile, the second x
+    # buffer and the s rows go to device memory, and nothing left in
+    # shared memory grows with D: 48 samples at any D
+    for F, mix, first in ((32, False, 5313), (256, False, 3649), (32, True, 1905),
+                          (256, True, 1297)):
+        assert tfs.wide_plan(first - 1, F, mix) == 16 and tfs.wide_plan(first, F, mix) is None
+        assert tfs.ffma_plan(first, F, mix) == ("ffma_cluster_spill", (48, 4))
+        fp = tfs.padded_width(F)
+        assert tfs.smem_bytes(fp, 48, first, mix, True, True) == tfs.smem_bytes(
+            fp, 48, 10 ** 6, mix, True, True) <= tfs.SMEM_LIMIT
+    assert tfs.smem_bytes(256, 48, 5000, True, wide=True, spill=True) == 4 * (
+        256 * 52 + 3 * 256 * 12 + ring + 2 * 16 * 52 + 48)
+    assert tfs.spill_floats(48, 5000, True) == (2 * 1252 + 626) * 52
 
 
 # stacks nf_tpu fuses (F <= 256, 8 MB of weights, any D) whose FFMA block at
@@ -376,7 +533,7 @@ def test_smem_budget_covers_headline_and_wide_stacks():
 # F = 32 (RealNVP, Glow) and at F = 256 with two layers
 PAST_THE_BLOCK = [("realnvp", 213, 32), ("glow", 111, 32), ("realnvp", 29, 256),
                   ("glow", 27, 256)]
-# past one block at 16 samples as well: the WIDE variant
+# past one block at 16 samples as well: the cluster kernel
 PAST_ONE_BLOCK = [("realnvp", 400, 32), ("glow", 400, 32)]
 
 
@@ -384,7 +541,9 @@ PAST_ONE_BLOCK = [("realnvp", 400, 32), ("glow", 400, 32)]
 def test_spec_matches_nf_tpu_past_the_ffma_block(name, D, F, monkeypatch):
     """Both matchers return the same spec; the port's CPU program runs
     ``fused_stack_reference`` (no launch) and agrees with nf_tpu's
-    EvalProgram within 1e-4; on the card the 16-sample tiling holds it."""
+    EvalProgram within 1e-4; on the card the 16-sample tiling holds it (at
+    F = 256), or the cluster kernel (at F = 32, and past the 16-sample
+    tiling)."""
     jmodel, var = jax_model(name, D, 2, F, seed=2, batch=32)
     tmodel = torch_model(name, D, 2, F, var)
     jspec = jfs.extract_stack_spec(jmodel.bijector, jmodel.dims)
@@ -394,7 +553,9 @@ def test_spec_matches_nf_tpu_past_the_ffma_block(name, D, F, monkeypatch):
         assert getattr(tspec, field) == getattr(jspec, field), field
     fp = tfs.padded_width(F)
     assert tfs.smem_bytes(fp, tfs.TILES[fp][0], D, name == "glow") > tfs.SMEM_LIMIT
-    assert tfs.ffma_tiling(D, F, name == "glow") == tfs.NARROW_TILE
+    assert tfs.ffma_plan(D, F, name == "glow") == (
+        ("ffma_cluster", (48, tfs.CLUSTER)) if (name, D, F) in PAST_ONE_BLOCK or F == 32
+        else ("ffma_narrow", tfs.NARROW_TILE))
 
     calls = []
     plain = tfs.fused_stack_reference
@@ -418,14 +579,14 @@ def test_spec_matches_nf_tpu_past_the_ffma_block(name, D, F, monkeypatch):
 
 def test_stack_no_tiling_holds_raises_off_the_cpu():
     """(It pinned the refusal of a D that neither FFMA tiling holds, until
-    the WIDE variant came.)  Such a D matches (as in nf_tpu), runs its plain
-    version on the CPU, and is covered on the card: the WIDE variant's plan
-    fits one block, its weights pack onto ``meta`` with no error, and no
-    launch is counted."""
+    the wide path came.)  Such a D matches (as in nf_tpu), runs its plain
+    version on the CPU, and is covered on the card: the cluster kernel's
+    member fits one block, its weights pack onto ``meta`` with no error
+    (Glow's mix transposed for it), and no launch is counted."""
     D, F = 400, 32
     assert tfs.smem_bytes(32, tfs.NARROW_TILE[0], D, False) > tfs.SMEM_LIMIT
-    assert tfs.ffma_plan(D, F, False) == ("ffma_wide", tfs.NARROW_TILE)
-    assert tfs.smem_bytes(32, tfs.NARROW_TILE[0], D, False, wide=True) <= tfs.SMEM_LIMIT
+    assert tfs.ffma_plan(D, F, False) == ("ffma_cluster", (48, tfs.CLUSTER))
+    assert tfs.smem_bytes(32, 48, D, False, wide=True) <= tfs.SMEM_LIMIT
     tmodel = torch_realnvp(D, 2, F)
     spec = tfs.extract_stack_spec(tmodel.bijector, tmodel.dims)
     assert spec is not None and tfs.kernel_variant(D, F) == "ffma"
@@ -438,7 +599,12 @@ def test_stack_no_tiling_holds_raises_off_the_cpu():
           tfs.fused_stack_reference(packed, const_ld, x, "forward")[0], 0.0)
     meta = [{k: v.to("meta") for k, v in p.items()} for p in packed]
     kw = tfs.ffma_weights(spec, meta)
-    assert kw.path == "ffma_wide" and kw.w0t.device.type == "meta"
+    assert kw.path == "ffma_cluster" and kw.w0t.device.type == "meta"
+    gspec = tfs.extract_stack_spec(torch_model("glow", D, 2, F).bijector, (D,))
+    gmeta = [{k: v.to("meta") for k, v in p.items()}
+             for p in tfs.pack_stack(torch_model("glow", D, 2, F).bijector, gspec)[0]]
+    gkw = tfs.ffma_weights(gspec, gmeta)
+    assert gkw.mix.shape == gkw.mixi.shape == (2, D, tfs.CLUSTER * tfs.member_rows(D))
     assert tfs.LAUNCHES == before
 
 
