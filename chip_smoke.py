@@ -53,8 +53,11 @@ Phases, each of which exits non-zero when it fails:
      1024, each holding its rows of the x tile in shared memory), through
      eval_program;
      ResFlow at (D, F) = (2, 512) and (16, 64), two blocks (the wide
-     kernel), fwd_ld and solve_ld through eval_program and the solve
-     through the 'exact' program's inverse; attention at (64, 256, 192)
+     kernel, csrc/fused_resflow_wide.cu), fwd_ld and solve_ld through
+     eval_program and the solve through the 'exact' program's inverse,
+     each at the plan WIDE_RESFLOW_PLANS pins (clusters of 2 reading
+     W2t's slabs from L2, 16 samples a cluster; one block holding all of
+     W2t, 8 samples), printed with the rest of the plan; attention at (64, 256, 192)
      and (64, 64, 512) (the wide kernel, past D = 128) through
      ops.attention.attention, with PyTorch's SDPA within the same, and
      GatedAttn at filters = 768 (Flow++'s image couplings at
@@ -107,7 +110,7 @@ Phases, each of which exits non-zero when it fails:
      8,380,754 parameters, an ActNorm and a PLU 1x1 conv before each
      coupling, halves 1536 wide), each:
      build_model on the card -> Trainer(seed 0).init_state on a batch of
-     uniform(0.05, 0.95) pixels -> train_steps, K = 4 Adam steps at
+     uniform(0.05, 0.95) pixels -> train_steps, K = 2 Adam steps at
      B = 1024 -> eval_program -> log_prob(1024 samples) and sample(1024),
      with the launch counters set to 0 just before and read just after
      each call (161 coupling_fwd per forward, 161 coupling_bwd per train
@@ -212,7 +215,7 @@ Phases, each of which exits non-zero when it fails:
      Trainer.init_state (161 coupling_fwd) -> the first step's gradients
      and buffers on the same weights and batch against the unrolled,
      non-rematted model (cuDNN deterministic: relative L2 within 1e-6,
-     the buffers equal, moved once) -> K = 4 Adam steps at B = 1024 (321
+     the buffers equal, moved once) -> K = 2 Adam steps at B = 1024 (321
      coupling_fwd and 161 coupling_bwd per step: every rematted coupling's
      forward runs again in the backward, the tail's once) with their peak
      memory -> eval_program -> log_prob / sample at B = 1024 (161
@@ -310,12 +313,17 @@ Phases, each of which exits non-zero when it fails:
      direction; the coupling kernels their kernels per call (counted in
      phase 3); the wide paths' entries (fused_stack_wide_*,
      fused_stack_glow_wide_*, fused_resflow_wide_*, attention_fwd_wide):
-     each shape's kernel, plain version and (attention) SDPA timed by
+     each shape's kernel (its launches in a CUDA graph, graph_ms, and
+     back to back), plain version and (attention) SDPA timed by
      CUDA events, summed per kernel with per_shape beside, launches from
-     their phase-3 run; and utils/profiling.roofline_estimate of the RealNVP 2-D
-     serving pair (forward and inverse at B = 8192, 32 couplings),
-     counted on the CPU, beside stack_work's count and the kernels' and
-     the EvalProgram's measured time on the card;
+     their phase-3 run; the ResFlow ones also each shape's plan (phase 3
+     prints beside it the plan's count of weight bytes read from L2 a
+     call, planned_l2_weight_bytes: fused_resflow.wide_weight_bytes, not
+     a measurement), and their share is against the tensor-core bound;
+     and utils/profiling.roofline_estimate of the RealNVP 2-D serving pair
+     (forward and inverse at B = 8192, 32 couplings), counted on the CPU,
+     beside stack_work's count and the kernels' and the EvalProgram's
+     measured time on the card;
  12. print {"ok": true, "device": {...}} as the last line.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -357,12 +365,12 @@ SMS = 132
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table)
 SFU_PER_SM_CLOCK = 16
 PLAIN_ITERS = 10
-EXACT_ITERS = 30  # calls per direction timed of the ResFlow 'exact' program
+EXACT_ITERS = 10  # calls per direction timed of the ResFlow 'exact' program
 # the image main paths: bench.py's image zoo at full width (bench.py:57-64),
 # each with the samples held against the same model on the CPU
 IMG_DIMS = (32, 32, 1)
 IMG_BATCH = 1024
-IMG_TRAIN_CHUNK = 4
+IMG_TRAIN_CHUNK = 2      # Adam steps a train chunk of the image tiers
 IMG_COUPLINGS = 161
 IMAGE_TIERS = [
     dict(label="realnvp-img32x1", network="realnvp", dims=IMG_DIMS, params=6_818_978,
@@ -440,11 +448,11 @@ KERNEL_SOURCES = {
                                   "nf_tpu/ops/pallas/fused_stack.py:397"),
     "fused_stack_glow_wide_inv": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
                                   "nf_tpu/ops/pallas/fused_stack.py:422"),
-    "fused_resflow_wide_fwd_ld": ("nf_tpu_torch/csrc/fused_resflow.cu",
+    "fused_resflow_wide_fwd_ld": ("nf_tpu_torch/csrc/fused_resflow_wide.cu",
                                   "nf_tpu/ops/pallas/fused_resflow.py:455"),
-    "fused_resflow_wide_solve_ld": ("nf_tpu_torch/csrc/fused_resflow.cu",
+    "fused_resflow_wide_solve_ld": ("nf_tpu_torch/csrc/fused_resflow_wide.cu",
                                     "nf_tpu/ops/pallas/fused_resflow.py:306"),
-    "fused_resflow_wide_solve": ("nf_tpu_torch/csrc/fused_resflow.cu",
+    "fused_resflow_wide_solve": ("nf_tpu_torch/csrc/fused_resflow_wide.cu",
                                  "nf_tpu/ops/pallas/fused_resflow.py:184"),
     "attention_fwd_wide": ("nf_tpu_torch/csrc/attention_wide.cu",
                            "nf_tpu/ops/pallas/attention.py:42"),
@@ -461,7 +469,9 @@ WIDE_NAMES = {"fused_stack_fwd": "fused_stack_wide_fwd", "fused_stack_inv": "fus
 TENSOR_CORE_KERNELS = {"attention_fwd", "attention_fwd_wide", "fused_resflow_fwd_ld",
                        "fused_resflow_solve_ld",
                        "fused_resflow_solve", "fused_stack_fwd", "fused_stack_inv",
-                       "fused_stack_glow_fwd", "fused_stack_glow_inv"}
+                       "fused_stack_glow_fwd", "fused_stack_glow_inv",
+                       "fused_resflow_wide_fwd_ld", "fused_resflow_wide_solve_ld",
+                       "fused_resflow_wide_solve"}
 MODELS = {"realnvp": ("fused_stack_fwd", "fused_stack_inv"),
           "glow": ("fused_stack_glow_fwd", "fused_stack_glow_inv"),
           "flow++": ("fused_flowpp_fwd", "fused_flowpp_inv"),
@@ -482,6 +492,9 @@ PAST_BLOCK_STACK_CASES = [("realnvp", 400, 2, 32), ("glow", 400, 2, 32),
                           ("realnvp", 1024, 2, 32), ("glow", 1024, 2, 32),
                           ("realnvp", 400, 2, 256), ("realnvp", 63, 2, 256)]
 WIDE_RESFLOW_CASES = [(2, 2, 512), (16, 2, 64)]
+# the plans wide_plan gives them at B = WIDE_BATCH: (cluster size, samples a
+# cluster, where W2t lives); resflow_wide_probe.py clusters chose them
+WIDE_RESFLOW_PLANS = {(2, 512): (2, 16, "streamed"), (16, 64): (1, 8, "one block")}
 WIDE_ATTN_CASES = [(64, 256, 192), (64, 64, 512)]
 WIDE_BATCH = 1000
 WIDE_ITERS = 10          # kernel launches timed per shape (plain versions: 3)
@@ -1091,7 +1104,8 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
       ResFlow past F = 256 or D = 8 (WIDE_RESFLOW_CASES): eval_program's
       forward and inverse ('unbias': fwd_ld, solve_ld) and the 'exact'
       program's inverse (the solve, then the eager chain at the solved x),
-      one launch of the wide kernel each;
+      one launch of the wide kernel each, at wide_plan's plan
+      (WIDE_RESFLOW_PLANS);
       attention past D = 128 (WIDE_ATTN_CASES): ops.attention.attention,
       one launch of the wide kernel, and GatedAttn at filters = 4 D
       (nets/gated.py, as Flow++'s image couplings call it) at the first.
@@ -1160,12 +1174,24 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
         for st in (prog.stack, exact.stack):
             check(rf.kernel_path(st.spec) == "wide" and isinstance(st.kernel, rf.WideWeights),
                   f"resflow D={D} F={F}: not on the wide kernel")
+        plan = rf.wide_plan(F, D, WIDE_BATCH, cluster=prog.stack.kernel.cluster)
+        want = WIDE_RESFLOW_PLANS[(D, F)]
+        got = (plan.cluster, plan.samples, plan.residency)
+        check(got == want and plan.smem_bytes <= rf.SMEM_LIMIT
+              and exact.stack.kernel.cluster == plan.cluster,
+              f"resflow wide D={D} F={F}: plan {got}, {plan.smem_bytes} bytes, not {want}")
         x = torch.randn(WIDE_BATCH, D, generator=g, device=device)
         probes = eval_probes("unbias", WIDE_BATCH, D, device)
+        w2 = (f"{plan.residency} ({'its slabs' if plan.cluster > 1 else 'all of it'} in shared "
+              f"memory)" if plan.w2_res else f"{plan.residency} from L2")
         print(f"resflow wide D={D} n={layers} F={F} B={WIDE_BATCH}: n_terms="
-              f"{probes[1].tolist()}, vectors in "
-              f"{'shared memory' if prog.stack.kernel.in_shared else 'device scratch'} "
-              f"({rf.wide_plan(F, D)[1]} bytes of shared memory a block)")
+              f"{probes[1].tolist()}; plan: clusters of {plan.cluster} ("
+              f"{plan.clusters(WIDE_BATCH)} of them), {plan.samples} samples a cluster, W2t {w2}, "
+              f"W1t {'staged' if plan.w1_res else 'from L2'}, W3t "
+              f"{'staged' if plan.w3_res else 'from L2'}, vectors in "
+              f"{'shared memory' if plan.vec_smem else 'device scratch'}, chunks of "
+              f"{plan.chunk} columns and {plan.kchunk} rows, {plan.smem_bytes} bytes of "
+              f"shared memory a member")
         z, ld = counted(f"resflow D={D} F={F} forward", lambda: prog.forward(x),
                         "fused_resflow_fwd_ld", rf, "wide")
         zr, ldr = rf.fused_resflow_fwd_logdet_reference(prog.stack.spec, prog.stack.packed, x,
@@ -1198,6 +1224,7 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
             else:
                 check(max(e) <= tol, f"{kname} D={D} F={F}: off by {e}")
             errs[kname] = max(errs[kname], *e)
+        planned = {}
         for direction, st, inp, pr, tr in (("forward", prog.stack, x, probes, None),
                                            ("inverse", prog.stack, zr, probes, trips_ld),
                                            ("solve", exact.stack, ze, None, trips)):
@@ -1207,12 +1234,25 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
                      rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, inp, pr),
                      "solve": lambda st=st, inp=inp:
                      rf.fused_resflow_solve_reference(st.spec, st.packed, inp)}[direction]
+            planned[WIDE_NAMES[RESFLOW_NAMES[direction]]] = rf.wide_weight_bytes(
+                plan, layers, WIDE_BATCH,
+                rf.wide_chains(plan, direction, layers, None if pr is None else pr[1], tr))
             records.append(dict(
                 name=WIDE_NAMES[RESFLOW_NAMES[direction]], shape=[WIDE_BATCH, D, F, layers],
                 call=lambda st=st, inp=inp, d=direction, pr=pr: rf.launch(st, inp, d, pr),
                 plain=plain,
                 work=resflow_work(st.spec, st.packed, WIDE_BATCH, direction,
-                                  None if pr is None else pr[1], tr)))
+                                  None if pr is None else pr[1], tr),
+                extra={"plan": {"cluster": plan.cluster, "samples": plan.samples,
+                                "clusters": plan.clusters(WIDE_BATCH),
+                                "residency": plan.residency, "w1_staged": plan.w1_res,
+                                "w3_staged": plan.w3_res, "vectors_in_smem": plan.vec_smem,
+                                "chunk": plan.chunk, "kchunk": plan.kchunk,
+                                "smem_bytes": plan.smem_bytes}}))
+        print(f"resflow wide D={D} n={layers} F={F} B={WIDE_BATCH}: the plan's count of "
+              f"weight bytes read from L2 a call (fused_resflow.wide_weight_bytes, not a "
+              f"measurement; the solves' trip counts the plain version's over the whole "
+              f"batch): planned_l2_weight_bytes={json.dumps(planned)}")
 
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     for i, (BH, L, D) in enumerate(WIDE_ATTN_CASES):
@@ -1255,8 +1295,10 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
 
 def wide_entries(records, launches, errs, sfu_per_s):
     """The kernels line's entries of the wide paths: per kernel name its
-    shapes' times (CUDA events over WIDE_ITERS launches; the plain versions
-    over 3 calls; SDPA's where one call computes the same) and works,
+    shapes' times (WIDE_ITERS launches captured in a CUDA graph, graph_ms,
+    with event_ms beside: the same launches back to back, host cost
+    included; the plain versions over 3 calls; SDPA's where one call
+    computes the same) and works,
     summed, each shape also on its own under per_shape."""
     by_name = {}
     for r in records:
@@ -1267,12 +1309,14 @@ def wide_entries(records, launches, errs, sfu_per_s):
         work = dict.fromkeys(("flop", "mac_flop", "elem", "transcendental", "bytes"), 0)
         per_shape = []
         for r in recs:
-            t = {"ms": device_ms(r["call"], WIDE_ITERS), "plain_ms": device_ms(r["plain"], 3),
-                 "library_ms": device_ms(r["library"], WIDE_ITERS) if "library" in r else None}
+            t = {"ms": graph_ms(r["call"], WIDE_ITERS), "plain_ms": device_ms(r["plain"], 3),
+                 "library_ms": device_ms(r["library"], WIDE_ITERS) if "library" in r else None,
+                 "event_ms": device_ms(r["call"], WIDE_ITERS)}
             bound, by = bound_of(r["work"], sfu_per_s)
             bound_tc, by_tc = bound_of(r["work"], sfu_per_s, tensor_cores=True)
             per_shape.append({"shape": r["shape"], **t, "bound_ms": bound, "bound_by": by,
-                              "bound_tc_ms": bound_tc, "bound_tc_by": by_tc})
+                              "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
+                              **r.get("extra", {})})
             for key in total:
                 total[key] += t[key] or 0.0
             for key in work:
@@ -1286,8 +1330,10 @@ def wide_entries(records, launches, errs, sfu_per_s):
             shape="summed over per_shape", per_shape=per_shape,
             launches_note="launches: the wide path's run through its entry points "
                           "(wide_paths), not the headline main path",
-            timing=f"ms: CUDA events over {WIDE_ITERS} back-to-back launches per shape, "
-                   "summed; plain_ms 3 calls"))
+            timing=f"ms: {WIDE_ITERS} launches per shape captured in one CUDA graph and "
+                   "replayed between CUDA events (graph_ms: no host cost), summed; per_shape's "
+                   "event_ms the same launches back to back (host cost included where it "
+                   "exceeds the kernel's); plain_ms 3 calls"))
     return entries
 
 
@@ -2929,7 +2975,7 @@ def scan_remat_main_path(tier, device, counters, launches_of, cfg_kw=None, tag="
 
 def scan_timing(img, unrolled, smi, tc):
     """A phase 9 training's rates beside the unrolled tier's of this run:
-    ms per Adam step from the main path's K = 4 steps (timed there, after
+    ms per Adam step from the main path's K = 2 steps (timed there, after
     init_state warmed the forward), one more call per direction (the main
     path warmed both), and one profiled step's device idle share (CUDA
     activity alone); prints its main_path line."""

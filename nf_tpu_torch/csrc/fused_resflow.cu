@@ -88,7 +88,7 @@
 //    reads, so the ring needs no barrier.
 //  * Widths: FP in {16, 32, 64, 128, 256} and DP in {2, 4, 8}, zero-padded on
 //    the host: padded features and dimensions stay exactly 0.  Wider stacks
-//    run fused_resflow_wide_kernel (further down).
+//    run fused_resflow_wide_kernel (csrc/fused_resflow_wide.cu).
 //  * Numerics: accurate expf and IEEE division, no fast math.
 //  * On an H100 (chip_smoke.py, B = 8192, n = 32, F = 32, D = 2) fwd_ld
 //    takes 0.46 ms and solve_ld 0.62 ms (the FFMA design before this one:
@@ -919,284 +919,6 @@ cudaError_t dispatch(const Params& prm, int fp, int dp, int variant, cudaStream_
   return cudaErrorInvalidValue;
 }
 
-// ---- past F = 256 or D = 8: the wide kernel, F and D at run time
-//
-// fused_resflow_wide_kernel<SOLVE, LOGDET> computes what the three variants
-// above compute (solve, solve_ld, fwd_ld), for every F and D that
-// nf_tpu's extract_resflow_spec matches (it has no width or dimension
-// limit); the templates above stay what runs at F <= 256 and D <= 8.
-//  * Bound (H100 SXM): the same work per sample as above, D F + F^2 + F D
-//    multiply-adds per g evaluation and per J^T product; at (D, F) =
-//    (2, 512) and (16, 64) operations bound it.  Its weights, 2 F^2 + 4 F D
-//    floats a residual block (2 MB at F = 512), no longer fit a block's
-//    shared memory, and neither do the tile's h1 / d1 / d2 at wide F or the
-//    probes' D-wide vectors at wide D: shared memory is the wall.
-//  * Design, simple first: FFMA throughout, F and D runtime sizes (one
-//    instance per variant, not one per width), blocks of kWideSamples = 8
-//    samples and 256 threads that walk the n residual blocks together.
-//    Every product is a matrix-vector product over the tile, out[o][s] =
-//    sum_i M[i][o] in[i][s] (matvec): a thread owns output o for all 8
-//    samples, reads M's row i coalesced across threads straight from device
-//    memory (L2 holds a residual block's weights), and where O is narrower
-//    than the block the threads split the inputs too and add their partial
-//    sums through shared memory in a fixed order.  Each product has its own
-//    input-major copy of its matrix (wide_weights in fused_resflow.py:
-//    W1t, W2t, W3t for g, their transposes for J^T = W1 D1 W2 D2 W3).
-//  * The tile's vectors (x, z, g, a probe and its J^T iterate: D x 8 each;
-//    h1, d1, h2, d2: F x 8 each; the series) live in shared memory when
-//    they fit beside the 8 KB reduction buffer, else in device scratch the
-//    wrapper allocates per block (L2-resident at these sizes): the same
-//    code through generic pointers, one barrier after each product.
-//  * The probes run one after another, each its own series of up to
-//    n_terms[s] terms (three products each), summed in its own order; the
-//    block's four series are added in probe order, as nf_tpu does.
-//  * Stopping is per tile of 8 samples, by __syncthreads_or over its valid
-//    samples: it stops only where max|x - prev| < ftol, as above.
-//  * Accurate expf and IEEE division (the series kernels' LipSwish).
-
-constexpr int kWideSamples = 8;      // samples per block
-constexpr int kWideThreads = 256;    // threads per block
-constexpr int kWideRed = kWideThreads * kWideSamples;  // the reduction buffer's floats
-constexpr size_t kWideSmemLimit = 232448;  // dynamic shared memory of one block
-static_assert(kWideThreads / 32 == kWideSamples, "a warp sums each sample's dot products");
-
-// one residual block's wide weight block; fused_resflow.py::WideLayout mirrors it
-struct WideLayout {
-  long long g1, b1, g2, b2, g3, b3, an_s, an_b, beta, j3, j2, j1, size;
-  __host__ __device__ WideLayout(int F, int D) {
-    g1 = 0;                              // [D][F]  W1t^T: g's first layer, input-major
-    b1 = g1 + (long long)D * F;          // [F]
-    g2 = b1 + F;                         // [F][F]  W2t^T
-    b2 = g2 + (long long)F * F;          // [F]
-    g3 = b2 + F;                         // [F][D]  W3t^T
-    b3 = g3 + (long long)F * D;          // [D]
-    an_s = b3 + D;                       // [D]
-    an_b = an_s + D;                     // [D]
-    beta = an_b + D;                     // [2]
-    j3 = beta + 2;                       // [D][F]  W3t: t = W3 w, input-major
-    j2 = j3 + (long long)D * F;          // [F][F]  W2t: u = W2 t
-    j1 = j2 + (long long)F * F;          // [F][D]  W1t: w = W1 u
-    size = j1 + (long long)F * D;
-  }
-};
-
-// floats of one block's vectors; fused_resflow.py::wide_scratch_floats mirrors it
-__host__ __device__ inline long long wide_scratch_floats(int F, int D) {
-  return (long long)kWideSamples * (5LL * D + 4LL * F + kProbes + 1);
-}
-
-struct WideParams {
-  const float* x;      // (B, D) input
-  float* y;            // (B, D) output
-  float* ld;           // (B,) log-det (LOGDET)
-  const float* w;      // (n, WideLayout::size) per-block weight blocks
-  const float* v;      // (S, B, D) probes (LOGDET)
-  float* scratch;      // (blocks, wide_scratch_floats) or nullptr: the vectors in shared memory
-  int n_terms[kProbes];
-  float coef[kMaxTerms + 1];
-  int B, n, D, F, n_iters;
-  float ftol, ld_sign, ld_const;
-};
-
-// out[o][s] = sum_i M[i * O + o] in[i * kWideSamples + s] for o < O and the
-// tile's samples s, handed to store(o, s, value).  A thread owns output o
-// for all samples; where O < kWideThreads / 2 the P = kWideThreads / O
-// threads of an output split i (i = p mod P) and add their partials through
-// red in p order.  Ends with a barrier: the outputs are visible to all.
-template <class Store>
-__device__ __forceinline__ void matvec(const float* __restrict__ M, int I, int O,
-                                       const float* in, float* red, Store&& store) {
-  constexpr int S = kWideSamples;
-  const int tid = threadIdx.x;
-  const int P = O >= kWideThreads / 2 ? 1 : kWideThreads / O;
-  auto accumulate = [&](int o, int i0, int step, float (&acc)[S]) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) acc[s] = 0.f;
-    for (int i = i0; i < I; i += step) {
-      const float m = M[(size_t)i * O + o];
-      const float4 a = *reinterpret_cast<const float4*>(in + (size_t)i * S);
-      const float4 b = *reinterpret_cast<const float4*>(in + (size_t)i * S + 4);
-      acc[0] = fmaf(m, a.x, acc[0]);
-      acc[1] = fmaf(m, a.y, acc[1]);
-      acc[2] = fmaf(m, a.z, acc[2]);
-      acc[3] = fmaf(m, a.w, acc[3]);
-      acc[4] = fmaf(m, b.x, acc[4]);
-      acc[5] = fmaf(m, b.y, acc[5]);
-      acc[6] = fmaf(m, b.z, acc[6]);
-      acc[7] = fmaf(m, b.w, acc[7]);
-    }
-  };
-  if (P == 1) {
-    for (int o = tid; o < O; o += kWideThreads) {
-      float acc[S];
-      accumulate(o, 0, 1, acc);
-#pragma unroll
-      for (int s = 0; s < S; ++s) store(o, s, acc[s]);
-    }
-  } else {
-    if (tid < P * O) {
-      float acc[S];
-      accumulate(tid % O, tid / O, P, acc);
-#pragma unroll
-      for (int s = 0; s < S; ++s) red[tid * S + s] = acc[s];
-    }
-    __syncthreads();
-    for (int o = tid; o < O; o += kWideThreads) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        float a = red[o * S + s];
-        for (int p = 1; p < P; ++p) a += red[(p * O + o) * S + s];
-        store(o, s, a);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-template <bool SOLVE, bool LOGDET>
-__global__ void __launch_bounds__(kWideThreads) fused_resflow_wide_kernel(const WideParams prm) {
-  constexpr int S = kWideSamples;
-  extern __shared__ __align__(16) float smem[];
-  const int D = prm.D, F = prm.F, tid = threadIdx.x;
-  const WideLayout lay(F, D);
-  float* red = smem;
-  float* X = prm.scratch != nullptr
-                 ? prm.scratch + (size_t)blockIdx.x * wide_scratch_floats(F, D)
-                 : smem + kWideRed;
-  float* Z = X + D * S;     // [D][S] each: z (the solve), g(x), a probe, its iterate
-  float* G = Z + D * S;
-  float* V = G + D * S;
-  float* Wv = V + D * S;
-  float* H1 = Wv + D * S;   // [F][S] each: h1 (then the series' t), d1, h2 (then u), d2
-  float* D1 = H1 + F * S;
-  float* H2 = D1 + F * S;
-  float* D2 = H2 + F * S;
-  float* ser = D2 + F * S;  // [kProbes][S]
-  float* acc = ser + kProbes * S;  // [S]
-  const int sample0 = blockIdx.x * S;
-  auto valid = [&](int s) { return sample0 + s < prm.B; };
-
-  for (int i = tid; i < D * S; i += kWideThreads) {
-    const int d = i / S, s = i - d * S;
-    X[i] = valid(s) ? prm.x[(size_t)(sample0 + s) * D + d] : 0.f;
-  }
-  for (int s = tid; s < S; s += kWideThreads) acc[s] = 0.f;
-  __syncthreads();
-
-  for (int step = 0; step < prm.n; ++step) {
-    const float* wb = prm.w + (size_t)(SOLVE ? prm.n - 1 - step : step) * lay.size;
-    const float beta_a = wb[lay.beta], beta_b = wb[lay.beta + 1];
-    // g at `in`: h1 and h2 (d1 and d2 with MASKS), then g into G with NEED_G
-    auto evaluate = [&](const float* in, auto masks, auto need_g) {
-      constexpr bool MASKS = decltype(masks)::value, NEED_G = decltype(need_g)::value;
-      matvec(wb + lay.g1, D, F, in, red, [&](int f, int s, float a) {
-        float h, dd;
-        lipswish(a + wb[lay.b1 + f], beta_a, h, dd);
-        H1[f * S + s] = h;
-        if (MASKS) D1[f * S + s] = dd;
-      });
-      matvec(wb + lay.g2, F, F, H1, red, [&](int o, int s, float a) {
-        float h, dd;
-        lipswish(a + wb[lay.b2 + o], beta_b, h, dd);
-        H2[o * S + s] = h;
-        if (MASKS) D2[o * S + s] = dd;
-      });
-      if (NEED_G)
-        matvec(wb + lay.g3, F, D, H2, red,
-               [&](int d, int s, float a) { G[d * S + s] = a + wb[lay.b3 + d]; });
-    };
-    if (SOLVE) {
-      for (int i = tid; i < D * S; i += kWideThreads) Z[i] = X[i];
-      __syncthreads();
-      int it = 0;
-      bool moving;
-      do {
-        evaluate(X, std::false_type{}, std::true_type{});
-        moving = false;
-        for (int i = tid; i < D * S; i += kWideThreads) {
-          const float x_new = Z[i] - G[i];
-          moving |= valid(i % S) && fabsf(x_new - X[i]) >= prm.ftol;
-          X[i] = x_new;
-        }
-        ++it;
-      } while (it < prm.n_iters && __syncthreads_or(moving));
-      __syncthreads();
-      if (LOGDET) evaluate(X, std::true_type{}, std::false_type{});  // the masks at the solved x
-    } else {
-      for (int i = tid; i < D * S; i += kWideThreads) {
-        const int d = i / S;
-        X[i] = (X[i] - wb[lay.an_b + d]) * expf(-wb[lay.an_s + d]);
-      }
-      __syncthreads();
-      evaluate(X, std::true_type{}, std::true_type{});
-    }
-
-    if (LOGDET) {
-      const int warp = tid >> 5, lane = tid & 31;  // warp w sums sample w's dot products
-      for (int p = 0; p < kProbes; ++p) {
-        for (int i = tid; i < D * S; i += kWideThreads) {
-          const int d = i / S, s = i - d * S;
-          const float vv = valid(s) ? prm.v[((size_t)p * prm.B + sample0 + s) * D + d] : 0.f;
-          V[i] = vv;
-          Wv[i] = vv;
-        }
-        for (int s = tid; s < S; s += kWideThreads) ser[p * S + s] = 0.f;
-        __syncthreads();
-        for (int k = 1; k <= prm.n_terms[p]; ++k) {
-          matvec(wb + lay.j3, D, F, Wv, red,
-                 [&](int f, int s, float a) { H1[f * S + s] = a * D2[f * S + s]; });
-          matvec(wb + lay.j2, F, F, H1, red,
-                 [&](int o, int s, float a) { H2[o * S + s] = a * D1[o * S + s]; });
-          matvec(wb + lay.j1, F, D, H2, red, [&](int d, int s, float a) { Wv[d * S + s] = a; });
-          float dot = 0.f;
-          for (int d = lane; d < D; d += 32) dot = fmaf(Wv[d * S + warp], V[d * S + warp], dot);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
-          if (lane == 0) ser[p * S + warp] = fmaf(prm.coef[k], dot, ser[p * S + warp]);
-        }
-        __syncthreads();
-      }
-      for (int s = tid; s < S; s += kWideThreads)
-        acc[s] += (ser[s] + ser[S + s] + ser[2 * S + s] + ser[3 * S + s]) * 0.25f;
-    }
-    for (int i = tid; i < D * S; i += kWideThreads) {
-      const int d = i / S;
-      X[i] = SOLVE ? X[i] * expf(wb[lay.an_s + d]) + wb[lay.an_b + d] : X[i] + G[i];
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < D * S; i += kWideThreads) {
-    const int d = i / S, s = i - d * S;
-    if (valid(s)) prm.y[(size_t)(sample0 + s) * D + d] = X[i];
-  }
-  if (LOGDET)
-    for (int s = tid; s < S; s += kWideThreads)
-      if (valid(s)) prm.ld[sample0 + s] = prm.ld_sign * acc[s] + prm.ld_const;
-}
-
-// shared bytes of one wide block: the reduction buffer, and the vectors
-// unless they are in device scratch; fused_resflow.py::wide_smem_bytes mirrors it
-inline size_t wide_smem_bytes(int F, int D, bool in_shared) {
-  return sizeof(float) * (kWideRed + (in_shared ? wide_scratch_floats(F, D) : 0));
-}
-
-template <bool SOLVE, bool LOGDET>
-cudaError_t launch_wide(const WideParams& prm, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes(prm.F, prm.D, prm.scratch == nullptr);
-  if (smem > kWideSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = fused_resflow_wide_kernel<SOLVE, LOGDET>;
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
-  }
-  kernel<<<(prm.B + kWideSamples - 1) / kWideSamples, kWideThreads, smem, stream>>>(prm);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry point: launches one variant (0 solve, 1 solve_ld, 2 fwd_ld)
@@ -1263,40 +985,4 @@ extern "C" int nf_fused_resflow_solve(const void* x, void* y, const void* w, int
 extern "C" int nf_fused_resflow_solve_blocks_per_sm(int fp, int dp, int* blocks_per_sm) {
   if (blocks_per_sm == nullptr) return (int)cudaErrorInvalidValue;
   return (int)dispatch_solve(SolveParams{}, fp, dp, nullptr, blocks_per_sm);
-}
-
-// Plain C entry point of the wide kernel (any F, D): one variant (0 solve,
-// 1 solve_ld, 2 fwd_ld) on `stream`, returning the cudaError_t of the
-// launch.  w holds fused_resflow.py::wide_weights' blocks; scratch is
-// nullptr (the tile's vectors in shared memory) or ceil(B / 8) blocks of
-// wide_scratch_floats(F, D) floats of device memory; n_terms (LOGDET) the
-// host array of the 4 probes' series lengths.
-extern "C" int nf_fused_resflow_wide(const void* x, void* y, void* ld, const void* w,
-                                     const void* v, const int* n_terms, void* scratch, int B,
-                                     int n, int D, int F, int n_iters, float ftol, int variant,
-                                     float ld_sign, float ld_const, void* stream) {
-  if (B < 1 || D < 1 || F < 1 || n < 1 || n_iters < 1 || variant < 0 || variant > 2)
-    return (int)cudaErrorInvalidValue;
-  const bool logdet = variant != 0;
-  if (logdet && (v == nullptr || ld == nullptr || n_terms == nullptr))
-    return (int)cudaErrorInvalidValue;
-  WideParams prm{static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(ld),
-                 static_cast<const float*>(w), static_cast<const float*>(v),
-                 static_cast<float*>(scratch), {1, 1, 1, 1}, {}, B, n, D, F, n_iters, ftol,
-                 ld_sign, ld_const};
-  for (int k = 1; k <= kMaxTerms; ++k)
-    prm.coef[k] = ((k & 1) ? 1.f : -1.f) * ldexpf(1.f, k - kNExact - 1 > 0 ? k - kNExact - 1 : 0) /
-                  (float)k;
-  if (logdet) {
-    for (int s = 0; s < kProbes; ++s) {
-      if (n_terms[s] < 1 || n_terms[s] > kMaxTerms) return (int)cudaErrorInvalidValue;
-      prm.n_terms[s] = n_terms[s];
-    }
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0: return (int)launch_wide<true, false>(prm, st);
-    case 1: return (int)launch_wide<true, true>(prm, st);
-    default: return (int)launch_wide<false, true>(prm, st);
-  }
 }

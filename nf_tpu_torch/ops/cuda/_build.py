@@ -25,7 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "nf_tpu_torch"
 SOURCES = ("fused_stack", "fused_stack_wide", "fused_stack_mma", "fused_flowpp",
-           "fused_resflow", "coupling", "attention", "attention_wide", "mixlogcdf")
+           "fused_resflow", "fused_resflow_wide", "coupling", "attention", "attention_wide",
+           "mixlogcdf")
 # No fast math (--use_fast_math, -ftz=true): the Flow++ Newton guards with
 # TINY = 1e-38, an f32 subnormal that flush-to-zero turns into 0, and with
 # an isfinite test that fast math may drop.

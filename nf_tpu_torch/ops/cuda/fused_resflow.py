@@ -36,10 +36,15 @@ Host side, once per stack:
   split for 3xTF32 and laid out in mma fragment order).  These tilings
   cover F <= 256 and D <= 8; from F = 128 they stream the fragments
   instead of staging them.  Past either limit the wide kernel
-  (``fused_resflow_wide_kernel``, F and D at run time, FFMA, 8 samples a
-  block) runs the stack from ``wide_weights``' layout, its tile's vectors
-  in shared memory or device scratch (``wide_plan``): every matched spec
-  has a kernel (``covers``, ``kernel_path``).
+  (``csrc/fused_resflow_wide.cu``, F and D at run time) runs the stack
+  from ``wide_weights``' layout: thread block clusters of 1-8 members,
+  member m holding rows [m F / C, ...) of W2t in shared memory for the
+  residual block's whole walk (read from L2 past the F whose slabs no
+  cluster holds), the D-wide partials crossing members through
+  distributed shared memory; every product J w and g on the same three
+  matrices, W2t's on the tensor cores in 3xTF32; the four probes side by
+  side; ``wide_plan`` picks the cluster, the samples a cluster and what is
+  resident.  Every matched spec has a kernel (``covers``, ``kernel_path``).
 
 The probes are arguments (``ops/estimators.py``): V (S, B, D) and the
 series lengths n_terms (S,).  ``fused_resflow`` is the wrapper: for CPU
@@ -51,9 +56,9 @@ raises, and counts the launch in ``LAUNCHES`` (and by kernel in
 
 Stopping: the plain versions stop the fixed point on the whole batch, as
 the chain does; the series kernels stop per block, a tile of ``SAMPLES``
-samples, and the solve kernel per warp of 8.  All stop only where
-max|x - prev| < ftol, so they agree within the fixed point's tolerance,
-not bitwise.
+samples, the solve kernel per warp of 8 and the wide kernel per cluster
+(``WidePlan.samples``).  All stop only where max|x - prev| < ftol, so they
+agree within the fixed point's tolerance, not bitwise.
 
 Bound (H100 SXM): per sample and block one g evaluation is D F + F^2 + F D
 multiply-adds (1,152 at D = 2, F = 32), and each live series term one
@@ -67,6 +72,8 @@ far above the weights' and the data's bytes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from collections import Counter
 from dataclasses import dataclass
 from typing import List, Optional
@@ -508,76 +515,316 @@ def kernel_weights(spec: ResFlowSpec, packed) -> KernelWeights:
     return KernelWeights(fp=fp, dp=dp, w=w)
 
 
-# the wide kernel (``fused_resflow_wide_kernel``): F and D at run time
-WIDE_SAMPLES = 8      # samples per block
-WIDE_THREADS = 256    # threads per block
-WIDE_RED = WIDE_THREADS * WIDE_SAMPLES   # the reduction buffer's floats
+# the wide kernel (``csrc/fused_resflow_wide.cu``): F and D at run time,
+# thread block clusters of CLUSTER_SIZES members, each S samples a cluster
+WIDE_WARPS = 16         # warps per block (one cluster member)
+CLUSTER_SIZES = (1, 2, 4, 8)  # the kernel's; the planner's own choice is 1 or 2
+# clusters the card holds at once, one block an SM (cudaOccupancyMaxActiveClusters
+# at the wide kernel's shared memory, resflow_wide_probe.py occupancy: NVIDIA
+# H100 80GB HBM3, 700.00 W)
+ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+MAX_SAMPLES = 128       # samples a cluster, at most
+STREAMED_SAMPLES = 16384  # ... where W2t is read from L2: this over F, 16 to 32
+SCRATCH_SAMPLES = 32    # ... where the vectors are in device scratch
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _r4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def wide_geometry(F: int, D: int, C: int, S: int, Nc: int, Kc: int, w2_res: bool,
+                  w1_res: bool, w3_res: bool, vec_smem: bool, part_smem: bool) -> dict:
+    """Sizes and offsets (floats) of the wide kernel's weight block, shared
+    memory and device scratch; the kernel's ``WideGeom`` computes the same.
+    Weight block (``wide_weights``): b1 [FP], b2 [FP], b3, an_s, an_b [DP16],
+    beta [2] (to a multiple of 4), W1t [FP][D] row-major, then W2t (FP x FP)
+    and W3t (DP16 x FP) in A-fragment order (``wide_fragments``).  Shared:
+    an mbarrier (4 floats), the resident weights (W2t slab Fs x FP, W1t,
+    W3t's Fs columns), the partials [2][D][4 S] and the vectors where they
+    are in shared memory; scratch (per block) the rest."""
+    FP = _round_up(F, 16 * C)
+    Fs, DP16 = FP // C, _round_up(D, 16)
+    cols = N_SAMPLES * S
+    nbuf = 2 if Kc < FP else 1
+    g = {"FP": FP, "Fs": Fs, "DP16": DP16, "cols": cols, "nbuf": nbuf}
+    at = 0
+    for name, n in (("b1", FP), ("b2", FP), ("b3", DP16), ("an_s", DP16), ("an_b", DP16),
+                    ("beta", 2)):
+        g["o_" + name] = at
+        at += n
+    at = _r4(at)
+    for name, n in (("w1", _r4(FP * D)), ("w2", FP * FP), ("w3", DP16 * FP)):
+        g["o_" + name] = at
+        at += n
+    g["size"] = at
+    smem, scratch = 4, 0
+    for name, n, res in (("w2", Fs * FP, w2_res), ("w1", _r4(FP * D), w1_res),
+                         ("w3", DP16 * Fs, w3_res)):
+        g["s_" + name] = smem
+        smem += n if res else 0
+    g["staged"] = smem - 4
+    part = _r4(2 * D * cols)
+    if part_smem:
+        g["part_at"], smem = smem, smem + part
+    else:
+        g["part_at"], scratch = scratch, scratch + part
+    at = 0
+    for name, n in (("X", D * S), ("Z", D * S), ("G", D * S), ("W", D * cols),
+                    ("V", D * cols), ("d1", FP * S), ("d2", Fs * S), ("a", nbuf * Kc * Nc),
+                    ("c", Fs * Nc), ("ser", N_SAMPLES * S), ("acc", S)):
+        g["v_" + name] = at
+        at += _r4(n)
+    g["vec_floats"] = at
+    if vec_smem:
+        g["vec_at"], smem = smem, smem + at
+    else:
+        g["vec_at"], scratch = scratch, scratch + at
+    g["smem_floats"], g["scratch_floats"] = smem, scratch
+    return g
 
 
 @dataclass(frozen=True)
-class WideLayout:
-    """Offsets (floats) inside one residual block's wide weight block; the
-    kernel's ``WideLayout`` computes the same.  Each product's matrix
-    input-major, unpadded: g1 [D][F] (W1t^T), b1 [F], g2 [F][F] (W2t^T),
-    b2 [F], g3 [F][D] (W3t^T), b3 [D], an_s [D], an_b [D], beta [2], then
-    J^T's j3 [D][F] (W3t), j2 [F][F] (W2t), j1 [F][D] (W1t)."""
+class WidePlan:
+    """One launch of the wide kernel: clusters of ``cluster`` blocks, each
+    ``samples`` samples; stage A in k-chunks of ``kchunk`` rows, columns in
+    chunks of ``chunk``; which weights are staged into shared memory
+    (``w2_res``: member m's rows of W2t, the slab), whether the vectors and
+    the partials are in shared memory or device scratch."""
     f: int
     d: int
+    cluster: int
+    samples: int
+    chunk: int
+    kchunk: int
+    w2_res: bool
+    w1_res: bool
+    w3_res: bool
+    vec_smem: bool
+    part_smem: bool
 
-    def offsets(self):
-        f, d = self.f, self.d
-        sizes = (("g1", d * f), ("b1", f), ("g2", f * f), ("b2", f), ("g3", f * d),
-                 ("b3", d), ("an_s", d), ("an_b", d), ("beta", 2), ("j3", d * f),
-                 ("j2", f * f), ("j1", f * d))
-        out, at = {}, 0
-        for name, n in sizes:
-            out[name] = at
-            at += n
-        out["size"] = at
-        return out
+    @functools.cached_property
+    def _geometry(self) -> dict:
+        return wide_geometry(self.f, self.d, self.cluster, self.samples, self.chunk,
+                             self.kchunk, self.w2_res, self.w1_res, self.w3_res,
+                             self.vec_smem, self.part_smem)
+
+    def geometry(self) -> dict:
+        """``wide_geometry`` of the plan, computed once a plan (read only)."""
+        return self._geometry
 
     @property
-    def size(self) -> int:
-        return self.offsets()["size"]
+    def smem_bytes(self) -> int:
+        return 4 * self._geometry["smem_floats"]
+
+    @property
+    def scratch_floats(self) -> int:
+        return self._geometry["scratch_floats"]
+
+    @property
+    def residency(self) -> str:
+        """'one block' (C = 1, W2t resident), 'cluster' (its slabs
+        resident), 'streamed' (read from L2 for every product)."""
+        if not self.w2_res:
+            return "streamed"
+        return "one block" if self.cluster == 1 else "cluster"
+
+    def clusters(self, B: int) -> int:
+        return -(-B // self.samples)
+
+    def args(self) -> List[int]:
+        """The kernel's plan array: C, S, Nc, Kc and the five flags."""
+        return [self.cluster, self.samples, self.chunk, self.kchunk, int(self.w2_res),
+                int(self.w1_res), int(self.w3_res), int(self.vec_smem), int(self.part_smem)]
+
+    @functools.cached_property
+    def c_args(self):
+        """``args`` as the C int array the launch passes, built once a plan."""
+        return (ctypes.c_int * 9)(*self.args())
 
 
-def wide_scratch_floats(f: int, d: int) -> int:
-    """Floats of one wide block's vectors: x, z, g, a probe and its J^T
-    iterate (D each), h1, d1, h2, d2 (F each) per sample, the four series
-    and the log-det per sample."""
-    return WIDE_SAMPLES * (5 * d + 4 * f + N_SAMPLES + 1)
+def _fits(g: dict) -> bool:
+    return 4 * g["smem_floats"] <= SMEM_LIMIT
 
 
-def wide_plan(f: int, d: int):
-    """(vectors in shared memory?, dynamic shared bytes of one block): the
-    vectors go beside the reduction buffer while the block fits
-    ``SMEM_LIMIT``, else to device scratch and the block holds the buffer
-    alone."""
-    shared = 4 * (WIDE_RED + wide_scratch_floats(f, d))
-    return (True, shared) if shared <= SMEM_LIMIT else (False, 4 * WIDE_RED)
+def _least(F: int, D: int, C: int, w2_res: bool, vec_smem: bool) -> dict:
+    """The geometry of the least plan: 8 samples, chunks of 32, W2t's slab
+    staged with W1t and W3t (``w2_res``) or nothing staged, the partials
+    in shared memory where the vectors are or the cluster exchanges them."""
+    return wide_geometry(F, D, C, 8, 32, 16, w2_res, w2_res, w2_res, vec_smem,
+                         vec_smem or C > 1)
+
+
+def wide_cluster(F: int, D: int) -> int:
+    """The cluster size of a (D, F) stack (it fixes the weights' padding):
+    1 up to F = 256, 2 past it where two members' partials fit, else 1.
+    Measured (resflow_wide_probe.py clusters; NVIDIA H100 80GB HBM3,
+    700.00 W): every member runs
+    stage A over all F rows and a cluster of C members holds its samples
+    on C SMs, so 8 members holding W2t's slabs resident ran (2, 512) at
+    B = 1,000 2.3x slower than 2 members reading theirs from L2 (the
+    slabs' 3.1 GB a call at 2.2 TB/s), and (63, 256) 2x slower on 2
+    members than on 1."""
+    if F > 256 and _fits(_least(F, D, 2, False, False)):
+        return 2
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(F: int, D: int, B: int, cluster: Optional[int] = None,
+              samples: Optional[int] = None) -> WidePlan:
+    """The launch plan of a (D, F) stack at batch B.  W2t's slabs staged
+    where they fit beside the vectors; the vectors in shared memory before
+    W2t's slabs (the generic path that either leaves out is the slower),
+    device scratch last (SCRATCH_SAMPLES).  Samples a cluster: as many as
+    put the batch on the card in one wave (ACTIVE_CLUSTERS), at most
+    MAX_SAMPLES (with W2t read from L2 at most STREAMED_SAMPLES / F, 16 to
+    32: the best of 8-64 at (2, 512), (2, 1,024) and (63, 256), B = 8,192,
+    on an NVIDIA H100 80GB HBM3 at 700.00 W), fewer where shared memory
+    runs out.  First with stage A's k-chunks of at
+    least 64 rows (or all F) and column chunks that, split over k, give
+    every warp work (or hold all 4 S columns), then with any; the widest
+    column chunks first (each chunk reads W2t once), then the longest
+    k-chunks; W1t and W3t staged (they are read at every product) before
+    more samples.
+    ``cluster`` and ``samples`` override (the planner's probe,
+    resflow_wide_probe.py clusters): ``wide_cluster`` picks 1 or 2 members,
+    so clusters of 4 and 8 are reached only through ``cluster``."""
+    C = cluster or wide_cluster(F, D)
+    FP = _round_up(F, 16 * C)
+    kcs = [FP] + [k for k in (1024, 512, 256, 128, 64, 32, 16) if k < FP]
+    mts = FP // C // 16
+    fill = max(8, _round_up(-(-B // ACTIVE_CLUSTERS[C]), 8))
+    for w2, vec_smem in ((True, True), (False, True), (True, False), (False, False)):
+        if not _fits(_least(F, D, C, w2, vec_smem)):
+            continue
+        part_smem = vec_smem or C > 1
+        cap = MAX_SAMPLES if w2 else max(16, min(32, STREAMED_SAMPLES // F // 8 * 8))
+        top = samples or min(fill, cap if vec_smem else SCRATCH_SAMPLES)
+        for strict in (True, False):
+            # a resident slab comes with W1t and W3t staged (the kernel's
+            # instance that reads all three from shared memory)
+            for w1, w3 in ((True, True),) if w2 else ((True, True), (True, False),
+                                                       (False, True), (False, False)):
+                for S in ([samples] if samples else range(top, 7, -8)):
+                    ncs = [n for n in sorted({4 * S, 256, 128, 64, 32}, reverse=True)
+                           if n <= 4 * S and (w2 or n % 64 == 0 or n == 32)]
+                    for Nc in ncs:
+                        for Kc in kcs:
+                            nw = 8 if not w2 and Nc >= 64 else 4
+                            units = mts * -(-Nc // (8 * nw))
+                            if units > WIDE_WARPS and Nc > 8 * nw:
+                                continue
+                            full = units * 4 >= WIDE_WARPS or Nc == 4 * S
+                            if strict and (Kc < min(FP, 64) or not full):
+                                continue
+                            plan = WidePlan(F, D, C, S, Nc, Kc, w2, w1, w3, vec_smem, part_smem)
+                            if _fits(plan.geometry()):
+                                return plan
+    raise ValueError(f"fused_resflow: no wide plan for D={D} F={F} C={C} S={samples}")
+
+
+def series_order(n_terms) -> List[int]:
+    """The probes by series length, longest first, ties by index: the wide
+    kernel's columns q S + s are the q-th of these, so the live ones are a
+    prefix; its WideParams::order."""
+    nt = [int(n) for n in n_terms]
+    return sorted(range(len(nt)), key=lambda s: (-nt[s], s))
+
+
+def wide_fragments(mat: torch.Tensor, k_major: bool) -> torch.Tensor:
+    """(n, M, K) matrices, M and K multiples of 16 and 8 -> (n, M K): the
+    wide kernel's A fragments in f32 (lane l, register r of m-tile mt and
+    k-step ks, as ``fragment_index`` places them), m-tile major
+    [M/16][K/8][32][4], or k-step major [K/8][M/16][32][4]."""
+    n, M, K = mat.shape
+    mt = torch.arange(M // 16)[:, None, None, None]
+    ks = torch.arange(K // 8)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    r = torch.arange(4)[None, None, None, :]
+    rows = (16 * mt + lane // 4 + 8 * (r % 2)).expand(M // 16, K // 8, 32, 4)
+    cols = (8 * ks + lane % 4 + 4 * (r // 2)).expand(M // 16, K // 8, 32, 4)
+    frag = mat[:, rows, cols]
+    if k_major:
+        frag = frag.transpose(1, 2)
+    return frag.reshape(n, -1)
 
 
 @dataclass(frozen=True)
 class WideWeights:
     f: int
     d: int
-    w: torch.Tensor    # (n, WideLayout.size)
-    in_shared: bool    # wide_plan's choice
+    cluster: int       # wide_cluster's: the padding FP = F rounded up to 16 C
+    w: torch.Tensor    # (n, wide_geometry()["size"])
 
 
 @torch.no_grad()
-def wide_weights(spec: ResFlowSpec, packed) -> WideWeights:
+def wide_weights(spec: ResFlowSpec, packed, cluster: Optional[int] = None) -> WideWeights:
     n, D, F = spec.n_repeats, spec.dim, spec.filters
-    off = WideLayout(F, D).offsets()
-    w = torch.empty(n, off["size"], dtype=torch.float32, device=packed["w2t"].device)
-    parts = {"g1": packed["w1"], "b1": packed["b1"][:, :, 0], "g2": packed["w2"],
-             "b2": packed["b2"][:, :, 0], "g3": packed["w3"], "b3": packed["b3"][:, :, 0],
-             "an_s": packed["an_s"][:, :, 0], "an_b": packed["an_b"][:, :, 0],
-             "beta": packed["beta"], "j3": packed["w3t"], "j2": packed["w2t"],
-             "j1": packed["w1t"]}
-    for name, t in parts.items():
-        w[:, off[name]:off[name] + t[0].numel()] = t.reshape(n, -1)
-    return WideWeights(f=F, d=D, w=w, in_shared=wide_plan(F, D)[0])
+    C = cluster or wide_cluster(F, D)
+    g = wide_geometry(F, D, C, 8, 32, 16, False, False, False, False, False)
+    FP, DP16 = g["FP"], g["DP16"]
+    dev = packed["w2t"].device
+    w = torch.zeros(n, g["size"], dtype=torch.float32, device=dev)
+    for name, t in (("b1", packed["b1"][:, :, 0]), ("b2", packed["b2"][:, :, 0]),
+                    ("b3", packed["b3"][:, :, 0]), ("an_s", packed["an_s"][:, :, 0]),
+                    ("an_b", packed["an_b"][:, :, 0]), ("beta", packed["beta"])):
+        w[:, g["o_" + name]:g["o_" + name] + t.shape[1]] = t
+
+    def padded(t, rows, cols):
+        out = torch.zeros(n, rows, cols, dtype=torch.float32, device=dev)
+        out[:, :t.shape[1], :t.shape[2]] = t
+        return out
+
+    w[:, g["o_w1"]:g["o_w1"] + FP * D] = padded(packed["w1t"], FP, D).reshape(n, -1)
+    w[:, g["o_w2"]:g["o_w3"]] = wide_fragments(padded(packed["w2t"], FP, FP), False)
+    w[:, g["o_w3"]:g["size"]] = wide_fragments(padded(packed["w3t"], DP16, FP), True)
+    return WideWeights(f=F, d=D, cluster=C, w=w)
+
+
+def wide_weight_bytes(plan: WidePlan, n: int, B: int, chains) -> int:
+    """Bytes of weights a launch reads from L2 into the SMs: each member's
+    staged weights once a residual block, and each product's matrices that
+    are not staged once for every column chunk that multiplies by them
+    (W1t once more for every further group of the warps' items).
+    ``chains`` lists (columns, with stage C) of the product chains one
+    cluster runs (``wide_chains``)."""
+    g = plan.geometry()
+    C, FP, Fs = plan.cluster, g["FP"], g["Fs"]
+    members = plan.clusters(B) * C
+    mts = Fs // 16
+    per_cluster = C * n * g["staged"]
+    for cols, stage_c in chains:
+        for c0 in range(0, cols, plan.chunk):
+            nt = min(plan.chunk, cols - c0) // 8
+            groups = -(-mts * -(-nt // 4) // WIDE_WARPS)
+            per = 0 if plan.w2_res else Fs * FP
+            per += 0 if plan.w1_res else groups * FP * plan.d
+            per += 0 if plan.w3_res or not stage_c else g["DP16"] * Fs
+            per_cluster += C * per
+    return 4 * plan.clusters(B) * per_cluster
+
+
+def wide_chains(plan: WidePlan, direction: str, n: int, n_terms=None, trips=None):
+    """The product chains one cluster runs in a call, (columns, with stage
+    C), for ``wide_weight_bytes``: per residual block its g evaluations (the
+    forward 1, the solve ``trips[j]`` in walk order; the solve_ld's mask
+    evaluation one more, without stage C) and, with the series, a term of
+    L S columns while L probes last."""
+    S = plan.samples
+    out = []
+    for j in range(n):
+        evals = 1 if direction == "forward" else int(trips[j])
+        out += [(S, True)] * evals
+        if direction == "inverse":
+            out.append((S, False))
+        if direction != "solve":
+            nt = sorted((int(t) for t in n_terms), reverse=True)
+            out += [(S * sum(t >= k for t in nt), True) for k in range(1, nt[0] + 1)]
+    return out
 
 
 class PackedResFlow:
@@ -684,12 +931,73 @@ def _solve_fn():
 
 
 def _wide_fn():
-    fn = _build.load("fused_resflow").nf_fused_resflow_wide
+    fn = _build.load("fused_resflow_wide").nf_fused_resflow_wide
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [ctypes.POINTER(i), p] + [i] * 5 + [f, i, f, f, p]
+        fn.argtypes = ([p] * 5 + [ctypes.POINTER(i), p] + [i] * 5 + [f, i, f, f]
+                       + [ctypes.POINTER(i), p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def wide_active_clusters(plan: WidePlan, direction: str = "forward") -> int:
+    """Clusters of ``plan``'s launch that the current card holds at once
+    (cudaOccupancyMaxActiveClusters); resflow_wide_probe.py records them
+    in ACTIVE_CLUSTERS.  Not called on the kernel's path."""
+    variant, _ = _variant(direction)
+    fn = _build.load("fused_resflow_wide").nf_fused_resflow_wide_active_clusters
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(plan.d, plan.f, variant, (ctypes.c_int * 9)(*plan.args()), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_resflow wide: occupancy query failed: CUDA error {err}")
+    return out.value
+
+
+def launch_wide(stack: PackedResFlow, x: torch.Tensor, direction: str, probes: Optional[Probes],
+                plan: Optional[WidePlan] = None, n_terms: Optional[List[int]] = None):
+    """The wide kernel's launch on ``x`` (B, D), checked as ``launch``
+    checks it, at ``wide_plan``'s plan for the batch unless ``plan`` is
+    given (of the weights' cluster size); counts the launch.  ``n_terms``:
+    the probes' series lengths as ints, where the caller has them."""
+    spec, kw = stack.spec, stack.kernel
+    B = x.shape[0]
+    variant, counter = _variant(direction)
+    logdet = direction != "solve"
+    y = torch.empty_like(x)
+    ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
+    if B == 0:
+        return (y, ld) if logdet else y
+    plan = plan or wide_plan(spec.filters, spec.dim, B, kw.cluster)
+    if plan.cluster != kw.cluster or (plan.f, plan.d) != (spec.filters, spec.dim):
+        raise ValueError(f"fused_resflow wide: plan {plan} for weights of cluster "
+                         f"{kw.cluster}, D={spec.dim}, F={spec.filters}")
+    if logdet:
+        V, n_terms = probes[0], n_terms or [int(n) for n in probes[1]]
+    else:
+        V, n_terms = None, [1] * N_SAMPLES
+    scratch = None
+    if plan.scratch_floats:
+        scratch = torch.empty(plan.clusters(B) * plan.cluster * plan.scratch_floats,
+                              dtype=torch.float32, device=x.device)
+    sign = 1.0 if direction == "forward" else -1.0
+    with torch.cuda.device(x.device):
+        err = _wide_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr() if logdet else None,
+                         kw.w.data_ptr(), V.data_ptr() if logdet else None,
+                         (ctypes.c_int * N_SAMPLES)(*n_terms),
+                         None if scratch is None else scratch.data_ptr(), B, spec.n_repeats,
+                         spec.dim, spec.filters, spec.n_iters, spec.ftol, variant, sign,
+                         -sign * stack.an_const, plan.c_args,
+                         torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_resflow wide {direction} kernel failed to launch: "
+                           f"CUDA error {err}")
+    LAUNCHES[counter] += 1
+    launches_by_path["wide"] += 1
+    return (y, ld) if logdet else y
 
 
 def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
@@ -720,29 +1028,14 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
                              "on the device of x")
         if not all(1 <= nt <= N_EXACT + 32 for nt in n_terms):
             raise ValueError(f"fused_resflow: series lengths {n_terms} out of range")
+    if isinstance(kw, WideWeights):
+        return launch_wide(stack, x, direction, probes, n_terms=n_terms if logdet else None)
     y = torch.empty_like(x)
     ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
     if B == 0:
         return (y, ld) if logdet else y
     sign = 1.0 if direction == "forward" else -1.0
     nt = (ctypes.c_int * N_SAMPLES)(*n_terms)
-    if isinstance(kw, WideWeights):
-        scratch = None if kw.in_shared else torch.empty(
-            -(-B // WIDE_SAMPLES) * wide_scratch_floats(kw.f, kw.d), dtype=torch.float32,
-            device=x.device)
-        with torch.cuda.device(x.device):
-            err = _wide_fn()(x.data_ptr(), y.data_ptr(), ld.data_ptr() if logdet else None,
-                             kw.w.data_ptr(), V.data_ptr() if logdet else None, nt,
-                             None if scratch is None else scratch.data_ptr(), B,
-                             spec.n_repeats, spec.dim, spec.filters, spec.n_iters, spec.ftol,
-                             variant, sign, -sign * stack.an_const,
-                             torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fused_resflow wide {direction} kernel failed to launch: "
-                               f"CUDA error {err}")
-        LAUNCHES[counter] += 1
-        launches_by_path["wide"] += 1
-        return (y, ld) if logdet else y
     if direction == "solve" and solve_kernel(kw.fp) == "warp":
         with torch.cuda.device(x.device):
             err = _solve_fn()(x.data_ptr(), y.data_ptr(), kw.w.data_ptr(), B, spec.n_repeats,

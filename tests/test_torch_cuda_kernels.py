@@ -227,17 +227,26 @@ def test_resflow_main_path_launch_puts_8_warps_on_every_sm(cuda):
     assert sms <= blocks <= rf.solve_blocks_per_sm(32, 2) * sms
 
 
-@pytest.mark.parametrize("D,F,B", [(2, 512, 300), (16, 64, 300), (9, 8, 45), (2, 2048, 50)])
+@pytest.mark.parametrize("D,F,B", [(2, 512, 300), (16, 64, 300), (9, 8, 45), (2, 2048, 50),
+                                   (2, 512, 1000), (16, 64, 1000), (2, 512, 8192),
+                                   (16, 64, 8192), (2, 288, 1000)])
 def test_resflow_wide_kernel_matches_plain(cuda, D, F, B):
     """Past F = 256 or D = 8 the wide kernel runs all three variants,
-    against the plain versions; (2, 2048) keeps its vectors in device
-    scratch."""
+    against the plain versions, at wide_plan's plan: (2, 512) and (2, 2048)
+    on clusters of 2 reading W2t's slabs from L2 ((2, 2048): the vectors in
+    device scratch), (16, 64) and (9, 8) one block holding all of W2t,
+    (2, 288) clusters of 2 each holding its slab of W2t (the members' bulk
+    copies at their own offsets, the partials summed through distributed
+    shared memory); B = 1,000 leaves a ragged last cluster."""
     from nf_tpu_torch.ops.cuda import fused_resflow as rf
 
     prog, g = _program(D, 2, F, 0, cuda, "resflow")
     st = prog.stack
     assert rf.kernel_path(st.spec) == "wide" and isinstance(st.kernel, rf.WideWeights)
-    assert st.kernel.in_shared == rf.wide_plan(F, D)[0] == (F < 2048)
+    plan = rf.wide_plan(F, D, B, cluster=st.kernel.cluster)
+    want = {(2, 512): "streamed", (16, 64): "one block", (9, 8): "one block",
+            (2, 2048): "streamed", (2, 288): "cluster"}[(D, F)]
+    assert plan.residency == want and plan.smem_bytes <= rf.SMEM_LIMIT
     x = torch.randn(B, D, generator=g, device=cuda)
     probes = rf.draw_unbias_probes(B, D, g)
     rf.reset_launches()

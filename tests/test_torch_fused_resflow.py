@@ -19,12 +19,16 @@
   fold and its shuffle reduction, each warp's own stopping; against the
   plain version 2e-5 and nf_tpu's solve kernel in interpret mode 5e-4, on
   ragged batches; which kernel each width takes, and its weight ring;
-* the wide kernel (F past 256 or D past 8): its layout walked in PyTorch
-  as the kernel walks it (input-major matrices read from ``wide_weights``,
-  tiles of 8 samples), against the plain versions 2e-5; the plain versions
-  at (D, F) = (2, 512) and (16, 64) against nf_tpu's Pallas kernels in
-  interpret mode; every (D, F) of a grid up to 1024 x 1024 planned within
-  one block's shared memory;
+* the wide kernel (F past 256 or D past 8): its layout and partition
+  walked in PyTorch as the kernel walks them (W1t, W2t's and W3t's
+  fragments decoded from ``wide_weights``, W2t's row slabs one per cluster
+  member with the D-wide partials summed in member order, every product J
+  w, the probes side by side), against the plain versions 2e-5, per
+  cluster of the plan's samples within the fixed point's tolerance; the
+  fragment order and the probes' order; the plain versions at (D, F) =
+  (2, 512) and (16, 64) against nf_tpu's Pallas kernels in interpret mode;
+  every (D, F) of a grid up to 1024 x 4096 planned within one block's
+  shared memory on a cluster size the card schedules;
 * the wrapper: the plain versions for CPU tensors, no launch counted.
 """
 import jax
@@ -78,7 +82,7 @@ def test_spec_past_the_tiled_kernels_takes_the_wide_kernel():
         jmodel, var, jspec, tmodel, tspec = _both(D, F, layers=2)
         assert jspec is not None and tspec is not None and tspec.filters == jspec.filters
         assert tfr.covers(tspec) and tfr.kernel_path(tspec) == "wide"
-        assert tfr.wide_plan(F, D)[1] <= tfr.SMEM_LIMIT
+        assert tfr.wide_plan(F, D, 16).smem_bytes <= tfr.SMEM_LIMIT
         packed = tfr.pack_resflow(tmodel.bijector, tspec)
         stack = tfr.PackedResFlow(tspec, packed)
         x = torch.from_numpy(normal(5, (16, D)))
@@ -88,7 +92,9 @@ def test_spec_past_the_tiled_kernels_takes_the_wide_kernel():
         close(tfr.fused_resflow(stack, z, "solve"), x, 1e-4)
         kw = tfr.wide_weights(tspec, {k: v.to("meta") for k, v in packed.items()})
         assert kw.w.device.type == "meta"
-        assert kw.w.shape == (2, tfr.WideLayout(F, D).size)
+        C = tfr.wide_cluster(F, D)
+        assert kw.cluster == C and kw.w.shape == (2, tfr.wide_geometry(
+            F, D, C, 8, 32, 16, False, False, False, False, False)["size"])
         assert tfr.LAUNCHES == before
     widest = torch_model("resflow", 8, 2, 256)
     spec = tfr.extract_resflow_spec(widest.bijector, widest.dims)
@@ -445,69 +451,113 @@ def test_kernel_tilings():
     assert tfr.SAMPLES == 16 and tfr.WARPS == 4
 
 
-def _walk_wide(kw, spec, x, direction, probes=None, tile=None):
-    """The wide kernel's walk in PyTorch, reading ``WideWeights``' one block
-    per residual block at the offsets of ``WideLayout``, every product
-    through its own input-major matrix (out = in @ M), a tile of ``tile``
-    samples stopping its fixed point on its own (whole batch by default)."""
-    B, D, F = x.shape[0], spec.dim, spec.filters
-    tile = tile or B
+def _wide_unfragment(flat, M, K, k_major):
+    """The (M, K) matrix whose ``wide_fragments`` is ``flat``."""
+    mat = torch.zeros(M, K)
+    src = torch.arange(M * K, dtype=torch.float32).view(1, M, K)
+    where = tfr.wide_fragments(src, k_major).long()[0]
+    mat.view(-1)[where] = flat
+    return mat
+
+
+def _wide_parts(kw, spec, j):
+    """Residual block j of ``WideWeights``, decoded from its offsets: the
+    biases, W1t (FP, D), W2t (FP, FP) and W3t (DP16, FP) of its fragments."""
+    F, D = spec.filters, spec.dim
+    geo = tfr.wide_geometry(F, D, kw.cluster, 8, 32, 16, False, False, False, False, False)
+    FP, DP16, w = geo["FP"], geo["DP16"], kw.w[j]
+
+    def part(name, n):
+        return w[geo["o_" + name]:geo["o_" + name] + n]
+
+    return {"b1": part("b1", FP), "b2": part("b2", FP), "b3": part("b3", D),
+            "an_s": part("an_s", D), "an_b": part("an_b", D), "beta": part("beta", 2),
+            "w1t": part("w1", FP * D).view(FP, D),
+            "w2t": _wide_unfragment(w[geo["o_w2"]:geo["o_w3"]], FP, FP, False),
+            "w3t": _wide_unfragment(w[geo["o_w3"]:geo["size"]], DP16, FP, True)[:D]}
+
+
+def _walk_wide(kw, spec, x, direction, probes=None, samples=None):
+    """The wide kernel's walk in PyTorch, from ``WideWeights``' layout and its
+    partition: clusters of ``samples`` samples (the whole batch by default),
+    each stopping its fixed point on its own; member m of ``kw.cluster``
+    multiplies by its slab of W2t's rows and stage C over them, the D-wide
+    partials summed in member order; every product J w = W3t (d2 * (W2t
+    (d1 * (W1t w)))), the series' probes side by side (longest first,
+    ``series_order``; a probe drops out when its series ends)."""
+    B, D, C = x.shape[0], spec.dim, kw.cluster
+    samples = samples or B
+    n, coef = spec.n_repeats, [0.0] + [(1.0 if k % 2 else -1.0) * 2.0 ** max(0, k - 9) / k
+                                       for k in range(1, 41)]
     outs, accs = [], []
-    for t0 in range(0, B, tile):
-        xp = x[t0:t0 + tile].clone()
-        V = None if probes is None else probes[0][:, t0:t0 + tile]
+    for t0 in range(0, B, samples):
+        xp = x[t0:t0 + samples].clone()
         acc = torch.zeros(xp.shape[0])
-        order = range(spec.n_repeats)
-        for j in (order if direction == "forward" else reversed(order)):
-            off, w = tfr.WideLayout(F, D).offsets(), kw.w[j]
+        for j in (range(n) if direction == "forward" else reversed(range(n))):
+            P = _wide_parts(kw, spec, j)
+            Fs = P["w2t"].shape[0] // C
 
-            def part(name, *shape):
-                return w[off[name]:off[name] + int(np.prod(shape))].view(*shape)
-
-            g1, g2, g3 = part("g1", D, F), part("g2", F, F), part("g3", F, D)
-            j3, j2, j1 = part("j3", D, F), part("j2", F, F), part("j1", F, D)
-            b1, b2, b3 = part("b1", F), part("b2", F), part("b3", D)
-            an_s, an_b, beta = part("an_s", D), part("an_b", D), part("beta", 2)
-
-            def hidden(xx):
-                h1, d1 = tfr._lipswish(xx @ g1 + b1, beta[0])
-                h2, d2 = tfr._lipswish(h1 @ g2 + b2, beta[1])
-                return h2, d1, d2
+            def chain(inp, d1=None, d2=None):
+                """(g's output layer partials or J inp, d1, d2)."""
+                a = inp @ P["w1t"].T
+                if d1 is None:
+                    a, d1 = tfr._lipswish(a + P["b1"], P["beta"][0])
+                else:
+                    a = a * d1
+                parts, masks = [], []
+                for m in range(C):
+                    rows = slice(m * Fs, (m + 1) * Fs)
+                    c = a @ P["w2t"][rows].T
+                    if d2 is None:
+                        c, dm = tfr._lipswish(c + P["b2"][rows], P["beta"][1])
+                        masks.append(dm)
+                    else:
+                        c = c * d2[:, rows]
+                    parts.append(c @ P["w3t"][:, rows].T)
+                out = parts[0]
+                for q in parts[1:]:
+                    out = out + q
+                return out, d1, (torch.cat(masks, 1) if d2 is None else d2)
 
             if direction == "forward":
-                xp = (xp - an_b) * torch.exp(-an_s)
-                h2, d1, d2 = hidden(xp)
-                gx = h2 @ g3 + b3
+                xp = (xp - P["an_b"]) * torch.exp(-P["an_s"])
+                gx, d1, d2 = chain(xp)
+                gx = gx + P["b3"]
             else:
-                z, it = xp, 0
-                while True:
-                    new = z - (hidden(xp)[0] @ g3 + b3)
+                z = xp
+                for it in range(1, spec.n_iters + 1):
+                    new = z - (chain(xp)[0] + P["b3"])
                     moving = float((new - xp).abs().max()) >= spec.ftol
-                    xp, it = new, it + 1
-                    if not (it < spec.n_iters and moving):
+                    xp = new
+                    if not moving:
                         break
-                _, d1, d2 = hidden(xp)
-            if V is not None:
-                ser = []
-                for p in range(4):
-                    wv, sp = V[p], torch.zeros(xp.shape[0])
-                    for k in range(1, int(probes[1][p]) + 1):
-                        wv = ((((wv @ j3) * d2) @ j2) * d1) @ j1
-                        coef = (1.0 if k % 2 else -1.0) * 2.0 ** max(0, k - 9) / k
-                        sp = sp + coef * (wv * V[p]).sum(1)
-                    ser.append(sp)
+                _, d1, d2 = chain(xp)
+            if probes is not None:
+                order = tfr.series_order(probes[1])
+                nt = [int(probes[1][q]) for q in order]
+                V = torch.stack([probes[0][q, t0:t0 + samples] for q in order])
+                wv, ser = V.clone(), torch.zeros(4, xp.shape[0])
+                for k in range(1, nt[0] + 1):
+                    live = sum(t >= k for t in nt)
+                    for q in range(live):
+                        wv[q] = chain(wv[q], d1, d2)[0]
+                        ser[order[q]] = ser[order[q]] + coef[k] * (wv[q] * V[q]).sum(1)
                 acc = acc + (ser[0] + ser[1] + ser[2] + ser[3]) * 0.25
-            xp = xp + gx if direction == "forward" else xp * torch.exp(an_s) + an_b
+            xp = xp + gx if direction == "forward" else xp * torch.exp(P["an_s"]) + P["an_b"]
         outs.append(xp)
         accs.append(acc)
     return torch.cat(outs), torch.cat(accs)
 
 
-@pytest.mark.parametrize("D,F", [(2, 512), (16, 64), (9, 8), (3, 300)])
-def test_wide_layout_matches_plain_versions(D, F):
-    """The wide kernel's layout and walk (2 blocks, B = 21) against the plain
-    versions, 2e-5; the inverse also per 8-sample tile, as the kernel stops,
-    within the fixed point's tolerance."""
+@pytest.mark.parametrize("D,F,B", [(2, 512, 21), (16, 64, 21), (9, 8, 21), (3, 300, 21),
+                                   (2, 2048, 9)])
+def test_wide_layout_matches_plain_versions(D, F, B):
+    """The wide kernel's layout and partition walked in PyTorch (2 blocks)
+    against the plain versions, 2e-5: (2, 512), (3, 300) and (2, 2048) on 2
+    members reading W2t's slabs from L2, (16, 64) and (9, 8) one block
+    holding all of W2t, and (2, 512) also on 8 members holding theirs; the
+    inverse also per cluster of the plan's samples (8 at B = 21), as the
+    kernel stops, within the fixed point's tolerance."""
     tmodel = torch_model("resflow", D, 2, F)
     tmodel.init(torch.Generator().manual_seed(D + F))
     with torch.no_grad():
@@ -518,11 +568,18 @@ def test_wide_layout_matches_plain_versions(D, F):
     assert tfr.kernel_path(spec) == "wide"
     packed = tfr.pack_resflow(tmodel.bijector, spec)
     kw = tfr.wide_weights(spec, packed)
-    assert kw.w.shape == (2, tfr.WideLayout(F, D).size) == (2, 2 * F * F + 4 * F * D
-                                                            + 2 * F + 3 * D + 2)
+    plan = tfr.wide_plan(F, D, B, cluster=kw.cluster)
+    want = {(2, 512): (2, "streamed"), (16, 64): (1, "one block"), (9, 8): (1, "one block"),
+            (3, 300): (2, "streamed"), (2, 2048): (2, "streamed")}[(D, F)]
+    assert (kw.cluster, plan.residency) == want and plan.samples == 8
+    geo = tfr.wide_geometry(F, D, kw.cluster, 8, 32, 16, False, False, False, False, False)
+    FP = -(-F // (16 * kw.cluster)) * 16 * kw.cluster
+    assert kw.w.shape == (2, geo["size"]) and geo["FP"] == FP
+    assert geo["size"] == (2 * FP + 3 * geo["DP16"] + 2 + 3) // 4 * 4 + (FP * D + 3) // 4 * 4 \
+        + FP * FP + geo["DP16"] * FP
     g = torch.Generator().manual_seed(3)
-    x = torch.randn(21, D, generator=g)
-    probes = tfr.draw_unbias_probes(21, D, g)
+    x = torch.randn(B, D, generator=g)
+    probes = tfr.draw_unbias_probes(B, D, g)
     const = packed["an_const"]
     z, ld = tfr.fused_resflow_fwd_logdet_reference(spec, packed, x, probes)
     wz, wacc = _walk_wide(kw, spec, x, "forward", probes)
@@ -534,9 +591,38 @@ def test_wide_layout_matches_plain_versions(D, F):
     close(const - wacc, ldi, 2e-5)
     wx, _ = _walk_wide(kw, spec, z, "solve")
     close(wx, tfr.fused_resflow_solve_reference(spec, packed, z), 2e-5)
-    wx, wacc = _walk_wide(kw, spec, z, "inverse", probes, tile=tfr.WIDE_SAMPLES)
+    wx, wacc = _walk_wide(kw, spec, z, "inverse", probes, samples=plan.samples)
     close(wx, xi, 1e-3)
     close(const - wacc, ldi, 1e-3)
+    if (D, F) == (2, 512):
+        kw8 = tfr.wide_weights(spec, packed, 8)
+        assert tfr.wide_plan(F, D, B, cluster=8).residency == "cluster"
+        wz, wacc = _walk_wide(kw8, spec, x, "forward", probes)
+        close(wz, z, 2e-5)
+        close(wacc - const, ld, 2e-5)
+
+
+def test_wide_fragments_and_series_order():
+    """``wide_fragments`` puts W2t's entry (r, k) where lane 4 (r % 8) + k % 4
+    of m-tile r // 16 and k-step k // 8 holds it (register (r // 8) % 2 + 2
+    ((k // 4) % 2)), m-tile major, and W3t's k-step major; member m's slab of
+    W2t is its contiguous m-tiles [m Fs / 16, ...) and its W3t columns a
+    contiguous k-step range.  ``series_order``: longest first, ties by index."""
+    M, K = 32, 48
+    mat = torch.arange(M * K, dtype=torch.float32).view(1, M, K)
+    flat = tfr.wide_fragments(mat, False)[0].view(M // 16, K // 8, 32, 4)
+    for r, k in ((0, 0), (9, 5), (17, 44), (31, 47)):
+        lane, reg = 4 * (r % 8) + k % 4, (r // 8) % 2 + 2 * ((k // 4) % 2)
+        assert float(flat[r // 16, k // 8, lane, reg]) == float(mat[0, r, k])
+    kflat = tfr.wide_fragments(mat, True)[0].view(K // 8, M // 16, 32, 4)
+    assert torch.equal(kflat.transpose(0, 1), flat)
+    Fs = 16
+    slab = flat[1]  # member 1 of 2: rows 16 .. 31
+    assert torch.equal(slab.reshape(-1).sort().values,
+                       mat[0, Fs:2 * Fs].reshape(-1).sort().values)
+    assert tfr.series_order([10, 14, 9, 9]) == [1, 0, 2, 3]
+    assert tfr.series_order([3, 3, 3, 3]) == [0, 1, 2, 3]
+    assert tfr.series_order([1, 2, 40, 5]) == [2, 3, 1, 0]
 
 
 @pytest.mark.parametrize("D,F", [(2, 512), (16, 64)])
@@ -567,10 +653,12 @@ def test_wide_plain_versions_match_pallas_interpret(D, F):
 @pytest.mark.parametrize("D", [2, 9, 16, 64, 400, 1024])
 def test_every_width_has_a_plan_within_one_block(D):
     """Every (D, F) of the grid has a kernel and a plan within 232,448
-    bytes: the tiled kernels (and the solve's warp kernel) up to F = 256
-    and D = 8, the wide kernel past, its vectors in shared memory while
-    they fit beside the reduction buffer, else in device scratch."""
-    for F in (32, 256, 512, 1024):
+    bytes a block: the tiled kernels (and the solve's warp kernel) up to
+    F = 256 and D = 8, the wide kernel past, on clusters the card schedules
+    (1, 2, 4 or 8 members, ACTIVE_CLUSTERS measured), at B = 1,000 and
+    8,192; W2t's slab resident wherever the plan says so, the vectors in
+    shared memory or device scratch."""
+    for F in (32, 256, 512, 1024, 4096):
         spec = tfr.ResFlowSpec(n_repeats=2, dim=D, filters=F, n_iters=20, ftol=1e-6)
         assert tfr.covers(spec)
         if tfr.kernel_path(spec) == "tile":
@@ -579,13 +667,25 @@ def test_every_width_has_a_plan_within_one_block(D):
             if tfr.solve_kernel(fp) == "warp":
                 assert tfr.solve_smem_bytes(fp, dp) <= tfr.SMEM_LIMIT
             continue
-        in_shared, smem = tfr.wide_plan(F, D)
-        assert smem <= tfr.SMEM_LIMIT == 232448
-        scratch = 4 * (tfr.WIDE_RED + tfr.wide_scratch_floats(F, D))
-        assert in_shared == (scratch <= tfr.SMEM_LIMIT)
-        assert smem == (scratch if in_shared else 4 * tfr.WIDE_RED)
-    assert tfr.wide_plan(512, 2) == (True, 4 * (2048 + 8 * (10 + 2048 + 5)))
-    assert tfr.wide_plan(1024, 1024) == (False, 4 * 2048)
+        C = tfr.wide_cluster(F, D)
+        assert C in tfr.CLUSTER_SIZES == (1, 2, 4, 8)
+        for B in (1000, 8192):
+            plan = tfr.wide_plan(F, D, B)
+            geo = plan.geometry()
+            assert plan.cluster == C and plan.smem_bytes <= tfr.SMEM_LIMIT == 232448
+            assert plan.samples % 8 == 0 and plan.chunk % 32 == 0 and plan.kchunk % 16 == 0
+            assert plan.part_smem or C == 1
+            slab = 4 * (geo["Fs"] * geo["FP"] + 4)
+            assert plan.w2_res == (plan.residency != "streamed")
+            if plan.w2_res:
+                assert slab <= plan.smem_bytes
+            if not plan.vec_smem:
+                assert plan.scratch_floats >= geo["vec_floats"]
+    assert tfr.ACTIVE_CLUSTERS == {1: 132, 2: 66, 4: 30, 8: 15}
+    assert tfr.wide_plan(512, 2, 1000).args() == [2, 16, 64, 128, 0, 1, 1, 1, 1]
+    assert tfr.wide_plan(64, 16, 1000).args() == [1, 8, 32, 64, 1, 1, 1, 1, 1]
+    assert tfr.wide_plan(512, 2, 1000, cluster=8).residency == "cluster"
+    assert tfr.wide_plan(1024, 1024, 1000).residency == "streamed"
 
 
 def test_wrapper_takes_plain_versions_on_cpu():
