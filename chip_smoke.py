@@ -83,6 +83,19 @@ Phases, each of which exits non-zero when it fails:
      within 1e-3, log p on 256 samples within 1e-4 of its largest
      magnitude of the same state's on the CPU (both also printed against
      the CPU's float64);
+     then run.debug on the served path (debug_phase, its wall time
+     printed): the RealNVP 2-D program with check_chain's probes raises
+     FloatingPointError naming layer0:BatchNorm.forward on a batch of
+     8192 with one NaN row, launching no fused_stack kernel (the eager
+     chain), and serves finite rows as the same model's fused kernel
+     does (both log p within 1e-4 of its largest magnitude of the same
+     state's in float64 on the CPU); untagged, one fused_stack_fwd and one
+     fused_stack_inv launch for log_prob and sample; then a model of
+     the caller's own, registered with models.register and built by
+     build_model: Squeeze1d -> 8 x [BatchNorm -> AffineCoupling, F = 32]
+     -> Unsqueeze1d at D = 4, served on the eager chain (no launch), log p
+     on 256 samples within 1e-4 of its largest magnitude of the same
+     state's on the CPU;
      the coupling kernels (forward, inverse, backward) at (1024, 512),
      (1024, 1536) and a ragged (1000, 384), gain 0.7 and bias -0.1: y
      and x atol/rtol 1e-5, the row log-dets atol 1e-4 (up to 1536 terms
@@ -1387,6 +1400,100 @@ def eager_main_path(name, device, counters, launches_of):
     check(rt < 1e-3 and ld_sum < 1e-3, f"{name}: round trip")
     check(diff <= EAGER_LOGP_RTOL * top, f"{name}: log p on the card disagrees with the CPU")
     return prog, x, z
+
+
+def debug_phase(device, counters, launches_of):
+    """run.debug on the served path, and a registered model of the
+    caller's own (see phase 4 above)."""
+    from nf_tpu_torch.bijectors import AffineCoupling, BatchNorm, Squeeze1d, Unsqueeze1d
+    from nf_tpu_torch.config import NETWORK_DEFAULTS, NetworkConfig
+    from nf_tpu_torch.core import Chain
+    from nf_tpu_torch.models import FlowModel, build_model, register
+    from nf_tpu_torch.utils.debug import check_chain
+
+    t0 = time.perf_counter()
+    fwd_name, inv_name = MODELS["realnvp"]
+    cfg = NetworkConfig(name="realnvp", **NETWORK_DEFAULTS["realnvp"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(BATCH, 2, generator=gen, device=device)
+    bad = x.clone()
+    bad[BATCH // 2, 0] = float("nan")
+    log_p = {}
+    for tagged in (True, False):
+        model = build_model("realnvp", (2,), "2d", cfg)
+        g = torch.Generator(device=device).manual_seed(SEED + 1)
+        params = model.init(g)
+        perturb(model, g, device)
+        if tagged:
+            check_chain(model.bijector)
+        prog = model.eval_program(params)
+        check((prog.stack is None) == tagged,
+              f"debug: the {'tagged' if tagged else 'untagged'} program's path")
+        reset_all(counters)
+        if tagged:
+            try:
+                prog.log_prob(bad)
+                raised = ""
+            except FloatingPointError as e:
+                raised = str(e)
+        log_p[tagged] = prog.log_prob(x)
+        y_s, log_py = prog.sample(BATCH, gen)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launches_of().items() if v}
+        if tagged:
+            print(f"debug: the tagged program raised {raised!r}; launches {counts}")
+            check(raised.startswith("non-finite output in layer0:BatchNorm.forward"),
+                  f"debug: the tagged program raised {raised!r}")
+            check(not counts, f"debug: the tagged program launched {counts}")
+        else:
+            print(f"debug: the untagged program's launches {counts}")
+            check(counts == {fwd_name: 1, inv_name: 1},
+                  f"debug: the untagged program launched {counts}")
+    # both against the same state in float64 on the CPU
+    cpu = build_model("realnvp", (2,), "2d", cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        lp64 = cpu.double().eval().log_prob(x.cpu().double())
+    top = float(lp64.abs().max())
+    errs = [max_diff(log_p[tagged].cpu().double(), lp64) for tagged in (True, False)]
+    print(f"debug: {BATCH} samples, max|log p|={top:.1f}: probed chain vs fused kernel "
+          f"max|dlog p|={max_diff(log_p[True], log_p[False]):.3e}; to float64 on the CPU: "
+          f"chain {errs[0]:.3e}, kernel {errs[1]:.3e}")
+    check(bool(torch.isfinite(log_p[True]).all() and torch.isfinite(y_s).all()
+               and torch.isfinite(log_py).all()), "debug: the probed program's outputs")
+    check(max(errs) <= EAGER_LOGP_RTOL * top,
+          "debug: the probed chain or the fused kernel is off the CPU's float64")
+
+    name, D, F = "squeeze1d-realnvp", 4, cfg.base_filters
+
+    def builder(dims, datatype=None, cfg=None, device=None):
+        layers = [l for i in range(8) for l in (
+            BatchNorm(dims[-1], affine=False, device=device),
+            AffineCoupling(dims, odd=i % 2 != 0, base_filters=F, device=device))]
+        return FlowModel(name, Chain([Squeeze1d()] + layers + [Unsqueeze1d()]), dims, device)
+
+    register(name, builder)
+    model = build_model(name, (D,), "2d")
+    check(model.device.type == "cuda", f"{name}: build_model did not default to the card")
+    model.init(gen)
+    perturb(model, gen, device)
+    prog = model.eval_program()
+    x = torch.randn(BATCH, D, generator=gen, device=device)
+    reset_all(counters)
+    log_px = prog.log_prob(x)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches_of().items() if v}
+    check(prog.stack is None and not counts, f"{name}: launched {counts}")
+    check(log_px.shape == (BATCH,) and bool(torch.isfinite(log_px).all()),
+          f"{name}: log p shape or values")
+    cpu = build_model(name, (D,), "2d", device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = cpu.eval_program().log_prob(x[:EAGER_PARITY].cpu())
+    diff, top = max_diff(log_px[:EAGER_PARITY].cpu(), want), float(want.abs().max())
+    print(f"{name}: card vs CPU, {EAGER_PARITY} samples: max|dlog p|={diff:.3e} "
+          f"(max|log p|={top:.1f})")
+    check(diff <= EAGER_LOGP_RTOL * top, f"{name}: log p on the card disagrees with the CPU")
+    print(f"debug phase took {time.perf_counter() - t0:.1f} s")
 
 
 def counted_call(what, fn, want, counters, launches_of, totals):
@@ -3716,6 +3823,7 @@ def main():
 
     # MAF and Planar: the eager chain on the card, no kernel of the port
     eager = {name: eager_main_path(name, dev, counters, launches_of) for name in EAGER_MODELS}
+    debug_phase(dev, counters, launches_of)
 
     # ---- 5. the image main paths: training and serving
     images = []

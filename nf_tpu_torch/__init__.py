@@ -9,6 +9,6 @@ with its plain PyTorch version beside the wrapper; the wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for CUDA
 tensors.
 """
-from .core import Bijector, Chain  # noqa: F401
+from .core import Bijector, Chain, Inverted  # noqa: F401
 
 __version__ = "0.1.0"

@@ -6,5 +6,6 @@ from .flowpp_coupling import MixLogAttnCoupling  # noqa: F401
 from .made import MADE, AutoregressiveTransform  # noqa: F401
 from .norm import ActNorm, BatchNorm  # noqa: F401
 from .planar import PlanarTransform  # noqa: F401
-from .squeeze import Flatten, Squeeze2d, Unsqueeze2d  # noqa: F401
+from .squeeze import (Flatten, Squeeze1d, Squeeze2d,  # noqa: F401
+                      Unsqueeze1d, Unsqueeze2d)
 from .vardequant import VariationalDequant  # noqa: F401

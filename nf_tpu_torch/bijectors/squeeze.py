@@ -1,5 +1,6 @@
-"""Volume-preserving squeeze / unsqueeze bijectors, NHWC, and the flatten
-(counterpart of ``nf_tpu/bijectors/squeeze.py``); log-det 0."""
+"""Volume-preserving squeeze / unsqueeze bijectors, of (B, D) vectors and
+of NHWC maps, and the flatten (counterpart of
+``nf_tpu/bijectors/squeeze.py``); log-det 0."""
 from __future__ import annotations
 
 import math
@@ -21,6 +22,43 @@ def _squeeze(z, odd):
 def _unsqueeze(z, odd):
     h = z.shape[-1] // 2
     return sq.unsqueeze2d(z[..., :h], z[..., h:], odd)
+
+
+def _squeeze1d(z, odd):
+    return torch.cat(sq.squeeze1d(z, odd), dim=1)
+
+
+def _unsqueeze1d(z, odd):
+    h = z.shape[1] // 2
+    return sq.unsqueeze1d(z[:, :h], z[:, h:], odd)
+
+
+class Squeeze1d(Bijector):
+    """(B, D) -> (B, D): the even entries, then the odd ones."""
+
+    def __init__(self, odd: bool = False):
+        super().__init__()
+        self.odd = odd
+
+    def forward(self, z):
+        return _squeeze1d(z, self.odd), _zeros(z)
+
+    def inverse(self, z):
+        return _unsqueeze1d(z, self.odd), _zeros(z)
+
+
+class Unsqueeze1d(Bijector):
+    """The inverse of ``Squeeze1d``: (B, D) halves interleaved again."""
+
+    def __init__(self, odd: bool = False):
+        super().__init__()
+        self.odd = odd
+
+    def forward(self, z):
+        return _unsqueeze1d(z, self.odd), _zeros(z)
+
+    def inverse(self, z):
+        return _squeeze1d(z, self.odd), _zeros(z)
 
 
 class Squeeze2d(Bijector):

@@ -18,7 +18,8 @@ i is block i.  Layout differences handled here:
   ``(out, in, kh, kw)`` here; ``g`` is ``(kh, kw, in)`` there and
   ``(in, kh, kw)`` here.  ``ResBlock2d`` nests ``net`` / ``bridge`` as
   ``ResBlockLinear`` does, and ``ConvNet`` is a ``Sequential``.
-* ``Logit``, ``Squeeze2d`` and ``Unsqueeze2d`` have no variables.
+* ``Logit``, ``Squeeze1d``, ``Unsqueeze1d``, ``Squeeze2d`` and
+  ``Unsqueeze2d`` have no variables.
 * A non-affine flow ``BatchNorm`` keeps ``log_gamma`` / ``beta`` in state,
   here as buffers.
 * ``ActNorm``'s ``initialized`` flag (bool), and ``InvertibleConv1x1``'s
@@ -36,8 +37,9 @@ i is block i.  Layout differences handled here:
   state, ``(in, out)`` there and ``(out, in)`` here (both transposed);
   ``AutoregressiveTransform`` nests the MADEs under ``"s"`` / ``"t"`` and
   keeps ``perm`` in state (int32 there, int64 here).  ``PlanarTransform``'s ``u`` / ``w`` / ``b``
-  copy as they are; ``Flatten`` has no variables, and ``Inverted`` holds
-  its inner bijector's.
+  copy as they are; ``Flatten`` has no variables, and ``Inverted`` and
+  ``CheckedBijector`` hold their inner bijector's, with no level of their
+  own (``nf_tpu``'s ``CheckedBijector.init`` returns the inner's).
 * ``CNF`` keeps its ODENet under ``{'net': {'w': [...], 'b': [...]}}`` and
   its time grid in state (``times``, a buffer here).  Dense weights keep
   ``nf_tpu``'s ``(din + 1, dout)`` and copy as they are; conv weights are
@@ -61,7 +63,7 @@ from .bijectors.iresblock import InvertibleResBlock
 from .bijectors.made import MADE, AutoregressiveTransform
 from .bijectors.norm import ActNorm, BatchNorm
 from .bijectors.planar import PlanarTransform
-from .bijectors.squeeze import Flatten, Squeeze2d, Unsqueeze2d
+from .bijectors.squeeze import Flatten, Squeeze1d, Squeeze2d, Unsqueeze1d, Unsqueeze2d
 from .bijectors.vardequant import VariationalDequant
 from .core.bijector import Chain, Inverted, ScannedChain
 from .models.base import FlowModel
@@ -70,6 +72,7 @@ from .nets.core import Activation, Sequential
 from .nets.gated import GatedAttn, GatedConv2d, GatedLinear, LayerNormNet
 from .nets.layers import BatchNormNet, Conv2d, Dense
 from .nets.spectral import LipSwish, SpectralNormConv2d, SpectralNormDense
+from .utils.debug import CheckedBijector
 
 T = (1, 0)              # (out, in) -> (in, out)
 HWIO = (2, 3, 1, 0)     # (out, in, kh, kw) -> (kh, kw, in, out)
@@ -168,8 +171,8 @@ def _made(m) -> dict:
                           "bn": [variable_tree(bn)["state"] for bn in m.bn]})
 
 
-_NO_VARIABLES = (Activation, Logit, Squeeze2d, Unsqueeze2d, Flatten, Identity, Sigmoid,
-                 Tanh, Arctanh)
+_NO_VARIABLES = (Activation, Logit, Squeeze1d, Unsqueeze1d, Squeeze2d, Unsqueeze2d, Flatten,
+                 Identity, Sigmoid, Tanh, Arctanh)
 
 
 def variable_tree(module) -> dict:
@@ -184,7 +187,7 @@ def variable_tree(module) -> dict:
         return stack_trees([variable_tree(b) for b in m.blocks], type(m).__name__)
     if isinstance(m, _NO_VARIABLES):
         return _vars({}, {})
-    if isinstance(m, Inverted):
+    if isinstance(m, (Inverted, CheckedBijector)):
         return variable_tree(m.inner)
     if isinstance(m, Dense):
         p = ({"g": _leaf(m.g), "v": _leaf(m.v, T)} if m.weight_norm else {"w": _leaf(m.w, T)})

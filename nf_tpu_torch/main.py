@@ -56,7 +56,7 @@ from nf_tpu_torch.train import Trainer, load_checkpoint, save_checkpoint
 from nf_tpu_torch.train.metrics import MetricWriter
 from nf_tpu_torch.train.report import report
 from nf_tpu_torch.utils import Logging
-from nf_tpu_torch.utils.debug import check_chain
+from nf_tpu_torch.utils.debug import check_chain, enable_nan_debugging
 
 logger = Logging(__file__)
 
@@ -108,7 +108,8 @@ def main(argv=None):
     print(json.dumps(to_dict(cfg), indent=2))
     print("*********************\n")
     anomaly = torch.is_anomaly_enabled()
-    torch.autograd.set_detect_anomaly(cfg.run.debug)
+    if cfg.run.debug:
+        enable_nan_debugging()
     try:
         return train(cfg, device)
     finally:

@@ -26,6 +26,14 @@ _REGISTRY = {
 }
 
 
+def register(name, builder):
+    """Add (or replace) ``name``'s builder: ``builder(dims, datatype=...,
+    cfg=..., device=...)`` returns a ``FlowModel``.  ``build_model`` hands
+    it the ``cfg`` it was given, which is None, as in ``nf_tpu``, for a name
+    without ``NETWORK_DEFAULTS``."""
+    _REGISTRY[name] = builder
+
+
 def available_models():
     return sorted(_REGISTRY)
 
@@ -65,7 +73,7 @@ def build_model(name: str, dims, datatype=None, cfg=None,
                 device=None) -> FlowModel:
     if name not in _REGISTRY:
         raise ValueError(f"unknown network {name!r}; available: {available_models()}")
-    if cfg is None:
+    if cfg is None and name in NETWORK_DEFAULTS:
         cfg = NetworkConfig(name=name, **NETWORK_DEFAULTS[name])
     device = resolve_device(device)
     _apply_matmul_precision(cfg, device)

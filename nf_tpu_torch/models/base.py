@@ -16,18 +16,30 @@ from torch import nn
 
 from ..bijectors.iresblock import InvertibleResBlock
 from ..core.bijector import Bijector, call_forward, call_inverse
-from ..ops.cuda.fused_flowpp import (PackedFlowpp, extract_flowpp_spec,
+from ..ops.cuda.fused_flowpp import (FlowppSpec, PackedFlowpp, extract_flowpp_spec,
                                      fused_flowpp, pack_flowpp)
 from ..ops.cuda.fused_resflow import (PackedResFlow, extract_resflow_spec,
                                       fused_resflow, pack_resflow)
-from ..ops.cuda.fused_stack import (PackedStack, extract_stack_spec,
+from ..ops.cuda.fused_stack import (PackedStack, StackSpec, extract_stack_spec,
                                     fused_stack, pack_stack)
 from ..ops.estimators import Probes, eval_probes
 from ..ops.math import standard_normal_logprob
+from ..utils.debug import probed
 
 # ResFlow serving probe sets an EvalProgram keeps, one per batch size, the
 # most recently used; an evicted set is drawn again, the same, when needed
 PROBE_SETS_KEPT = 8
+
+
+def fused_spec(bijector: Bijector, dims):
+    """The fused pattern ``bijector`` matches, in ``nf_tpu``'s order (the
+    RealNVP / Glow stack, Flow++, ResFlow: ``FlowModel._fused_spec``
+    there), or None."""
+    for extract in (extract_stack_spec, extract_flowpp_spec, extract_resflow_spec):
+        spec = extract(bijector, dims)
+        if spec is not None:
+            return spec
+    return None
 
 
 def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -145,7 +157,14 @@ class EvalProgram:
     kernel followed by one chain forward at the solved x, negated, as
     ``nf_tpu`` serves it.  A ResFlow chain that matches no kernel (the
     image branch) runs eagerly, both directions handed the same probe
-    sets, of the data's shape."""
+    sets, of the data's shape.
+
+    Under ``run.debug`` (``utils/debug.py``): a chain with a probed
+    top-level layer, tagged by ``check_chain`` or wrapped in a
+    ``CheckedBijector``, runs eagerly whatever pattern it matches,
+    through ``call_forward`` / ``call_inverse``, so every layer is
+    checked: ``nf_tpu``'s probe wrappers hide the layers from its fused
+    matchers alike.  ResFlow's blocks get their probe sets as above."""
 
     def __init__(self, model: FlowModel, probes: Optional[Probes] = None):
         self.model = model.eval()
@@ -155,30 +174,23 @@ class EvalProgram:
         self.stack = None
         self.probes = probes
         self._probe_sets = OrderedDict()
-        spec = extract_stack_spec(bij, model.dims)
-        if spec is not None:
+        spec = None if probed(bij) else fused_spec(bij, model.dims)
+        if isinstance(spec, StackSpec):
             self.stack, run = PackedStack(spec, *pack_stack(bij, spec)), fused_stack
-        else:
-            spec = extract_flowpp_spec(bij, model.dims)
-            if spec is not None:
-                self.stack, run = PackedFlowpp(spec, *pack_flowpp(bij, spec)), fused_flowpp
+        elif isinstance(spec, FlowppSpec):
+            self.stack, run = PackedFlowpp(spec, *pack_flowpp(bij, spec)), fused_flowpp
         if self.stack is not None:
             self._fwd = lambda x: run(self.stack, x, "forward")
             self._inv = lambda z: run(self.stack, z, "inverse")
             return
-        spec = extract_resflow_spec(bij, model.dims)
         if spec is None:
             estimators = {m.estimator for m in bij.modules()
                           if isinstance(m, InvertibleResBlock)}
-            if not estimators:
-                self._fwd = bij
-                self._inv = bij.inverse
-                return
             if len(estimators) > 1:
                 raise ValueError(f"one log-det estimator per program, got {estimators}")
-            (self.estimator,) = estimators
-            self._fwd = lambda x: bij(x, self._probes(x))
-            self._inv = lambda z: bij.inverse(z, probes=self._probes(z))
+            self.estimator = next(iter(estimators), None)
+            self._fwd = lambda x: call_forward(bij, x, self._probes(x))
+            self._inv = lambda z: call_inverse(bij, z, probes=self._probes(z))
             return
         self.stack = PackedResFlow(spec, pack_resflow(bij, spec))
         self.estimator = spec.estimator
@@ -194,6 +206,8 @@ class EvalProgram:
         (S, *x.shape): the given set, or the serving set of x's batch size:
         a seeded draw, so one drawn again after its eviction is the same
         set."""
+        if self.estimator is None:  # no ResFlow block
+            return None
         B = x.shape[0]
         if self.probes is not None:
             if self.probes[0].shape[1] != B:

@@ -40,3 +40,11 @@ class Activation(Net):
 
 def relu():
     return Activation(torch.relu)
+
+
+def elu():
+    return Activation(torch.nn.functional.elu)
+
+
+def softplus():
+    return Activation(torch.nn.functional.softplus)

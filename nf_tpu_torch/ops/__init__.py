@@ -1,1 +1,2 @@
 from . import math  # noqa: F401
+from .bisect import bisect_monotone  # noqa: F401

@@ -7,9 +7,19 @@ import torch
 import torch.nn.functional as F
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x); ``F.softplus`` returns x itself past x = 20, where
+    the two agree in f32."""
+    return F.softplus(x)
+
+
 def log_deriv_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """log sigma'(x) = log sigma(x) + log(1 - sigma(x)) = x - 2*softplus(x)."""
     return x - 2.0 * F.softplus(x)
+
+
+def deriv_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(log_deriv_sigmoid(x))
 
 
 def logit(x: torch.Tensor) -> torch.Tensor:
@@ -51,11 +61,23 @@ def logistic_logpdf(x: torch.Tensor, mu: torch.Tensor, s: torch.Tensor) -> torch
     return z - s - 2.0 * F.softplus(z)
 
 
+def logistic_logcdf(x: torch.Tensor, mu: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """log cdf of Logistic(mu, exp(s)) at x."""
+    return F.logsigmoid((x - mu) * torch.exp(-s))
+
+
 def mix_logistic_logpdf(x: torch.Tensor, logpi: torch.Tensor, mu: torch.Tensor,
                         s: torch.Tensor) -> torch.Tensor:
     """log pdf of a K-mixture of logistics at x (...); ``logpi``, ``mu``,
     ``s`` are (..., K) with logpi log-softmaxed over the last axis."""
     return torch.logsumexp(logpi + logistic_logpdf(x[..., None], mu, s), dim=-1)
+
+
+def mix_logistic_logcdf(x: torch.Tensor, logpi: torch.Tensor, mu: torch.Tensor,
+                        s: torch.Tensor) -> torch.Tensor:
+    """log cdf of a K-mixture of logistics; the conventions of
+    ``mix_logistic_logpdf``."""
+    return torch.logsumexp(logpi + logistic_logcdf(x[..., None], mu, s), dim=-1)
 
 
 def sum_except_batch(x: torch.Tensor) -> torch.Tensor:

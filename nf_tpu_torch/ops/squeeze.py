@@ -57,6 +57,21 @@ def checker_merge(z0, z1, odd: bool = False):
     return _depth_to_space(torch.cat([za, zb, zc, zd], dim=-1))
 
 
+def squeeze1d(z, odd: bool = False):
+    """(B, D) -> two (B, D/2) halves of alternating entries."""
+    B, D = z.shape
+    z = z.reshape(B, D // 2, 2)
+    z0, z1 = z[:, :, 0], z[:, :, 1]
+    return (z1, z0) if odd else (z0, z1)
+
+
+def unsqueeze1d(z0, z1, odd: bool = False):
+    if odd:
+        z0, z1 = z1, z0
+    z = torch.stack([z0, z1], dim=-1)
+    return z.reshape(z.shape[0], -1)
+
+
 def squeeze2d(z, odd: bool = False):
     """Space-to-depth, then split the 4C channels into [a,b] and [c,d]."""
     s = _space_to_depth(z)
