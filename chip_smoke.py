@@ -191,7 +191,13 @@ Phases, each of which exits non-zero when it fails:
      (-log q(u|x) and D log 256), Trainer.log_prob with a generator, an
      EvalProgram's forward raising ValueError (no generator), and the
      first step's log p and gradients on 4 samples against the CPU with
-     the same injected dequantization noise, as in (a);
+     the same injected dequantization noise, as in (a); then the trained
+     state saved by save_checkpoint and scored by the held-out evaluator
+     (nf_tpu_torch/evaluate.py: heldout_image_nll, network="flow++",
+     vardequant=True, scan=False, remat=False, 1 draw of the 2,048
+     synthetic held-out images in batches of 256), its attention_fwd
+     launches counted (161 for init_state's forward, 161 per batch), the
+     result finite and its discrete bits/dim 8 above the continuous;
   8. ResFlow training, no kernel of the port while it trains (nf_tpu's
      runs no Pallas kernel there), every call's launches counted:
      (a) ResFlow 2-D at the density zoo's shape (NETWORK_DEFAULTS
@@ -279,7 +285,19 @@ Phases, each of which exits non-zero when it fails:
      5 Adam steps on moons at B = 1024 (the gradient all-reduce, the
      reduced batch moments and the init broadcast on the card) against
      the plain Trainer's steps: losses and every parameter and buffer
-     bit for bit;
+     bit for bit; (e) the held-out evaluators (nf_tpu_torch/evaluate.py)
+     on the checkpoints (a) and (b) wrote: heldout_nll("realnvp", (b)'s
+     latest.npz, "moons") over the 16,384 held-out rows on the card, no
+     kernel launched (the eager chain, as nf_tpu's Trainer.log_prob), and
+     the same on the CPU, within 1e-5 relative; heldout_image_nll on
+     (a)'s latest.npz (step 6, trained unrolled: scan=False, remat=False)
+     over the 2,048 held-out images and 1 uniform dequantization (the
+     evaluator's default is 4; one keeps the phase inside the script's
+     time), its coupling_fwd launches exactly 161 x (1 + 8) (init_state's
+     forward, then 8 batches of 256 per draw) and no other kernel, the
+     first 16 images of draw 0 scored again on the CPU from the same
+     file, within 1e-4 of the largest |log p|; nats, both bits/dim and the
+     seconds printed;
  11. time each kernel (CUDA events over back-to-back launches, warm L2 as
      in a serving loop, the RealNVP and Glow stacks also in a CUDA graph
      and by their profiler records; the coupling kernels by their own
@@ -2581,6 +2599,33 @@ def vardequant_main_path(device, counters, launches_of, smi):
         "train_samples_per_s": K * B / (t_chunk / 1e3), "train_peak_memory_bytes": peak,
         "losses": losses, "elbo_neg_log_q": neg_logq, "elbo_d_log_256": d * math.log(256),
         "attention_launches": totals["attention_fwd"], "cpu_parity": parity, "card": smi}}))
+    return vardequant_evaluation(model, ts, counted)
+
+
+def vardequant_evaluation(model, ts, counted):
+    """The trained var_dequant state saved, then scored by the held-out
+    evaluator; returns its attention_fwd launches."""
+    from nf_tpu_torch import evaluate as ev
+    from nf_tpu_torch.train import save_checkpoint
+
+    n = IMG_COUPLINGS
+    label = "evaluate heldout_image_nll flowpp-img32x1 var_dequant"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "latest.npz")
+        save_checkpoint(path, model, ts)
+        t0 = time.perf_counter()
+        want = n * (1 + ev.N_HELDOUT // ev.IMAGE_BATCH)
+        r = counted("heldout_image_nll", lambda: ev.heldout_image_nll(
+            path, network="flow++", vardequant=True, scan=False, remat=False, draws=1),
+            {"attention_fwd": want})
+        seconds = time.perf_counter() - t0
+    print(image_bits_line(label, r, seconds) + f"; {want} attention_fwd launches, {n} a pass "
+          f"as phase 6's served pass")
+    check_image_bits(label, r, VD_TRAIN_CHUNK, 1)
+    check(r["vardequant"] is True, f"{label}: {r}")
+    print(json.dumps({"evaluate_vardequant": {**r, "wall_s": seconds,
+                                              "attention_launches": want}}))
+    return want
 
 
 # --------------------------------------------------------------------------
@@ -3286,6 +3331,9 @@ CLI_IMAGE_TAGS = {"image/train/loss", "image/train/bits_per_dim",
                   "image/train/bits_per_dim_discrete"}
 CLI_CHILD_TIMEOUT = 300
 CLI_LOADER_BATCHES = 64              # batches timed per data set (host time)
+EVAL_NLL_RTOL = 1e-5                 # the held-out NLL, card against the CPU
+EVAL_CPU_IMAGES = 16                 # held-out images of draw 0 scored on the CPU too
+EVAL_IMAGE_DRAWS = 1                 # uniform dequantizations of the held-out images
 
 
 def cli_records(run_dir):
@@ -3384,6 +3432,109 @@ def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+class LogProbRecorder:
+    """Records, while in use, the batch and the result of the first
+    ``Trainer.log_prob`` call; the method is restored on exit."""
+
+    def __enter__(self):
+        from nf_tpu_torch.train import Trainer
+
+        self.first = None
+        self._log_prob = log_prob = Trainer.log_prob
+
+        def recorded(trainer, ts, batch, generator=None):
+            out = log_prob(trainer, ts, batch, generator)
+            if self.first is None:
+                self.first = (torch.as_tensor(batch).float().cpu(), out.cpu())
+            return out
+
+        Trainer.log_prob = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from nf_tpu_torch.train import Trainer
+
+        Trainer.log_prob = self._log_prob
+
+
+def image_bits_line(label, r, seconds):
+    return (f"{label}: {r['n_heldout']} held-out images, {r['noise_draws']} draw(s), step "
+            f"{r['trained_steps']}: {r['heldout_nll_nats']:.4f} nats, "
+            f"{r['bits_per_dim_continuous']:.6f} bits/dim continuous, "
+            f"{r['bits_per_dim_discrete']:.6f} discrete; {seconds:.1f} s "
+            f"({r['eval_minutes'] * 60:.1f} s scoring)")
+
+
+def check_image_bits(label, r, trained_steps, draws):
+    numbers = [r["heldout_nll_nats"], r["bits_per_dim_continuous"],
+               r["bits_per_dim_discrete"], *r["heldout_nll_per_draw"]]
+    check(all(math.isfinite(v) for v in numbers), f"{label}: non-finite result {r}")
+    check(r["trained_steps"] == trained_steps and r["noise_draws"] == draws
+          and len(r["heldout_nll_per_draw"]) == draws, f"{label}: {r}")
+    offset = r["bits_per_dim_discrete"] - r["bits_per_dim_continuous"]
+    check(abs(offset - 8.0) < 1e-9, f"{label}: discrete - continuous bits/dim = {offset}")
+
+
+def evaluator_phase(image_ckpt, moons_ckpt, n, device, counters, launches_of, totals):
+    """Phase 10 (e): the held-out evaluators on the CLI's checkpoints."""
+    from nf_tpu_torch import evaluate as ev
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    card = counted_call("evaluate heldout_nll realnvp moons",
+                        lambda: ev.heldout_nll("realnvp", moons_ckpt, "moons"), {}, counters,
+                        launches_of, totals)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = ev.heldout_nll("realnvp", moons_ckpt, "moons", device="cpu")
+    t_cpu = time.perf_counter() - t0
+    a, b = card["heldout_nll_nats"], cpu["heldout_nll_nats"]
+    rel = abs(a - b) / abs(b)
+    print(f"evaluate heldout_nll realnvp moons (step {card['steps']}): {ev.HELDOUT_N} rows, "
+          f"{a:.6f} nats on the card in {t_card:.1f} s, {b:.6f} on the CPU in {t_cpu:.1f} s, "
+          f"relative difference {rel:.3e}")
+    check(math.isfinite(a) and card["steps"] == cpu["steps"] == 60,
+          f"evaluate moons: {card}")
+    check(rel <= EVAL_NLL_RTOL, f"evaluate moons: card and CPU NLL {rel:.3e} apart")
+
+    batches = ev.N_HELDOUT // ev.IMAGE_BATCH
+    t0 = time.perf_counter()
+    with LogProbRecorder() as rec:
+        img = counted_call(
+            "evaluate heldout_image_nll realnvp-img32x1",
+            lambda: ev.heldout_image_nll(image_ckpt, draws=EVAL_IMAGE_DRAWS, scan=False,
+                                         remat=False),
+            {"coupling_fwd": n * (1 + batches * EVAL_IMAGE_DRAWS)}, counters, launches_of,
+            totals)
+    t_img = time.perf_counter() - t0
+    label = "evaluate heldout_image_nll realnvp-img32x1"
+    print(image_bits_line(label, img, t_img))
+    check_image_bits(label, img, CLI_RESUMED, EVAL_IMAGE_DRAWS)
+    check(img["n_heldout"] == 2048, f"{label}: {img['n_heldout']} images")
+    # the first batch of draw 0 again on the CPU, from the same file
+    batch, card_lp = rec.first
+    t0 = time.perf_counter()
+    trainer, ts, _ = ev.restore("realnvp", IMG_DIMS, "image",
+                                ev.image_config("realnvp", scan=False, remat=False), None,
+                                image_ckpt, "cpu")
+    cpu_lp = trainer.log_prob(ts, batch[:EVAL_CPU_IMAGES])
+    card_lp = card_lp[:EVAL_CPU_IMAGES]
+    err = float((card_lp - cpu_lp).abs().max())
+    scale = float(cpu_lp.abs().max())
+    print(f"{label}: the first {EVAL_CPU_IMAGES} images of draw 0, card against CPU: "
+          f"max|dlog p| {err:.3e} at max|log p| {scale:.1f} ({err / scale:.3e} of it; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    check(bool(torch.isfinite(card_lp).all()) and err <= IMG_LOGP_RTOL * scale,
+          f"{label}: card and CPU log p {err} apart")
+    out = {"moons": {"card": card, "cpu": cpu, "rel_diff": rel, "card_s": t_card,
+                     "cpu_s": t_cpu},
+           "realnvp_img32x1": {**img, "wall_s": t_img, "cpu_max_abs_diff": err,
+                               "cpu_max_abs_logp": scale},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 10 (e) (the held-out evaluators) took {out['phase_s']:.1f} s")
+    return out
 
 
 def cli_phase(device, counters, launches_of):
@@ -3534,6 +3685,8 @@ def cli_phase(device, counters, launches_of):
                   f"world {world}, {reduces} all-reduces, {broadcasts} broadcasts; losses "
                   f"{a.tolist()} against {b.tolist()}, max rel diff {rel:.3e}")
             check(rel == 0.0, f"cli launch: losses off by {rel} (relative), not bit for bit")
+            out["evaluate"] = evaluator_phase(path, os.path.join(plain_dir, "latest.npz"), n,
+                                              device, counters, launches_of, totals)
         finally:
             os.chdir(here)
     # (d) Trainer(mesh=make_mesh()) on one NCCL rank, bit for bit the plain steps
@@ -3843,7 +3996,7 @@ def main():
     ffjord_main_path(dev, counters, launches_of, smi)
     print(f"phase 7 (flowpp-img32x1 var_dequant) starts at "
           f"{time.perf_counter() - t_start:.1f} s")
-    vardequant_main_path(dev, counters, launches_of, smi)
+    launches["attention_fwd"] += vardequant_main_path(dev, counters, launches_of, smi)
     print(f"phase 8 (ResFlow training) starts at {time.perf_counter() - t_start:.1f} s")
     for k, v in resflow_train_main_path(dev, counters, launches_of, smi, rf, errs).items():
         launches[k] += v

@@ -11,6 +11,10 @@ counterpart (a dotted path that must import, or None).  A re-export is
 covered by the entry of the name it re-exports.  Only JAX idiom and Pallas
 plumbing belong in the table: a name with a behaviour of its own is
 ported.
+
+Every file of nf_tpu's ``scripts/`` stands in ``SCRIPTS``: the port's
+counterpart (a dotted path that must import), or the one-line reason it
+stays with the JAX package; a new script fails until it is placed.
 """
 from __future__ import annotations
 
@@ -121,6 +125,43 @@ JAX_ONLY = {
     "nf_tpu.ops.pallas.mixlogcdf.use_pallas_bisect": (
         "the opt-in switch to the Pallas solve; the port's mix_log_cdf_inverse takes "
         "the kernel for a CUDA tensor", "nf_tpu_torch.bijectors.mixlogcdf.mix_log_cdf_inverse"),
+}
+
+
+_BENCH = "a bench of nf_tpu's; waits for the port's bench (bench.py too), a benchmark PR's"
+_STUDY = "a finished study of nf_tpu on the TPU, its numbers recorded in the JSON it wrote"
+_REFERENCE = "runs the original PyTorch reference, not nf_tpu"
+
+# nf_tpu's scripts/ -> (why it is not ported or None, the port's counterpart or None)
+SCRIPTS = {
+    "eval_nll.py": (None, "nf_tpu_torch.evaluate.heldout_nll"),
+    "eval_image_nll.py": (None, "nf_tpu_torch.evaluate.heldout_image_nll"),
+    "bench_scaling.py": (_BENCH, None),
+    "bench_trained.py": (_BENCH, None),
+    "compile_profile.py": ("XLA's compile time of nf_tpu's jitted Flow++ image step (XLA "
+                           "tooling; the port compiles no graph)", None),
+    "extract_curve.py": ("no JAX: it reads the metrics.jsonl the port's CLI writes in the same "
+                         "format, so it serves the port's runs as it is", None),
+    "flowpp_slow_probe.py": (_STUDY, None),
+    "image_parity.py": (_REFERENCE + " beside it on identical image data; the port is held to "
+                        "nf_tpu by tests/test_torch_*.py", None),
+    "img_mfu_probe.py": (_STUDY, None),
+    "img_trace.py": ("a JAX profiler trace of nf_tpu's image step (TPU tooling)",
+                     "nf_tpu_torch.utils.profiling.trace"),
+    "maf_trajectory.py": (_STUDY, None),
+    "measure_reference.py": (_REFERENCE, None),
+    "regen_goldens.py": ("regenerates the goldens of nf_tpu's own tests", None),
+    "reproduce_golden.py": ("a long run of nf_tpu's CLI for the reference's golden panels; the "
+                            "port's CLI writes the same panels", "nf_tpu_torch.main.main"),
+    "resflow_estimator_gap.py": (_STUDY, None),
+    "resflow_fixpoint_probe.py": (_STUDY, None),
+    "resflow_serving_profile.py": (_STUDY, None),
+    "tpu_queue_r3.sh": ("a TPU work queue of an earlier round (TPU tooling)", None),
+    "tpu_queue_r4.sh": ("a TPU work queue of an earlier round (TPU tooling)", None),
+    "train_reference_nll.py": (_REFERENCE, None),
+    "unported_kernel_bounds.py": ("bounds the kernels the port had not ported, from nf_tpu's "
+                                  "shapes under jax.eval_shape; every kernel is ported", None),
+    "vardequant_ab.py": (_STUDY, None),
 }
 
 
@@ -249,3 +290,23 @@ def test_jax_only_entry_is_live(qualified):
     if counterpart is not None:
         assert counterpart.startswith("nf_tpu_torch.")
         resolve(counterpart)
+
+
+SCRIPT_FILES = sorted(p.name for p in (ROOT / "scripts").iterdir() if p.is_file())
+
+
+@pytest.mark.parametrize("name", SCRIPT_FILES)
+def test_every_script_is_placed(name):
+    """The script has a counterpart in the port, which imports, or a
+    one-line reason it stays with the JAX package."""
+    assert name in SCRIPTS, f"scripts/{name} is in no SCRIPTS entry"
+    reason, counterpart = SCRIPTS[name]
+    assert reason is not None or counterpart is not None
+    assert reason is None or (reason and "\n" not in reason)
+    if counterpart is not None:
+        assert counterpart.startswith("nf_tpu_torch.")
+        assert callable(resolve(counterpart))
+
+
+def test_scripts_table_names_only_scripts():
+    assert sorted(SCRIPTS) == SCRIPT_FILES
