@@ -46,7 +46,7 @@ Phases, each of which exits non-zero when it fails:
      never the eager chain, at the tolerances above;
      the wide paths (wide_paths), at B = 1000 through the entry points a
      user calls, each call's launches counted (one, on its kernel and
-     path, launches_by_path) and held against its plain version at the
+     path, the launch span's name) and held against its plain version at the
      tolerances above: RealNVP and Glow at D = 400 and 1024, F = 32, and
      RealNVP at D = 400 and 63 (BSDS300's patches), F = 256, two couplings
      (the cluster kernel: 4 blocks share 48 samples, 32 for Glow at D =
@@ -267,7 +267,7 @@ Phases, each of which exits non-zero when it fails:
      counted the same way, its files at step 5), and latest.npz loaded
      back through the port at step 6, log p of 64 pixels finite;
      utils/profiling.trace round one forward of the reloaded model, its
-     trace file written and naming coupling_fwd; the host's ms per
+     trace file written and naming launch.coupling_fwd; the host's ms per
      FlowDataLoader.next_batch at 1024 rows (moons, and synthetic MNIST
      dequantized) printed beside the data tier; (b) main(["network=realnvp",
      "run.distrib=moons", "run.display=0.6", "run.seed=0",
@@ -469,8 +469,8 @@ KERNEL_SOURCES = {
                             "nf_tpu/ops/pallas/mixlogcdf.py:51"),
     # the wide paths: the stack's cluster kernel, the ResFlow wide kernel
     # and the attention wide kernel, each under its own name here
-    # (their wrappers count them under the names above, split by
-    # launches_by_path)
+    # (their wrappers count them under the names above; the launch spans
+    # name the path)
     "fused_stack_wide_fwd": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
                              "nf_tpu/ops/pallas/fused_stack.py:397"),
     "fused_stack_wide_inv": ("nf_tpu_torch/csrc/fused_stack_wide.cu",
@@ -1096,6 +1096,8 @@ def check_wide_stacks(fs, device, counters, launches_of, errs):
     kernel on the 16-sample tiling, or at CLUSTER_PAST_TILES' widths (F =
     32 here) of the cluster kernel (never the eager chain), against the
     plain version; the cluster kernel's errors go to its wide entry."""
+    from nf_tpu_torch.utils import tracing
+
     for name, D, layers, F in WIDE_STACK_CASES:
         _, prog, g = perturbed_program(name, D, layers, F, device, SEED + D)
         stack = prog.stack
@@ -1108,11 +1110,12 @@ def check_wide_stacks(fs, device, counters, launches_of, errs):
         x = torch.randn(WIDE_STACK_BATCH, D, generator=g, device=device)
         for direction, kname in zip(("forward", "inverse"), MODELS[name]):
             reset_all(counters)
-            y, ld = getattr(prog, direction)(x)
+            with tracing.recording() as spans:
+                y, ld = getattr(prog, direction)(x)
             torch.cuda.synchronize()
             got = {k: v for k, v in launches_of().items() if v}
-            check(got == {kname: 1} and fs.launches_by_path == {path: 1},
-                  f"{name} D={D} {direction}: launches {got}, {dict(fs.launches_by_path)}")
+            check(got == {kname: 1} and launch_paths(spans) == {path: 1},
+                  f"{name} D={D} {direction}: launches {got}, {launch_paths(spans)}")
             yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
             ey, eld = max_diff(y, yr), max_diff(ld, ldr)
             print(f"check {kname} D={D} n={layers} F={F} B={WIDE_STACK_BATCH} ({path}, "
@@ -1146,6 +1149,8 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
     the CPU, 1e-4).  Returns ({wide name: launches}, the timing records)."""
     import copy
 
+    from nf_tpu_torch.utils import tracing
+
     import torch.nn.functional as F_
 
     from nf_tpu_torch.nets.gated import GatedAttn
@@ -1154,13 +1159,14 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
     launches = dict.fromkeys(WIDE_NAMES.values(), 0)
     records = []
 
-    def counted(what, fn, base, module, path):
+    def counted(what, fn, base, path):
         reset_all(counters)
-        out = fn()
+        with tracing.recording() as spans:
+            out = fn()
         torch.cuda.synchronize()
         got = {k: v for k, v in launches_of().items() if v}
-        check(got == {base: 1} and dict(module.launches_by_path) == {path: 1},
-              f"{what}: launches {got}, by path {dict(module.launches_by_path)}")
+        check(got == {base: 1} and launch_paths(spans) == {path: 1},
+              f"{what}: launches {got}, by path {launch_paths(spans)}")
         launches[WIDE_NAMES[base]] += 1
         return out
 
@@ -1175,7 +1181,7 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
         x = torch.randn(WIDE_BATCH, D, generator=g, device=device)
         for direction, base in zip(("forward", "inverse"), MODELS[name]):
             y, ld = counted(f"{name} D={D} F={F} {direction}",
-                            lambda: getattr(prog, direction)(x), base, fs, "ffma_cluster")
+                            lambda: getattr(prog, direction)(x), base, "ffma_cluster")
             yr, ldr = fs.fused_stack_reference(stack.packed, stack.const_ld, x, direction)
             ey, eld = max_diff(y, yr), max_diff(ld, ldr)
             kname = WIDE_NAMES[base]
@@ -1224,18 +1230,18 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
               f"{plan.chunk} columns and {plan.kchunk} rows, {plan.smem_bytes} bytes of "
               f"shared memory a member")
         z, ld = counted(f"resflow D={D} F={F} forward", lambda: prog.forward(x),
-                        "fused_resflow_fwd_ld", rf, "wide")
+                        "fused_resflow_fwd_ld", "wide")
         zr, ldr = rf.fused_resflow_fwd_logdet_reference(prog.stack.spec, prog.stack.packed, x,
                                                         probes)
         xi, ldi = counted(f"resflow D={D} F={F} inverse", lambda: prog.inverse(zr),
-                          "fused_resflow_solve_ld", rf, "wide")
+                          "fused_resflow_solve_ld", "wide")
         trips_ld = []
         xr, ldir = rf.fused_resflow_solve_logdet_reference(prog.stack.spec, prog.stack.packed,
                                                            zr, probes, trips_ld)
         ze = rf.fused_resflow_fwd_logdet_reference(exact.stack.spec, exact.stack.packed, x,
                                                    probes)[0]
         xs, _ = counted(f"resflow D={D} F={F} exact inverse", lambda: exact.inverse(ze),
-                        "fused_resflow_solve", rf, "wide")
+                        "fused_resflow_solve", "wide")
         trips = []
         xsr = rf.fused_resflow_solve_reference(exact.stack.spec, exact.stack.packed, ze, trips)
         for base, got, want, tol in (
@@ -1289,7 +1295,7 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
     for i, (BH, L, D) in enumerate(WIDE_ATTN_CASES):
         q, k, v = (torch.randn(BH, L, D, generator=g, device=device) for _ in range(3))
         out = counted(f"attention ({BH}, {L}, {D})", lambda: ta.attention(q, k, v),
-                      "attention_fwd", ca, "wide")
+                      "attention_fwd", "wide")
         want = ta.attention_reference(q, k, v)
         lib = F_.scaled_dot_product_attention(q, k, v)
         e, e_lib = max_diff(out, want), max_diff(lib, want)
@@ -1315,7 +1321,7 @@ def wide_paths(fs, rf, ca, ta, device, counters, launches_of, errs):
             xa = torch.randn(BH // 4, side, side, 8, generator=g, device=device)
             with torch.no_grad():
                 ya = counted(f"GatedAttn filters={4 * D} on ({BH // 4}, {side}, {side}, 8)",
-                             lambda: net(xa), "attention_fwd", ca, "wide")
+                             lambda: net(xa), "attention_fwd", "wide")
                 yc = copy.deepcopy(net).cpu()(xa.cpu())
             ea = max_diff(ya.cpu(), yc)
             print(f"check GatedAttn filters={4 * D} ({BH // 4}, {side}, {side}, 8) on the "
@@ -1930,6 +1936,8 @@ def flowpp_image_main_path(device, counters, launches_of, ca):
     """flowpp-img32x1 through EvalProgram's eager chain, each call's
     launches counted (161 attention_fwd, 64 / 64 / 33 by L, nothing else);
     log p and the inverse held against the same model on the CPU."""
+    from nf_tpu_torch.utils import tracing
+
     from nf_tpu_torch.bijectors.flowpp_coupling import MixLogAttnCoupling
 
     cfg = flowpp_image_config()
@@ -1951,10 +1959,14 @@ def flowpp_image_main_path(device, counters, launches_of, ca):
     want = {"attention_fwd": IMG_COUPLINGS}
 
     def counted(what, fn):
-        out = counted_call(f"flowpp-img32x1 {what}", fn, want, counters, launches_of, totals)
-        by_len = dict(ca.launches_by_len)
+        with tracing.recording() as spans:
+            out, by_len = launches_by_length(ca, lambda: counted_call(
+                f"flowpp-img32x1 {what}", fn, want, counters, launches_of, totals))
         print(f"  attention_fwd launches by L: {by_len}")
         check(by_len == FLOWPP_IMG_LENGTHS, f"flowpp-img32x1 {what}: attention by L {by_len}")
+        check(launch_paths(spans) == {"one_pass": IMG_COUPLINGS},
+              f"flowpp-img32x1 {what}: attention off its one-pass kernel: "
+              f"{launch_paths(spans)}")
         return out
 
     t0 = time.perf_counter()
@@ -3375,8 +3387,8 @@ def trace_names_coupling(model, trainer, ts, x, folder):
         trainer.log_prob(ts, x)
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
-    named = sum(e.get("name") == "coupling_fwd" for e in events)
-    check(named > 0, f"trace: {prof.trace_path} does not name coupling_fwd")
+    named = sum(e.get("name") == "launch.coupling_fwd" for e in events)
+    check(named > 0, f"trace: {prof.trace_path} does not name launch.coupling_fwd")
     return {"file_bytes": os.path.getsize(prof.trace_path), "events": len(events),
             "coupling_fwd_ranges": named}
 
@@ -3737,6 +3749,33 @@ def reset_all(modules):
         m.reset_launches()
 
 
+def launch_paths(spans) -> dict:
+    """{kernel path: launches} over a recording's launch spans named
+    ``launch.<LAUNCHES key>.<path>`` (utils/tracing.py)."""
+    paths = {}
+    for name, n in spans.counts("launch.").items():
+        if name.count(".") == 2:
+            path = name.rsplit(".", 1)[1]
+            paths[path] = paths.get(path, 0) + n
+    return paths
+
+
+def launches_by_length(ca, fn):
+    """(fn(), {L: attention launches}): the attention wrapper's launches
+    in fn counted by sequence length."""
+    by_len, launch = {}, ca.launch
+
+    def counting(q, k, v):
+        by_len[q.shape[1]] = by_len.get(q.shape[1], 0) + 1
+        return launch(q, k, v)
+
+    ca.launch = counting
+    try:
+        return fn(), by_len
+    finally:
+        ca.launch = launch
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3752,6 +3791,7 @@ def main():
     from nf_tpu_torch.ops.cuda import mixlogcdf as cm
     from nf_tpu_torch.ops.estimators import draw_unbias_probes, eval_probes
     from nf_tpu_torch.ops.math import standard_normal_logprob
+    from nf_tpu_torch.utils import tracing
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3893,8 +3933,9 @@ def main():
         x = torch.randn(BATCH, 2, generator=gen, device=dev)
 
         reset_all(counters)
-        log_px = prog.log_prob(x)
-        y_s, log_py = prog.sample(BATCH, gen)
+        with tracing.recording() as spans:
+            log_px = prog.log_prob(x)
+            y_s, log_py = prog.sample(BATCH, gen)
         torch.cuda.synchronize()
         counts = launches_of()
         print(f"main path {model_name} launches: { {k: v for k, v in counts.items() if v} }")
@@ -3902,7 +3943,7 @@ def main():
               f"{model_name}: expected one launch of its kernel per call, got {counts}")
         # the headline keeps its kernels and tilings: the tensor-core
         # stack, the 16-sample ResFlow series tiles at (FP, DP) = (32, 2)
-        paths = {**fs.launches_by_path, **rf.launches_by_path}
+        paths = launch_paths(spans)
         want = {"realnvp": {"mma": 2}, "glow": {"mma": 2}, "flow++": {},
                 "resflow": {"tile": 2}}[model_name]
         tiling = {"realnvp": lambda st: st.variant == "mma" and st.kernel.layout.fp == 32,
@@ -3951,15 +3992,16 @@ def main():
     exact = model.eval_program(params)
     x = torch.randn(BATCH, 2, generator=gen, device=dev)
     reset_all(counters)
-    z, ld = exact.forward(x)
-    xr, ldi = exact.inverse(z)
+    with tracing.recording() as spans:
+        z, ld = exact.forward(x)
+        xr, ldi = exact.inverse(z)
     torch.cuda.synchronize()
     counts = launches_of()
     print(f"main path resflow exact launches: { {k: v for k, v in counts.items() if v} }")
     check(counts == {k: int(k == "fused_resflow_solve") for k in counts}
-          and rf.launches_by_path == {"warp": 1},
+          and launch_paths(spans) == {"warp": 1},
           f"resflow exact: expected one solve launch (the warp kernel) per inverse, got "
-          f"{counts}, {dict(rf.launches_by_path)}")
+          f"{counts}, {launch_paths(spans)}")
     launches["fused_resflow_solve"] = counts["fused_resflow_solve"]
     rt, ld_sum = float((xr - x).abs().max()), float((ld + ldi).abs().max())
     with torch.no_grad():
@@ -3988,8 +4030,6 @@ def main():
     print(f"phase 6 (image Flow++ main path) starts at {time.perf_counter() - t_start:.1f} s")
     fp = flowpp_image_main_path(dev, counters, launches_of, ca)
     launches["attention_fwd"] = fp["totals"]["attention_fwd"]
-    check(set(ca.launches_by_path) == {"one_pass"},
-          f"flowpp-img32x1: attention off its one-pass kernel: {dict(ca.launches_by_path)}")
     mix_main, mix_totals = mixlogcdf_main_path(dev, counters, launches_of)
     launches["mix_log_cdf_inverse"] = mix_totals["mix_log_cdf_inverse"]
     print(f"phase 7 (FFJORD) starts at {time.perf_counter() - t_start:.1f} s")

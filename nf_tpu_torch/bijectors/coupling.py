@@ -11,6 +11,9 @@ conditioner is an MLP for 1-D data and a ConvNet for images, its
 channel-last output split into t (the first ``out_chs`` channels) and
 raw_s (the rest).
 
+The split, the conditioner and the merge are the spans ``coupling.split``,
+``coupling.net`` and ``coupling.merge`` (``utils/tracing.py``).
+
 The transform goes through ``ops/cuda/coupling.py``'s dispatchers on the
 flattened halves: a half a multiple of 128 wide (every image coupling of
 the zoo) runs the CUDA kernels on the card, with the analytic backward;
@@ -29,6 +32,7 @@ from ..core.bijector import Bijector
 from ..nets.conditioners import MLP, ConvNet
 from ..ops import squeeze as sq
 from ..ops.cuda.coupling import coupling_fwd, coupling_inv
+from ..utils.tracing import span
 
 
 def split1d(z, odd: bool = False):
@@ -79,14 +83,18 @@ class _CouplingBase(Bijector):
         return c // 2, c - c // 2
 
     def forward(self, x):
-        z0, z1 = self._split(x, self.odd)
+        with span("coupling.split"):
+            z0, z1 = self._split(x, self.odd)
         z0, ld = self._transform(z0, z1)
-        return self._merge(z0, z1, self.odd), ld
+        with span("coupling.merge"):
+            return self._merge(z0, z1, self.odd), ld
 
     def inverse(self, y):
-        y0, y1 = self._split(y, self.odd)
+        with span("coupling.split"):
+            y0, y1 = self._split(y, self.odd)
         y0, ld = self._inverse_transform(y0, y1)
-        return self._merge(y0, y1, self.odd), ld
+        with span("coupling.merge"):
+            return self._merge(y0, y1, self.odd), ld
 
 
 def _flat2d(x):
@@ -111,11 +119,13 @@ class AdditiveCoupling(_CouplingBase):
         self.net = _conditioner(self, 1, base_filters, device, compute_dtype)
 
     def _transform(self, z0, z1):
-        t = self.net(z1).to(torch.float32)
+        with span("coupling.net"):
+            t = self.net(z1).to(torch.float32)
         return z0 + t, torch.zeros(z0.shape[0], dtype=torch.float32, device=z0.device)
 
     def _inverse_transform(self, y0, y1):
-        t = self.net(y1).to(torch.float32)
+        with span("coupling.net"):
+            t = self.net(y1).to(torch.float32)
         return y0 - t, torch.zeros(y0.shape[0], dtype=torch.float32, device=y0.device)
 
 
@@ -138,7 +148,8 @@ class AffineCoupling(_CouplingBase):
             p.copy_(z * 0.01)
 
     def _shift_raw(self, z1):
-        raw = self.net(z1).to(torch.float32)
+        with span("coupling.net"):
+            raw = self.net(z1).to(torch.float32)
         return _flat2d(raw[..., :self.out_chs]), _flat2d(raw[..., self.out_chs:])
 
     def _transform(self, z0, z1):

@@ -48,6 +48,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.tracing import span
+
 # > 0 while a rematerialized forward is recomputed in the backward pass
 _REPLAYS = 0
 
@@ -110,6 +112,11 @@ class Bijector(nn.Module):
     takes_generator = False
     inverse_takes_generator = False
     debug_tag: Optional[str] = None
+    span_name = "layer.Bijector"
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        cls.span_name = f"layer.{cls.__name__}"   # call_forward / call_inverse's span
 
     def init(self, generator: torch.Generator) -> None:
         """Re-draw this bijector's parameters in place."""
@@ -147,29 +154,32 @@ def check_finite(tag: str, out):
 def call_forward(layer: Bijector, x: torch.Tensor, probes=None,
                  generator: Optional[torch.Generator] = None):
     """``layer(x)`` with the probes and the generator it takes (probed
-    when the layer has a ``debug_tag``)."""
+    when the layer has a ``debug_tag``), in the span ``layer.<its class>``."""
     kw = {}
     if layer.takes_probes:
         kw["probes"] = probes
     if layer.takes_generator:
         kw["generator"] = generator
-    if layer.debug_tag is not None:
-        return check_finite(f"{layer.debug_tag}.forward", layer(x, **kw))
-    return layer(x, **kw)
+    with span(layer.span_name):
+        if layer.debug_tag is not None:
+            return check_finite(f"{layer.debug_tag}.forward", layer(x, **kw))
+        return layer(x, **kw)
 
 
 def call_inverse(layer: Bijector, y: torch.Tensor,
                  generator: Optional[torch.Generator] = None, probes=None):
     """``layer.inverse(y)`` with the probes and the generator it takes
-    (probed when the layer has a ``debug_tag``)."""
+    (probed when the layer has a ``debug_tag``), in the span
+    ``layer.<its class>``."""
     kw = {}
     if layer.takes_probes:
         kw["probes"] = probes
     if layer.inverse_takes_generator:
         kw["generator"] = generator
-    if layer.debug_tag is not None:
-        return check_finite(f"{layer.debug_tag}.inverse", layer.inverse(y, **kw))
-    return layer.inverse(y, **kw)
+    with span(layer.span_name):
+        if layer.debug_tag is not None:
+            return check_finite(f"{layer.debug_tag}.inverse", layer.inverse(y, **kw))
+        return layer.inverse(y, **kw)
 
 
 class _Sequence(Bijector):

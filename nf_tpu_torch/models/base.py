@@ -25,6 +25,7 @@ from ..ops.cuda.fused_stack import (PackedStack, StackSpec, extract_stack_spec,
 from ..ops.estimators import Probes, eval_probes
 from ..ops.math import standard_normal_logprob
 from ..utils.debug import probed
+from ..utils.tracing import span
 
 # ResFlow serving probe sets an EvalProgram keeps, one per batch size, the
 # most recently used; an evicted set is drawn again, the same, when needed
@@ -164,7 +165,12 @@ class EvalProgram:
     ``CheckedBijector``, runs eagerly whatever pattern it matches,
     through ``call_forward`` / ``call_inverse``, so every layer is
     checked: ``nf_tpu``'s probe wrappers hide the layers from its fused
-    matchers alike.  ResFlow's blocks get their probe sets as above."""
+    matchers alike.  ResFlow's blocks get their probe sets as above.
+
+    Under ``utils/tracing.recording()`` a call is a request's root span
+    (``EvalProgram.log_prob`` / ``.sample``), with ``EvalProgram.input``
+    (the input's move and the eval-mode check), ``.draw`` (the base draw)
+    and ``.logp`` (the log-density's epilogue) inside it."""
 
     def __init__(self, model: FlowModel, probes: Optional[Probes] = None):
         self.model = model.eval()
@@ -234,9 +240,10 @@ class EvalProgram:
         return x, -ld
 
     def _input(self, x):
-        if self.model.training:
-            self.model.eval()
-        return x.to(device=self.device, dtype=torch.float32).contiguous()
+        with span("EvalProgram.input"):
+            if self.model.training:
+                self.model.eval()
+            return x.to(device=self.device, dtype=torch.float32).contiguous()
 
     @torch.no_grad()
     def forward(self, x):
@@ -248,15 +255,18 @@ class EvalProgram:
         """latent -> data; returns (y, logdet of the inverse)."""
         return self._inv(self._input(z))
 
-    @torch.no_grad()
     def log_prob(self, x):
         """log p(x) under the flow; returns (B,)."""
-        z, logdet = self.forward(x)
-        return standard_normal_logprob(z) + logdet
+        with span("EvalProgram.log_prob", request=True), torch.no_grad():
+            z, logdet = self.forward(x)
+            with span("EvalProgram.logp"):
+                return standard_normal_logprob(z) + logdet
 
-    @torch.no_grad()
     def sample(self, n: int, generator: torch.Generator):
         """Draw n samples; returns (y, log p(y))."""
-        z = _normal(generator, (n,) + self.dims, self.device)
-        y, logdet_inv = self.inverse(z)
-        return y, standard_normal_logprob(z) - logdet_inv
+        with span("EvalProgram.sample", request=True), torch.no_grad():
+            with span("EvalProgram.draw"):
+                z = _normal(generator, (n,) + self.dims, self.device)
+            y, logdet_inv = self.inverse(z)
+            with span("EvalProgram.logp"):
+                return y, standard_normal_logprob(z) - logdet_inv

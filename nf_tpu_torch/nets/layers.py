@@ -28,6 +28,7 @@ from torch import nn
 from ..core.bijector import replaying
 from ..ops import precision as pm
 from ..parallel.distributed import all_reduce_sum, batch_mesh, global_batch  # noqa: F401
+from ..utils.tracing import span
 from .core import Net
 
 _WN_EPS = 1.0e-5
@@ -85,8 +86,9 @@ class Dense(Net):
             self.w.copy_(w)
 
     def weight(self) -> torch.Tensor:
-        """The effective (out, in) weight."""
-        return _weight_normed(self.v, self.g) if self.weight_norm else self.w
+        """The effective (out, in) weight, in the span ``net.weight``."""
+        with span("net.weight"):
+            return _weight_normed(self.v, self.g) if self.weight_norm else self.w
 
     def forward(self, x):
         d = self.compute_dtype
@@ -136,8 +138,9 @@ class Conv2d(Net):
             self.w.copy_(w)
 
     def weight(self) -> torch.Tensor:
-        """The effective (out, in, kh, kw) weight."""
-        return _weight_normed(self.v, self.g) if self.weight_norm else self.w
+        """The effective (out, in, kh, kw) weight, in the span ``net.weight``."""
+        with span("net.weight"):
+            return _weight_normed(self.v, self.g) if self.weight_norm else self.w
 
     def forward(self, x):
         d = self.compute_dtype

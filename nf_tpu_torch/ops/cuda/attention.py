@@ -12,8 +12,8 @@ the kernel; its backward recomputes through the plain version's autograd
 attention.  ``launch`` checks device, dtype, shape and contiguity and
 raises on anything the kernels do not take: they cover any L >= 1 and
 D >= 1 (and refuse a grid past the card's limits).  ``LAUNCHES``
-counts the launches where they happen, ``launches_by_len`` splits them by
-sequence length and ``launches_by_path`` by kernel.
+counts the launches where they happen; each launch is the span
+``launch.attention_fwd.<path(D)>`` (``utils/tracing.py``).
 
 Up to D = ``ONE_PASS_MAX_DIM`` (128) the kernel is one pass with an
 online softmax, both products on tensor cores in 3xTF32 (f32 accuracy), a
@@ -35,16 +35,13 @@ D = 8 operations bound it; at L = 64 and 16, bytes.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
+from ...utils.tracing import span
 from . import _build
 
 LAUNCHES = {"attention_fwd": 0}
-launches_by_len: Counter = Counter()
-# launches by kernel: "one_pass" (D <= ONE_PASS_MAX_DIM), "wide" (past it)
-launches_by_path: Counter = Counter()
 ONE_PASS_MAX_DIM = 128  # the one-pass kernel's D, zero-padded to a multiple of 8
 GROUP_COLUMNS = 1024  # output columns of a wide block: 16 warps' column slabs of 64
 WIDE_WARPS = 16       # warps of a wide kernel block
@@ -61,8 +58,6 @@ TILE_BYTES = 49152    # two staged tiles' k and v of a block, where a tile allow
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    launches_by_len.clear()
-    launches_by_path.clear()
 
 
 def padded_dim(D: int) -> int:
@@ -197,6 +192,11 @@ def _fn(name: str):
 def launch(q, k, v):
     """The kernel on contiguous float32 (BH, L, D) q, k, v on one CUDA
     device: out (BH, L, D)."""
+    with span(f"launch.attention_fwd.{path(q.shape[-1])}"):
+        return _launch(q, k, v)
+
+
+def _launch(q, k, v):
     if not q.is_cuda:
         raise ValueError(f"the attention kernel needs a CUDA tensor, got {q.device}")
     if q.dim() != 3:
@@ -226,8 +226,6 @@ def launch(q, k, v):
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel failed to launch: CUDA error {err}")
     LAUNCHES["attention_fwd"] += 1
-    launches_by_len[L] += 1
-    launches_by_path[kernel] += 1
     return out
 
 

@@ -31,11 +31,11 @@ XLA compiles there).  Beside them, their plain PyTorch versions
 
 gain and bias stay on the device: the kernels read them from device
 memory, so a call never synchronizes.  ``LAUNCHES`` counts each wrapper's
-launches where it launches.  The backward is one launch: its last block
-folds the rows' partial sums into dgain and dbias in a fixed order
-(``FOLD_THREADS`` threads, rows strided, then a butterfly per warp and the
-warps in order), found by an atomic ticket that ``_ticket`` keeps zeroed
-per device and stream.
+launches where it launches; each launch is the span ``launch.<its key>``.
+The backward is one launch: its last block folds the rows' partial sums
+into dgain and dbias in a fixed order (``FOLD_THREADS`` threads, rows
+strided, then a butterfly per warp and the warps in order), found by an
+atomic ticket that ``_ticket`` keeps zeroed per device and stream.
 
 Bound (H100 SXM): 16 bytes per element for the forward and the inverse
 (three reads, one write), 20 for the backward (three reads, two writes)
@@ -44,14 +44,15 @@ memory bounds them: 2.5 us per forward call at (1024, 512) at 3.35 TB/s.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
+from ...utils.tracing import span
 from . import _build
 
 LAUNCHES = {"coupling_fwd": 0, "coupling_inv": 0, "coupling_bwd": 0}
+SPANS = {k: f"launch.{k}" for k in LAUNCHES}   # each launch's span (utils/tracing.py)
 LANES = 128   # nf_tpu's gate: the flattened half's width is a multiple of this
 # csrc/coupling.cu: a block is ROWS_PER_BLOCK warps, one row each; the
 # last block folds the partials with its FOLD_THREADS threads
@@ -127,14 +128,6 @@ def _check(name, halves, scalars):
                              f"{ref.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _labelled(name):
-    """A profiler range named for the kernel while a profiler records
-    (``utils/profiling.trace``); nothing otherwise."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"{what} kernel failed to launch: CUDA error {err}")
@@ -143,20 +136,21 @@ def _raise_on(err, what):
 def launch(a, t, raw_s, gain, bias, inverse: bool):
     """The forward (or inverse) kernel on (B, N) halves: (out, ld (B,))."""
     name = "coupling_inv" if inverse else "coupling_fwd"
-    _check(name, (a, t, raw_s), (gain, bias))
-    B, N = a.shape
-    out = torch.empty_like(a)
-    ld = torch.empty(B, dtype=torch.float32, device=a.device)
-    if B == 0:
+    with span(SPANS[name]):
+        _check(name, (a, t, raw_s), (gain, bias))
+        B, N = a.shape
+        out = torch.empty_like(a)
+        ld = torch.empty(B, dtype=torch.float32, device=a.device)
+        if B == 0:
+            return out, ld
+        with torch.cuda.device(a.device):
+            err = _fn("nf_coupling", 7, 3)(
+                a.data_ptr(), t.data_ptr(), raw_s.data_ptr(), gain.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), ld.data_ptr(), B, N, int(inverse),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
         return out, ld
-    with torch.cuda.device(a.device), _labelled(name):
-        err = _fn("nf_coupling", 7, 3)(
-            a.data_ptr(), t.data_ptr(), raw_s.data_ptr(), gain.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), ld.data_ptr(), B, N, int(inverse),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out, ld
 
 
 def _ticket(device, stream):
@@ -172,27 +166,29 @@ def _ticket(device, stream):
 def launch_bwd(z0, raw_s, gain, bias, gy, gld):
     """The backward kernel, one launch: (gz0, graw, dgain, dbias); gt is gy
     itself."""
-    _check("coupling_bwd", (z0, raw_s, gy), (gain, bias))
-    B, N = z0.shape
-    if gld.device != z0.device or gld.dtype != torch.float32 or gld.shape != (B,) \
-            or not gld.is_contiguous():
-        raise ValueError(f"coupling_bwd kernel takes a contiguous float32 ({B},) gld, "
-                         f"got {gld.dtype} {tuple(gld.shape)} on {gld.device}")
-    gz0 = torch.empty_like(z0)
-    graw = torch.empty_like(z0)
-    partial = torch.empty(B, 2, dtype=torch.float32, device=z0.device)
-    dgain = torch.empty_like(gain)
-    dbias = torch.empty_like(bias)
-    with torch.cuda.device(z0.device), _labelled("coupling_bwd"):
-        stream = torch.cuda.current_stream().cuda_stream
-        ticket = _ticket(z0.device, stream)
-        err = _fn("nf_coupling_bwd", 12, 2)(
-            gy.data_ptr(), gld.data_ptr(), z0.data_ptr(), raw_s.data_ptr(), gain.data_ptr(),
-            bias.data_ptr(), gz0.data_ptr(), graw.data_ptr(), partial.data_ptr(),
-            ticket.data_ptr(), dgain.data_ptr(), dbias.data_ptr(), B, N, stream)
-    _raise_on(err, "coupling_bwd")
-    LAUNCHES["coupling_bwd"] += 1
-    return gz0, graw, dgain, dbias
+    with span(SPANS["coupling_bwd"]):
+        _check("coupling_bwd", (z0, raw_s, gy), (gain, bias))
+        B, N = z0.shape
+        if gld.device != z0.device or gld.dtype != torch.float32 or gld.shape != (B,) \
+                or not gld.is_contiguous():
+            raise ValueError(f"coupling_bwd kernel takes a contiguous float32 ({B},) gld, "
+                             f"got {gld.dtype} {tuple(gld.shape)} on {gld.device}")
+        gz0 = torch.empty_like(z0)
+        graw = torch.empty_like(z0)
+        partial = torch.empty(B, 2, dtype=torch.float32, device=z0.device)
+        dgain = torch.empty_like(gain)
+        dbias = torch.empty_like(bias)
+        with torch.cuda.device(z0.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            ticket = _ticket(z0.device, stream)
+            err = _fn("nf_coupling_bwd", 12, 2)(
+                gy.data_ptr(), gld.data_ptr(), z0.data_ptr(), raw_s.data_ptr(),
+                gain.data_ptr(), bias.data_ptr(), gz0.data_ptr(), graw.data_ptr(),
+                partial.data_ptr(), ticket.data_ptr(), dgain.data_ptr(), dbias.data_ptr(),
+                B, N, stream)
+        _raise_on(err, "coupling_bwd")
+        LAUNCHES["coupling_bwd"] += 1
+        return gz0, graw, dgain, dbias
 
 
 def _dense(x):

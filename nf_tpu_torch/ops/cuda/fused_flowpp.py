@@ -61,6 +61,7 @@ from ...core.bijector import Chain
 from ...nets.core import Sequential
 from ...nets.gated import GatedAttn, GatedLinear, LayerNormNet
 from ...nets.layers import Dense
+from ...utils.tracing import span
 from . import _build
 
 LN_EPS = 1.0e-5
@@ -72,6 +73,7 @@ MIXTURES = (8, 32)                # and padded mixture counts KP
 
 # launches of each kernel, counted by the wrapper where it launches
 LAUNCHES = {"fused_flowpp_fwd": 0, "fused_flowpp_inv": 0}
+SPANS = {False: "launch.fused_flowpp_fwd", True: "launch.fused_flowpp_inv"}  # by inverse
 
 
 def reset_launches() -> None:
@@ -432,6 +434,11 @@ def _kernel_fn():
 
 def launch(stack: PackedFlowpp, x: torch.Tensor, inverse: bool):
     """Launch the CUDA kernel on ``x`` (B, 2): returns (y, logdet (B,))."""
+    with span(SPANS[inverse]):
+        return _launch(stack, x, inverse)
+
+
+def _launch(stack: PackedFlowpp, x: torch.Tensor, inverse: bool):
     kw, spec = stack.kernel, stack.spec
     if not x.is_cuda:
         raise ValueError(f"fused_flowpp kernel needs a CUDA tensor, got {x.device}")

@@ -51,8 +51,8 @@ series lengths n_terms (S,).  ``fused_resflow`` is the wrapper: for CPU
 tensors it runs the plain PyTorch versions
 (``fused_resflow_solve_reference``, ``..._solve_logdet_reference``,
 ``..._fwd_logdet_reference``); for CUDA tensors it launches the kernel or
-raises, and counts the launch in ``LAUNCHES`` (and by kernel in
-``launches_by_path``: 'tile', 'warp' or 'wide').
+raises, and counts the launch in ``LAUNCHES``; each launch is the span
+``launch.<LAUNCHES key>.<kernel>``, the kernel 'tile', 'warp' or 'wide'.
 
 Stopping: the plain versions stop the fixed point on the whole batch, as
 the chain does; the series kernels stop per block, a tile of ``SAMPLES``
@@ -74,7 +74,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from collections import Counter
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -87,6 +86,7 @@ from ...nets.core import Sequential
 from ...nets.spectral import LipSwish, SpectralNormDense
 from .. import estimators as est
 from ..estimators import N_EXACT, N_SAMPLES, Probes, draw_unbias_probes  # noqa: F401
+from ...utils.tracing import span
 from . import _build
 
 SMEM_LIMIT = 232448        # dynamic shared memory one Hopper block may use
@@ -96,9 +96,6 @@ DIMS = (2, 4, 8)                # and padded data dimensions DP; past them the w
 # launches of each kernel variant, counted by the wrapper where it launches
 LAUNCHES = {"fused_resflow_solve": 0, "fused_resflow_solve_ld": 0,
             "fused_resflow_fwd_ld": 0}
-# the same launches by kernel: 'tile' (the series template, and the solve past
-# SOLVE_WIDTHS), 'warp' (the solve kernel), 'wide' (past WIDTHS or DIMS)
-launches_by_path: Counter = Counter()
 # direction -> (kernel variant id, counter)
 _VARIANTS = {"solve": (0, "fused_resflow_solve"), "inverse": (1, "fused_resflow_solve_ld"),
              "forward": (2, "fused_resflow_fwd_ld")}
@@ -107,7 +104,6 @@ _VARIANTS = {"solve": (0, "fused_resflow_solve"), "inverse": (1, "fused_resflow_
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    launches_by_path.clear()
 
 
 @dataclass(frozen=True)
@@ -963,6 +959,11 @@ def launch_wide(stack: PackedResFlow, x: torch.Tensor, direction: str, probes: O
     checks it, at ``wide_plan``'s plan for the batch unless ``plan`` is
     given (of the weights' cluster size); counts the launch.  ``n_terms``:
     the probes' series lengths as ints, where the caller has them."""
+    with span(f"launch.{_variant(direction)[1]}.wide"):
+        return _launch_wide(stack, x, direction, probes, plan, n_terms)
+
+
+def _launch_wide(stack, x, direction, probes, plan, n_terms):
     spec, kw = stack.spec, stack.kernel
     B = x.shape[0]
     variant, counter = _variant(direction)
@@ -996,7 +997,6 @@ def launch_wide(stack: PackedResFlow, x: torch.Tensor, direction: str, probes: O
         raise RuntimeError(f"fused_resflow wide {direction} kernel failed to launch: "
                            f"CUDA error {err}")
     LAUNCHES[counter] += 1
-    launches_by_path["wide"] += 1
     return (y, ld) if logdet else y
 
 
@@ -1006,6 +1006,25 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
     (fwd_ld) or 'inverse' (solve_ld) returns (y, logdet (B,)) and needs
     ``probes``; 'solve' returns x, from the kernel ``solve_kernel`` picks
     (the wide kernel past WIDTHS or DIMS)."""
+    with span(launch_span(stack, direction)):
+        return _launch(stack, x, direction, probes)
+
+
+def launch_span(stack: PackedResFlow, direction: str) -> str:
+    """The launch's span: ``launch.<LAUNCHES key>.<kernel>``, the kernel
+    'tile' (the series template, and the solve past SOLVE_WIDTHS), 'warp'
+    (the solve kernel) or 'wide' (past WIDTHS or DIMS)."""
+    kw = stack.kernel
+    if isinstance(kw, WideWeights):
+        kernel = "wide"
+    elif direction == "solve" and kw is not None and solve_kernel(kw.fp) == "warp":
+        kernel = "warp"
+    else:
+        kernel = "tile"
+    return f"launch.{_variant(direction)[1]}.{kernel}"
+
+
+def _launch(stack, x, direction, probes):
     variant, counter = _variant(direction)
     kw, spec = stack.kernel, stack.spec
     if not x.is_cuda:
@@ -1029,7 +1048,7 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
         if not all(1 <= nt <= N_EXACT + 32 for nt in n_terms):
             raise ValueError(f"fused_resflow: series lengths {n_terms} out of range")
     if isinstance(kw, WideWeights):
-        return launch_wide(stack, x, direction, probes, n_terms=n_terms if logdet else None)
+        return _launch_wide(stack, x, direction, probes, None, n_terms if logdet else None)
     y = torch.empty_like(x)
     ld = torch.empty(B, dtype=torch.float32, device=x.device) if logdet else None
     if B == 0:
@@ -1044,7 +1063,6 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
         if err != 0:
             raise RuntimeError(f"fused_resflow solve kernel failed to launch: CUDA error {err}")
         LAUNCHES[counter] += 1
-        launches_by_path["warp"] += 1
         return y
     pairs = (ctypes.c_int * N_SAMPLES)(*probe_pairs(n_terms))
     fn = _kernel_fn()
@@ -1058,7 +1076,6 @@ def launch(stack: PackedResFlow, x: torch.Tensor, direction: str,
         raise RuntimeError(f"fused_resflow {direction} kernel failed to launch: "
                            f"CUDA error {err}")
     LAUNCHES[counter] += 1
-    launches_by_path["tile"] += 1
     return (y, ld) if logdet else y
 
 

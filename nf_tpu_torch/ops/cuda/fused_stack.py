@@ -40,7 +40,8 @@ runs as ONE launch per direction.  Host side, once per stack:
 ``fused_stack`` is the wrapper: for CPU tensors it runs
 ``fused_stack_reference``, the plain PyTorch version of the same math; for
 CUDA tensors it launches the kernel or raises, and counts the launch in
-``LAUNCHES``.
+``LAUNCHES``.  Each launch is the span ``launch.<LAUNCHES key>.<kernel
+path>`` (``launch_span``: 'mma', or the FFMA plan's path).
 
 Bound (H100 SXM): per sample and coupling the conditioner does
 ``in*F + 4*F*F + 2*out*F`` multiply-adds (4,192 at D = 2, F = 32) and
@@ -53,7 +54,6 @@ sample and coupling.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -66,6 +66,7 @@ from ...core.bijector import Chain
 from ...nets.conditioners import ResBlockLinear
 from ...nets.core import Activation, Sequential
 from ...nets.layers import _WN_EPS, BatchNormNet, Dense
+from ...utils.tracing import span
 from . import _build
 
 # number of (F,)-vectors packed per coupling into the VEC array:
@@ -126,16 +127,11 @@ MMA_SAMPLES = 16 * MMA_WARPS
 # fused_stack_* for RealNVP (no mix), fused_stack_glow_* for Glow (mix)
 LAUNCHES = {"fused_stack_fwd": 0, "fused_stack_inv": 0,
             "fused_stack_glow_fwd": 0, "fused_stack_glow_inv": 0}
-# the same launches by kernel and tiling: 'mma', 'ffma' (TILES), 'ffma_narrow'
-# (NARROW_TILE), 'ffma_cluster' (the cluster kernel), 'ffma_cluster_spill'
-# (its x tiles in device memory)
-launches_by_path: Counter = Counter()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    launches_by_path.clear()
 
 
 # --------------------------------------------------------------------------
@@ -773,6 +769,7 @@ class PackedStack:
         if self.device.type != "cpu":
             self.kernel = kernel_weights(spec, packed)
             self.ld_const = float(const_ld)
+        self.spans = (launch_span(self, False), launch_span(self, True))   # by inverse
 
 
 def _ffma_fn():
@@ -828,6 +825,21 @@ def weight_bytes_to_sm(kw: MmaWeights, n: int, batch: int) -> int:
 
 def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
     """Launch the CUDA kernel on ``x`` (B, D): returns (y, logdet (B,))."""
+    with span(stack.spans[inverse]):
+        return _launch(stack, x, inverse)
+
+
+def launch_span(stack: PackedStack, inverse: bool) -> str:
+    """The launch's span: ``launch.<LAUNCHES key>.<kernel path>``, the path
+    'mma' (the tensor-core kernel), 'ffma' (TILES), 'ffma_narrow'
+    (NARROW_TILE), 'ffma_cluster' (the cluster kernel) or
+    'ffma_cluster_spill' (its x tiles in device memory); a stack with no
+    kernel weights (packed on the CPU) names its variant."""
+    path = getattr(stack.kernel, "path", stack.variant)
+    return f"launch.{launch_name(stack.spec, inverse)}.{path}"
+
+
+def _launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
     kw, spec = stack.kernel, stack.spec
     if not x.is_cuda:
         raise ValueError(f"fused_stack kernel needs a CUDA tensor, got {x.device}")
@@ -874,7 +886,6 @@ def launch(stack: PackedStack, x: torch.Tensor, inverse: bool):
         raise RuntimeError(f"fused_stack {'inverse' if inverse else 'forward'} "
                            f"kernel failed to launch: CUDA error {err}")
     LAUNCHES[launch_name(spec, inverse)] += 1
-    launches_by_path["mma" if isinstance(kw, MmaWeights) else kw.path] += 1
     return y, ld
 
 

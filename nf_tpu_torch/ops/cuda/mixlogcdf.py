@@ -42,6 +42,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ...utils.tracing import span
 from . import _build
 
 LAUNCHES = {"mix_log_cdf_inverse": 0}
@@ -150,7 +151,13 @@ def _fn():
 
 def launch(y, logpi, mu, s):
     """The kernel on y (B, N) and contiguous (B, N, K) mixture tensors, all
-    float32 on one CUDA device: (x (B, N), ld (B,))."""
+    float32 on one CUDA device: (x (B, N), ld (B,)); the span
+    ``launch.mix_log_cdf_inverse``."""
+    with span("launch.mix_log_cdf_inverse"):
+        return _launch(y, logpi, mu, s)
+
+
+def _launch(y, logpi, mu, s):
     if not y.is_cuda:
         raise ValueError(f"the mixture-inverse kernel needs a CUDA tensor, got {y.device}")
     if y.dim() != 2 or logpi.dim() != 3:

@@ -2,7 +2,8 @@
 
 * ``trace(log_dir)``: a ``torch.profiler`` window (CPU activity, and CUDA
   activity where a card is present) whose Chrome trace is written into
-  ``log_dir`` when the window closes;
+  ``log_dir`` when the window closes, the port's spans (``utils/tracing.py``)
+  recorded in it as ranges of their names;
 * ``StepTimer``: nf_tpu's rolling wall-clock window; ``mark()`` first
   synchronizes the card when the timer was given a CUDA device;
 * ``cost_analysis(fn, *args)``: ``{"flops", "bytes accessed"}`` of one
@@ -32,19 +33,22 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from . import tracing
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """A ``torch.profiler`` window; on exit its Chrome trace is written to
-    ``<log_dir>/trace_<time>_<pid>.json``.  Yields the profiler, whose
-    ``trace_path`` names the file after the window."""
+    """A ``torch.profiler`` window, spans recorded (``tracing.recording``):
+    each shows in the trace as a range of its name.  On exit its Chrome
+    trace is written to ``<log_dir>/trace_<time>_<pid>.json``.  Yields the
+    profiler, whose ``trace_path`` names the file after the window."""
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.trace_path = None
-    with prof:
+    with prof, tracing.recording():
         yield prof
     if torch.cuda.is_available():
         torch.cuda.synchronize()

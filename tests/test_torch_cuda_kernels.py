@@ -29,10 +29,20 @@ in another order), as nf_tpu's tests/test_pallas.py holds its kernel, at
 K = 1 to 64 and rows of up to 2100 elements; two launches give the same
 bits.
 """
+from collections import Counter
+
 import pytest
 import torch
 
+from nf_tpu_torch.utils.tracing import recording
+
 pytestmark = pytest.mark.cuda
+
+
+def _paths(spans) -> Counter:
+    """{kernel path: launches} of a recording's launch spans
+    (``launch.<LAUNCHES key>.<path>``)."""
+    return Counter(name.rsplit(".", 1)[1] for name in spans.counts("launch.").elements())
 
 
 @pytest.fixture
@@ -136,9 +146,10 @@ def test_fused_stack_cluster_kernel_matches_plain(cuda, name, D, F):
     x = torch.randn(300, D, generator=g, device=cuda)
     for direction in ("forward", "inverse"):
         fs.reset_launches()
-        y, ld = fs.fused_stack(prog.stack, x, direction)
+        with recording() as spans:
+            y, ld = fs.fused_stack(prog.stack, x, direction)
         torch.cuda.synchronize()
-        assert fs.launches_by_path == {path: 1}
+        assert _paths(spans) == {path: 1}
         yr, ldr = fs.fused_stack_reference(prog.stack.packed, prog.stack.const_ld,
                                            x, direction)
         torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
@@ -250,15 +261,16 @@ def test_resflow_wide_kernel_matches_plain(cuda, D, F, B):
     x = torch.randn(B, D, generator=g, device=cuda)
     probes = rf.draw_unbias_probes(B, D, g)
     rf.reset_launches()
-    z, ld = rf.fused_resflow(st, x, "forward", probes)
+    with recording() as spans:
+        z, ld = rf.fused_resflow(st, x, "forward", probes)
+        torch.cuda.synchronize()
+        zr, ldr = rf.fused_resflow_fwd_logdet_reference(st.spec, st.packed, x, probes)
+        torch.testing.assert_close(z, zr, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
+        xi, ldi = rf.fused_resflow(st, zr, "inverse", probes)
+        xs = rf.fused_resflow(st, zr, "solve")
     torch.cuda.synchronize()
-    zr, ldr = rf.fused_resflow_fwd_logdet_reference(st.spec, st.packed, x, probes)
-    torch.testing.assert_close(z, zr, atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(ld, ldr, atol=1e-3, rtol=0)
-    xi, ldi = rf.fused_resflow(st, zr, "inverse", probes)
-    xs = rf.fused_resflow(st, zr, "solve")
-    torch.cuda.synchronize()
-    assert rf.launches_by_path == {"wide": 3}
+    assert _paths(spans) == {"wide": 3}
     xr, ldir = rf.fused_resflow_solve_logdet_reference(st.spec, st.packed, zr, probes)
     torch.testing.assert_close(xi, xr, atol=1e-3, rtol=0)
     torch.testing.assert_close(ldi, ldir, atol=1e-3, rtol=0)
@@ -616,13 +628,15 @@ def test_attention_past_128_matches_plain_and_other_dtypes_raise(cuda):
     ca.reset_launches()
     cm.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(129)
-    for BH, L, D in ((4, 16, 129), (64, 256, 192), (64, 64, 512), (3, 40, 130), (5, 1, 200),
-                     (8, 64, 2048), (3, 33, 1030)):
-        q, k, v = (torch.randn(BH, L, D, generator=g, device=cuda) for _ in range(3))
-        out = ta.attention(q, k, v)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, ta.attention_reference(q, k, v), atol=1e-5, rtol=1e-5)
-    assert ca.launches_by_path == {"wide": 6}   # one token returns v
+    with recording() as spans:
+        for BH, L, D in ((4, 16, 129), (64, 256, 192), (64, 64, 512), (3, 40, 130),
+                         (5, 1, 200), (8, 64, 2048), (3, 33, 1030)):
+            q, k, v = (torch.randn(BH, L, D, generator=g, device=cuda) for _ in range(3))
+            out = ta.attention(q, k, v)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ta.attention_reference(q, k, v), atol=1e-5,
+                                       rtol=1e-5)
+    assert _paths(spans) == {"wide": 6}   # one token returns v
     with pytest.raises(ValueError, match="float32"):
         ca.launch(*(torch.randn(4, 16, 8, device=cuda, dtype=torch.float64),) * 3)
     assert ca.LAUNCHES == {"attention_fwd": 6} and cm.LAUNCHES == {"mix_log_cdf_inverse": 0}
@@ -643,10 +657,11 @@ def test_gated_attention_past_1024_columns_trains_on_the_card(cuda):
     x = torch.randn(2, 4, 4, 8, generator=torch.Generator(device=cuda).manual_seed(9),
                     device=cuda)
     ca.reset_launches()
-    y = net(x)
-    y.square().sum().backward()
+    with recording() as spans:
+        y = net(x)
+        y.square().sum().backward()
     torch.cuda.synchronize()
-    assert ca.launches_by_path == {"wide": 1}
+    assert _paths(spans) == {"wide": 1}
     yc = cpu(x.cpu())
     yc.square().sum().backward()
     torch.testing.assert_close(y.detach().cpu(), yc.detach(), atol=1e-4, rtol=1e-4)
@@ -654,7 +669,7 @@ def test_gated_attention_past_1024_columns_trains_on_the_card(cuda):
         torch.testing.assert_close(p.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-4, msg=name)
 
 
-def test_image_flowpp_launches_only_attention(cuda):
+def test_image_flowpp_launches_only_attention(cuda, monkeypatch):
     """flowpp-img32x1 through EvalProgram's eager chain: one attention_fwd
     per coupling per pass (64 / 64 / 33 over L = 256 / 64 / 16) and no
     other kernel of the port."""
@@ -677,11 +692,19 @@ def test_image_flowpp_launches_only_attention(cuda):
     prog = model.eval_program(model.init(g))
     assert prog.stack is None
     x = 0.05 + 0.9 * torch.rand(8, 32, 32, 1, generator=g, device=cuda)
+    by_len, launch = Counter(), ca.launch
+
+    def counting(q, k, v):
+        by_len[q.shape[1]] += 1
+        return launch(q, k, v)
+
+    monkeypatch.setattr(ca, "launch", counting)
     for call in (lambda: prog.log_prob(x), lambda: prog.sample(8, g)):
         for m in mods:
             m.reset_launches()
+        by_len.clear()
         out = call()
         torch.cuda.synchronize()
         assert counts() == {"attention_fwd": 161}
-        assert dict(ca.launches_by_len) == {256: 64, 64: 64, 16: 33}
+        assert by_len == {256: 64, 64: 64, 16: 33}
         assert all(torch.isfinite(t).all() for t in (out if isinstance(out, tuple) else (out,)))
